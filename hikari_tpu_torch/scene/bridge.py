@@ -1,0 +1,66 @@
+"""Carry a scene built by the JAX package over to the port.
+
+``scene_from_numpy`` takes the JAX ``SceneData`` flattened to numpy arrays
+(the caller does the flattening, so this module never imports JAX) and
+returns the port's ``SceneData``, so both packages compute on the same BVH
+leaf order and triangle indices.
+
+Keys of ``arrays``: ``face_rows``, ``mat_type``, ``mat_idx``,
+``world_lo``, ``world_hi``, ``scene_radius``, ``present_materials``,
+``treelets.{lo,hi,sup_lo,sup_hi,bw,tri}`` (``bw`` converted to float32),
+``materials.<field>`` for every field of the port's ``MaterialBanks`` and
+``lights.<field>`` for every field of its ``LightBanks``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import fields
+
+import numpy as np
+import torch
+
+from ..geometry.wavefront import Treelets, coef_from_m4
+from ..lights.types import LightBanks
+from ..materials.types import MaterialBanks
+from .scene import SceneData
+
+
+def coef_from_bw(bw: np.ndarray) -> np.ndarray:
+    """Rebuild the float32 affine coefficients from the TPU layout.
+
+    At SPLIT=3 the (T, 24, 3*TT) rows are [m1 m2 m1 m3 m1 m2] in blocks of
+    4, where m1, m2, m3 are successive bf16 truncations of m, so
+    (m1 + m2) + m3 == m exactly in float32."""
+    bw = np.asarray(bw, np.float32)
+    if bw.shape[1] != 24:
+        raise ValueError(f"expected the 3-way split (24 rows), got {bw.shape}")
+    m4 = (bw[:, 0:4] + bw[:, 4:8]) + bw[:, 12:16]
+    return coef_from_m4(m4)
+
+
+def scene_from_numpy(arrays: dict, device) -> SceneData:
+    def t(key, dtype=None):
+        x = torch.from_numpy(np.array(arrays[key]))
+        return x if dtype is None else x.to(dtype)
+
+    treelets = Treelets(
+        lo=t("treelets.lo"), hi=t("treelets.hi"), sup_lo=t("treelets.sup_lo"),
+        sup_hi=t("treelets.sup_hi"),
+        coef=torch.from_numpy(coef_from_bw(arrays["treelets.bw"])),
+        tri=t("treelets.tri"))
+    materials = MaterialBanks(**{f.name: t(f"materials.{f.name}")
+                                 for f in fields(MaterialBanks)})
+    light_kw = {}
+    for f in fields(LightBanks):
+        v = arrays[f"lights.{f.name}"]
+        light_kw[f.name] = (int(v) if f.name in ("area_flat_base", "n_flat")
+                            else t(f"lights.{f.name}"))
+    lights = LightBanks(**light_kw)
+    scene = SceneData(
+        treelets=treelets, face_rows=t("face_rows"),
+        mat_type=t("mat_type", torch.int32), mat_idx=t("mat_idx", torch.int32),
+        materials=materials, lights=lights, world_lo=t("world_lo"),
+        world_hi=t("world_hi"), scene_radius=float(arrays["scene_radius"]),
+        present_materials=tuple(int(x) for x in arrays["present_materials"]),
+        n_lights=lights.n_flat, n_faces=int(arrays["face_rows"].shape[0]))
+    return scene.to(device)

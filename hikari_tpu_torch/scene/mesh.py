@@ -1,0 +1,78 @@
+"""Triangle meshes (host numpy) and procedural constructors.
+
+Port of ``hikari_tpu/scene/mesh.py`` without the OBJ loader.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+
+@dataclass
+class TriangleMesh:
+    vertices: np.ndarray               # (V, 3) float32
+    faces: np.ndarray                  # (F, 3) int32
+    normals: np.ndarray | None = None  # (V, 3)
+    uvs: np.ndarray | None = None      # (V, 2)
+    colors: np.ndarray | None = None   # (V, 3)
+    transform: np.ndarray | None = None  # optional 4x4 object-to-world
+
+    def __post_init__(self):
+        self.vertices = np.asarray(self.vertices, np.float32).reshape(-1, 3)
+        self.faces = np.asarray(self.faces, np.int32).reshape(-1, 3)
+        if self.normals is not None:
+            self.normals = np.asarray(self.normals, np.float32).reshape(-1, 3)
+        if self.uvs is not None:
+            self.uvs = np.asarray(self.uvs, np.float32).reshape(-1, 2)
+        if self.colors is not None:
+            self.colors = np.asarray(self.colors, np.float32).reshape(-1, 3)
+
+    @property
+    def n_faces(self):
+        return self.faces.shape[0]
+
+
+def compute_vertex_normals(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Area-weighted vertex normals."""
+    p0, p1, p2 = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
+    fn = np.cross(p1 - p0, p2 - p0)
+    n = np.zeros_like(verts)
+    for k in range(3):
+        np.add.at(n, faces[:, k], fn)
+    ln = np.linalg.norm(n, axis=-1, keepdims=True)
+    return (n / np.maximum(ln, 1e-12)).astype(np.float32)
+
+
+def make_quad(p0, p1, p2, p3) -> TriangleMesh:
+    """Two-triangle quad with corners in CCW order."""
+    v = np.array([p0, p1, p2, p3], np.float32)
+    f = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    return TriangleMesh(v, f, uvs=uv)
+
+
+def make_sphere(center, radius, n_theta=32, n_phi=64) -> TriangleMesh:
+    """UV sphere with smooth vertex normals."""
+    center = np.asarray(center, np.float32)
+    thetas = np.linspace(0.0, np.pi, n_theta)
+    phis = np.linspace(0.0, 2 * np.pi, n_phi, endpoint=False)
+    T, P = np.meshgrid(thetas, phis, indexing="ij")
+    normals = np.stack([np.sin(T) * np.cos(P), np.sin(T) * np.sin(P), np.cos(T)],
+                       -1).reshape(-1, 3).astype(np.float32)
+    verts = center + radius * normals
+    uvs = np.stack([P / (2 * np.pi), T / np.pi], -1).reshape(-1, 2).astype(np.float32)
+    faces = []
+    for i in range(n_theta - 1):
+        for j in range(n_phi):
+            a = i * n_phi + j
+            b = i * n_phi + (j + 1) % n_phi
+            c = (i + 1) * n_phi + j
+            d = (i + 1) * n_phi + (j + 1) % n_phi
+            if i > 0:
+                faces.append([a, c, b])
+            if i < n_theta - 2:
+                faces.append([b, c, d])
+    return TriangleMesh(verts.astype(np.float32), np.array(faces, np.int32),
+                        normals=normals, uvs=uvs)

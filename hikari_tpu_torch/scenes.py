@@ -1,0 +1,167 @@
+"""The benchmark scenes of ``bench.py`` and its transport probe, for the port.
+
+``bench.py`` imports JAX, so its scene builders are ported here:
+``default_scene`` (``build_scene``, the main path's 61,450 triangles) and
+``mesh_scene`` (``build_mesh_scene``, a 327,680-triangle displaced
+icosphere in the same room). ``transport_probe`` is the port of ``bench.transport_probe`` and
+``check_transport`` holds it against the stored reference
+``tools/transport_ref.json`` with the tolerances of ``bench.py:171-178``.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .camera.camera import make_perspective_camera
+from .film.filters import make_filter
+from .integrators.volpath import VolPath, render_lanes
+from .lights.types import PointLight
+from .materials.types import Emissive, Glass, Gold, Matte, Mirror
+from .scene.mesh import TriangleMesh, make_quad, make_sphere
+from .scene.scene import Scene
+
+TRANSPORT_REF = Path(__file__).resolve().parent.parent / "tools" / "transport_ref.json"
+
+# camera (eye, look-at, fov) and transport probe (res, depth, spp, rgb
+# tolerance): bench.py SCENE_DEFS
+SCENE_DEFS = {
+    "default": (((0.0, 1.6, -2.8), (0.0, 0.9, 2.0), 45.0), (64, 5, 1, 0.02)),
+    "mesh": (((0.0, 1.6, -2.8), (0.0, 0.9, 2.0), 45.0), (64, 5, 1, 0.02)),
+}
+
+
+def _room(s: Scene):
+    white = Matte(kd=(0.73, 0.73, 0.73))
+    s.add(make_quad((-3, 0, -1), (3, 0, -1), (3, 0, 5), (-3, 0, 5)), white)
+    s.add(make_quad((-3, 0, 5), (3, 0, 5), (3, 4, 5), (-3, 4, 5)), white)
+    s.add(make_quad((-3, 0, -1), (-3, 0, 5), (-3, 4, 5), (-3, 4, -1)),
+          Matte(kd=(0.65, 0.05, 0.05)))
+    s.add(make_quad((3, 0, -1), (3, 4, -1), (3, 4, 5), (3, 0, 5)),
+          Matte(kd=(0.12, 0.45, 0.15)))
+
+
+def _lights(s: Scene):
+    s.add(make_quad((-1.0, 3.99, 1.0), (1.0, 3.99, 1.0), (1.0, 3.99, 3.0),
+                    (-1.0, 3.99, 3.0)),
+          Emissive(le=(1.0, 0.95, 0.85), scale=25.0))
+    s.add_light(PointLight(position=(0.0, 3.0, -0.5), intensity=(8.0, 8.0, 8.0)))
+
+
+def default_scene(sphere_res=(32, 64)) -> Scene:
+    """bench.py build_scene: Cornell walls, 16 spheres cycling Gold / Glass /
+    Mirror / two Mattes, an emissive quad and a point light. sphere_res
+    (n_theta, n_phi) = (32, 64) gives the benchmark's 61,450 triangles."""
+    s = Scene()
+    _room(s)
+    mats = [Gold(roughness=0.15), Glass(eta=1.5), Mirror(), Matte(kd=(0.3, 0.4, 0.8)),
+            Matte(kd=(0.8, 0.6, 0.2))]
+    k = 0
+    for ix in range(4):
+        for iz in range(4):
+            s.add(make_sphere((-1.8 + 1.2 * ix, 0.45, 0.2 + 1.2 * iz), 0.42,
+                              *sphere_res), mats[k % len(mats)])
+            k += 1
+    _lights(s)
+    return s
+
+
+def _displaced_icosphere(subdiv: int, seed: int = 7):
+    """~20 * 4^subdiv-triangle icosphere displaced by multi-octave value
+    noise (bench.py _displaced_icosphere, same arithmetic)."""
+    t = (1.0 + 5.0 ** 0.5) / 2.0
+    v = np.asarray([
+        [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+        [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+        [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1],
+    ], np.float64)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    f = np.asarray([
+        [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+        [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+        [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+        [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+    ], np.int64)
+    for _ in range(subdiv):
+        n = len(v)
+        edges = {}
+        verts = [v]
+
+        def mid(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in edges:
+                m = v[a] + v[b]
+                m /= np.linalg.norm(m)
+                edges[key] = n + len(edges)
+                verts.append(m[None])
+            return edges[key]
+
+        nf = []
+        for a, b, c in f:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            nf += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        v = np.concatenate(verts)
+        f = np.asarray(nf, np.int64)
+    rng = np.random.RandomState(seed)
+    disp = np.zeros(len(v))
+    for octv in range(4):
+        k = 2.0 ** octv
+        ph = rng.rand(3, 3) * 6.2832
+        amp = 0.18 / k
+        for ax in range(3):
+            disp += amp * np.sin(k * 3.1 * (v @ rng.rand(3)) + ph[ax, 0]) \
+                * np.cos(k * 2.3 * (v @ rng.rand(3)) + ph[ax, 1])
+    v = v * (1.0 + 0.35 * disp[:, None])
+    return v.astype(np.float32), f.astype(np.int32)
+
+
+def mesh_scene() -> Scene:
+    """bench.py build_mesh_scene: the 327,680-triangle displaced icosphere
+    (Gold) in the bench room with the same lights."""
+    s = Scene()
+    _room(s)
+    v, f = _displaced_icosphere(7)
+    v = v * 0.9 + np.asarray([[0.0, 1.1, 2.0]], np.float32)
+    s.add(TriangleMesh(vertices=v, faces=f), Gold(roughness=0.2))
+    _lights(s)
+    return s
+
+
+BUILDERS = {"default": default_scene, "mesh": mesh_scene}
+
+
+def scene_camera(which: str, res_px: int):
+    (eye, at, fov), _ = SCENE_DEFS[which]
+    return make_perspective_camera(eye, at, (res_px, res_px), fov_deg=fov)
+
+
+def transport_probe(scene, which: str = "default"):
+    """1-spp render of a bench scene at the probe size: (rays traced,
+    mean framebuffer RGB), as bench.transport_probe computes them."""
+    _, (pres, pdepth, pspp, _) = SCENE_DEFS[which]
+    camera = scene_camera(which, pres)
+    vp = VolPath(max_depth=pdepth, samples_per_pixel=1)
+    lanes = torch.arange(pres * pres, device=scene.device)
+    rays = mean_rgb = 0.0
+    for s in range(pspp):
+        rgb, _, stats = render_lanes(vp, scene, camera, make_filter(), s,
+                                     lanes % pres, lanes // pres)
+        rays += float(stats["rays_traced"])
+        mean_rgb += float(rgb.mean())
+    return rays / pspp, mean_rgb / pspp
+
+
+def check_transport(scene, which: str = "default"):
+    """Probe against tools/transport_ref.json. Returns (ok, message)."""
+    ref = json.loads(TRANSPORT_REF.read_text())["scenes"][which]
+    rays, mean_rgb = transport_probe(scene, which)
+    tol = SCENE_DEFS[which][1][3]
+    dr = abs(rays - ref["rays_traced"]) / max(ref["rays_traced"], 1.0)
+    dc = abs(mean_rgb - ref["mean_rgb"]) / max(abs(ref["mean_rgb"]), 1e-6)
+    msg = (f"{which}: rays_traced {rays:.0f} vs {ref['rays_traced']:.0f} "
+           f"({dr * 100:.3f}%), mean_rgb {mean_rgb:.7f} vs {ref['mean_rgb']:.7f} "
+           f"({dc * 100:.3f}%)")
+    return (dr <= max(0.005, tol / 4) and dc <= tol), msg
