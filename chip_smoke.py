@@ -8,21 +8,29 @@ exits nonzero without its result line:
 
 1. device: the card's name, torch and CUDA versions, and nvidia-smi's name
    and power limit;
-2. build: the two sweep kernels from hikari_tpu_torch/csrc with nvcc;
-3. kernels vs plain: on the default (~33k triangles) and mesh (327,680
-   triangles) scenes, the pair lists of three wavefronts of a 256x256
-   render (camera rays, the first bounce, that bounce's NEE shadow rays)
-   go through each kernel and its plain PyTorch version on the same CUDA
-   tensors; tr and column must agree on >= 99.9% of live lanes, t within
-   1e-5 relative where they agree, occlusion flags on >= 99.9%;
+2. build: csrc/sweep_tiles.cu (flat sweeps) and csrc/sweep_inst.cu
+   (instanced sweeps), one nvcc each, started together;
+3. kernels vs plain: the camera, first-bounce and first-bounce NEE
+   wavefronts of a 256x256 render of each scene go through each kernel and
+   its plain PyTorch version on the same CUDA tensors. Flat scenes: default
+   (61,450 triangles) and mesh (327,680); tr and column must agree on
+   >= 99.9% of live lanes, t within 1e-5 relative where they agree.
+   Instanced scenes: the default scene with its spheres instanced, and the
+   400-tree forest; tri must agree on >= 99.9% of live lanes, t within 1e-5
+   relative and b1 / b2 within 1e-4 where it agrees.
+   Occlusion flags on >= 99.9%;
 4. transport probes: the 64x64 probes of the default and mesh scenes
    against tools/transport_ref.json (rays within 0.5%, mean RGB within 2%);
-5. main path: render(VolPath(max_depth=5, samples_per_pixel=4)) of the
-   default scene at 800x800 through the public API, with the launch counts
-   reset just before and read just after; the image must be finite, both
-   kernels must have launched and the plain sweeps must not have run; then
-   both kernels are timed against their plain versions on wavefronts of
-   that main path.
+   the instanced default scene against the flat one at 64x64, depth 5, 4
+   spp averaged, with the same tolerances;
+5. main paths: render(VolPath(max_depth=5, samples_per_pixel=4)) at
+   800x800 through the public API of the default scene (flat kernels), the
+   instanced default scene and the forest (instanced kernels), each with the
+   launch counts reset just before and read just after; the image must be
+   finite and not black, the path's two kernels must have launched, and no
+   other sweep, kernel or plain, may have run;
+6. timings: each kernel against its plain version on a wavefront of its
+   main path.
 
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. It needs no network and one card; the
@@ -38,10 +46,12 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-AGREE_MIN = 0.999   # tr/column and occlusion agreement, kernel vs plain
-T_RTOL = 1e-5       # t where tr and column agree
+AGREE_MIN = 0.999   # tr/column (tri) and occlusion agreement, kernel vs plain
+T_RTOL = 1e-5       # t where tr and column (tri) agree
+B_ATOL = 1e-4       # instanced b1 / b2 where tri agrees
 MAIN_RES = 800
 MAIN_SPP = 4
+PROBE_SPP = 4
 
 
 def log(*args):
@@ -56,29 +66,26 @@ def smi_line() -> str:
 
 
 class Recorder:
-    """Wraps the sweep entry points the traversal calls, keeping the
+    """Wraps the sweep entry points a traversal module calls, keeping the
     arguments of every call so the same inputs can be replayed."""
 
-    def __init__(self, wavefront):
-        self.wavefront = wavefront
-        self.calls = {"closest_tiles": [], "occlusion_tiles": []}
+    def __init__(self, module, names):
+        self.module = module
+        self.calls = {name: [] for name in names}
+        self.orig = {name: getattr(module, name) for name in names}
 
     def __enter__(self):
-        for name in self.calls:
-            orig = getattr(self.wavefront, name)
-
+        for name, orig in self.orig.items():
             def wrapped(*args, _orig=orig, _name=name):
                 self.calls[_name].append(args)
                 return _orig(*args)
 
-            setattr(self.wavefront, name, wrapped)
+            setattr(self.module, name, wrapped)
         return self
 
     def __exit__(self, *exc):
-        from hikari_tpu_torch.geometry import sweep
-
-        for name in self.calls:
-            setattr(self.wavefront, name, getattr(sweep, name))
+        for name, orig in self.orig.items():
+            setattr(self.module, name, orig)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -95,45 +102,181 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(name, args, tl, reps=(10, 2)):
-    """Kernel vs plain on one captured input; returns a result dict."""
+def kernel_and_plain(name):
+    from hikari_tpu_torch.geometry import sweep, sweep_inst
+
+    module = sweep_inst if name.endswith("_inst") else sweep
+    return getattr(module, name), getattr(module, name + "_plain")
+
+
+def compare(name, args, tl=None, reps=(10, 2)):
+    """Kernel vs plain on one captured input; returns a result dict. tl:
+    the flat treelets (closest_tiles resolves t from their rows)."""
     import torch
     from hikari_tpu_torch.geometry import sweep
     from hikari_tpu_torch.geometry.wavefront import _resolve_hits
 
-    kernel = getattr(sweep, name)
-    plain = getattr(sweep, name + "_plain")
+    kernel, plain = kernel_and_plain(name)
     out_k = kernel(*args)
     out_p = plain(*args)
     torch.cuda.synchronize()
     o, d = args[0], args[1]
     n = o.shape[0]
+    b_err = 0.0
     if name == "closest_tiles":
         live = (args[2] & ~sweep.COL_MASK) > 0  # initial reach > 0
         (key_k, tr_k), (key_p, tr_p) = out_k, out_p
         same = (tr_k == tr_p) & ((key_k & sweep.COL_MASK) == (key_p & sweep.COL_MASK))
-        agree = float(same[live].float().mean()) if live.any() else 1.0
         t_k = _resolve_hits(tl, key_k, tr_k, o, d)[0]
         t_p = _resolve_hits(tl, key_p, tr_p, o, d)[0]
-        both = same & live & (tr_k >= 0)
-        err = float((t_k - t_p).abs()[both].max()) if both.any() else 0.0
-        rel = float(((t_k - t_p).abs() / t_p.abs().clamp(min=1e-12))[both].max()) \
-            if both.any() else 0.0
-        ok = agree >= AGREE_MIN and rel <= T_RTOL
-        hits = int((tr_k >= 0).sum())
+        hit_k = tr_k >= 0
+    elif name == "closest_inst":
+        live = args[2] > 0.0
+        (t_k, tri_k, b1_k, b2_k), (t_p, tri_p, b1_p, b2_p) = out_k, out_p
+        same = tri_k == tri_p
+        hit_k = tri_k >= 0
+        both = same & live & hit_k
+        if both.any():
+            b_err = max(float((b1_k - b1_p).abs()[both].max()),
+                        float((b2_k - b2_p).abs()[both].max()))
     else:
         live = args[2] > 0.0
         same = out_k == out_p
-        agree = float(same[live].float().mean()) if live.any() else 1.0
+        hit_k = out_k > 0
+    agree = float(same[live].float().mean()) if live.any() else 1.0
+    if name.startswith("closest"):
+        both = same & live & hit_k
+        dt = (t_k - t_p).abs()[both]
+        err = float(dt.max()) if both.any() else 0.0
+        rel = float((dt / t_p.abs()[both].clamp(min=1e-12)).max()) if both.any() else 0.0
+        t_ok = bool((dt <= T_RTOL * t_p.abs()[both]).all())
+        ok = agree >= AGREE_MIN and t_ok and b_err <= B_ATOL
+    else:
         err = float((out_k - out_p).abs().max()) if n else 0.0
         rel = 0.0
         ok = agree >= AGREE_MIN
-        hits = int((out_k[live] > 0).sum())
     ms_k = cuda_ms(lambda: kernel(*args), reps[0])
     ms_p = cuda_ms(lambda: plain(*args), reps[1])
-    return dict(ok=ok, agree=agree, max_abs_err=err, max_rel_err=rel, lanes=n,
-                live=int(live.sum()), pairs=int(args[4].numel()), hits=hits,
-                ms=ms_k, plain_ms=ms_p)
+    tre = args[3] if name == "closest_inst" else args[4]
+    return dict(ok=ok, agree=agree, max_abs_err=err, max_rel_err=rel, b_err=b_err,
+                lanes=n, live=int(live.sum()), pairs=int(tre.numel()),
+                hits=int(hit_k[live].sum()), ms=ms_k, plain_ms=ms_p)
+
+
+def compare_wavefronts(label, sc, cam, module, names, tl, smi, failures):
+    """Kernels vs plain on the camera, bounce-1 and bounce-1 NEE wavefronts
+    of a 256x256 render of `sc`."""
+    import torch
+    import hikari_tpu_torch as hk
+    from hikari_tpu_torch.integrators.volpath import render_lanes
+
+    res = cam.resolution[0]
+    lanes = torch.arange(res * res, device=sc.device)
+    with Recorder(module, names) as rec:
+        render_lanes(hk.VolPath(max_depth=2, samples_per_pixel=1), sc, cam,
+                     hk.make_filter(), 0, lanes % res, lanes // res)
+    closest, occlusion = names
+    cases = [("camera rays", closest, rec.calls[closest][0]),
+             ("bounce 1", closest, rec.calls[closest][1]),
+             ("bounce 1 NEE", occlusion, rec.calls[occlusion][1])]
+    for what, name, args in cases:
+        r = compare(name, args, tl)
+        b = f", b1/b2 max abs err {r['b_err']:.2e}" if name == "closest_inst" else ""
+        log(f"[kernels] {label} {what}: {name} agree {r['agree']:.6f} "
+            f"(lanes {r['lanes']}, live {r['live']}, pairs {r['pairs']}, "
+            f"hits {r['hits']}), t max rel err {r['max_rel_err']:.2e}{b}, "
+            f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms "
+            f"[{smi}] -> {'ok' if r['ok'] else 'FAIL'}")
+        if not r["ok"]:
+            failures.append(f"{label} {what}")
+
+
+def main_path(label, sc, cam, module, names, smi):
+    """render(VolPath(max_depth=5, samples_per_pixel=4)) of `sc` through the
+    public API, after a warm-up render_lanes of sample batch 0 that also
+    counts rays and captures the traversal's sweep calls. The launch counts
+    are reset just before the render and read just after; the image must be
+    finite and not black, the kernels `names` must have launched and no
+    other sweep (kernel or plain) may have run."""
+    import torch
+    import hikari_tpu_torch as hk
+    from hikari_tpu_torch.geometry import sweep
+    from hikari_tpu_torch.integrators.volpath import render_lanes
+
+    dev = sc.device
+    w, h = cam.resolution
+    vp = hk.VolPath(max_depth=5, samples_per_pixel=MAIN_SPP)
+    k = vp.sample_batch
+    lanes = torch.arange(w * h, device=dev)
+    with Recorder(module, names) as rec:
+        _, _, stats = render_lanes(
+            vp, sc, cam, hk.make_filter(),
+            torch.arange(k, device=dev).repeat_interleave(w * h),
+            (lanes % w).repeat(k), (lanes // w).repeat(k))
+    rays = float(stats["rays_traced"])
+    nonfinite = float(stats["nonfinite_lanes"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sweep.reset_counts()
+    t0 = time.perf_counter()
+    img = hk.framebuffer(hk.render(vp, sc, cam))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(sweep.launches)
+    plain_runs = dict(sweep.plain_cuda_runs)
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(img).all())
+    mean_rgb = float(img.mean())
+    log(f"[{label}] render {w}x{h}, {MAIN_SPP} spp, depth 5: {wall:.3f} s, "
+        f"{rays / wall / 1e6:.3f} Mray/s ({rays:.0f} rays), "
+        f"{wall / MAIN_SPP * 1e3:.1f} ms/sample, peak {peak / 2**30:.2f} GiB [{smi}]")
+    log(f"[{label}] mean RGB {mean_rgb:.6f}, finite {finite}, nonfinite lanes "
+        f"{nonfinite:.0f}, launches {counts}, plain sweeps on CUDA {plain_runs}")
+    if not finite or nonfinite != 0.0 or mean_rgb <= 0.0:
+        raise SystemExit(f"{label}: output is not a finite, non-black image")
+    if (min(counts[n] for n in names) <= 0
+            or any(v for n, v in counts.items() if n not in names)
+            or any(plain_runs.values())):
+        raise SystemExit(f"{label}: the render did not go through exactly the "
+                         f"kernels {names}")
+    return counts, rec
+
+
+def probe(sc, spp: int):
+    """(rays traced, mean RGB) of the default scene's 64x64 depth-5 probe,
+    averaged over samples 0..spp-1."""
+    import torch
+    import hikari_tpu_torch as hk
+    from hikari_tpu_torch.integrators.volpath import render_lanes
+    from hikari_tpu_torch.scenes import scene_camera
+
+    lanes = torch.arange(64 * 64, device=sc.device)
+    rays = rgb = 0.0
+    for s in range(spp):
+        img, _, st = render_lanes(hk.VolPath(max_depth=5, samples_per_pixel=spp), sc,
+                                  scene_camera("default", 64), hk.make_filter(), s,
+                                  lanes % 64, lanes // 64)
+        rays, rgb = rays + float(st["rays_traced"]), rgb + float(img.mean())
+    return rays / spp, rgb / spp
+
+
+def time_kernels(cases, counts, smi):
+    """Kernels vs plain at main-path shapes; returns their JSON records."""
+    records = []
+    for name, replaces, args, tl in cases:
+        r = compare(name, args, tl, reps=(5, 1))
+        log(f"[timing] {name} at main-path shape: agree {r['agree']:.6f} "
+            f"(lanes {r['lanes']}, pairs {r['pairs']}), kernel {r['ms']:.3f} ms, "
+            f"plain {r['plain_ms']:.3f} ms [{smi}] -> {'ok' if r['ok'] else 'FAIL'}")
+        if not r["ok"]:
+            raise SystemExit(f"{name} disagrees with its plain version at main-path shape")
+        source = "sweep_inst.cu" if name.endswith("_inst") else "sweep_tiles.cu"
+        records.append({
+            "name": name, "route": "cuda", "source": f"hikari_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": counts[name], "max_abs_err": r["max_abs_err"],
+            "agree": r["agree"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        })
+    return records
 
 
 def main() -> int:
@@ -159,17 +302,25 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # phase 2: build
-    from hikari_tpu_torch.geometry import sweep, wavefront
+    # phase 2: build both sources at once, one nvcc each
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hikari_tpu_torch.geometry import instanced, sweep, sweep_inst, wavefront
 
     t0 = time.perf_counter()
-    sweep.sweep_library()
-    log(f"[build] nvcc built csrc/sweep_tiles.cu in {time.perf_counter() - t0:.1f} s "
-        f"(flags: {' '.join(sweep.NVCC_FLAGS)})")
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(sweep.sweep_library), pool.submit(sweep_inst.inst_library)]
+        for b in builds:
+            b.result()
+    log(f"[build] nvcc built csrc/sweep_tiles.cu and csrc/sweep_inst.cu in "
+        f"{time.perf_counter() - t0:.1f} s (flags: {' '.join(sweep.NVCC_FLAGS)})")
 
-    import hikari_tpu_torch as hk
-    from hikari_tpu_torch.integrators.volpath import render_lanes
-    from hikari_tpu_torch.scenes import BUILDERS, check_transport, scene_camera
+    from hikari_tpu_torch.scenes import (BUILDERS, check_transport, forest_camera,
+                                         forest_scene, instanced_default_scene,
+                                         scene_camera)
+
+    flat_names = ("closest_tiles", "occlusion_tiles")
+    inst_names = ("closest_inst", "occlusion_inst")
 
     # phase 3: kernels vs plain on three wavefronts per scene
     failures = []
@@ -180,24 +331,19 @@ def main() -> int:
         sc = scenes[which]
         log(f"[kernels] {which}: {sc.n_faces} triangles, "
             f"{sc.treelets.lo.shape[0]} treelets, built in {time.perf_counter() - t0:.1f} s")
-        res = 256
-        lanes = torch.arange(res * res, device=dev)
-        with Recorder(wavefront) as rec:
-            render_lanes(hk.VolPath(max_depth=2, samples_per_pixel=1), sc,
-                         scene_camera(which, res), hk.make_filter(), 0,
-                         lanes % res, lanes // res)
-        cases = [("camera rays", "closest_tiles", rec.calls["closest_tiles"][0]),
-                 ("bounce 1", "closest_tiles", rec.calls["closest_tiles"][1]),
-                 ("bounce 1 NEE", "occlusion_tiles", rec.calls["occlusion_tiles"][1])]
-        for label, name, args in cases:
-            r = compare(name, args, sc.treelets)
-            log(f"[kernels] {which} {label}: {name} agree {r['agree']:.6f} "
-                f"(lanes {r['lanes']}, live {r['live']}, pairs {r['pairs']}, "
-                f"hits {r['hits']}), t max rel err {r['max_rel_err']:.2e}, "
-                f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms "
-                f"[{smi}] -> {'ok' if r['ok'] else 'FAIL'}")
-            if not r["ok"]:
-                failures.append(f"{which} {label}")
+        compare_wavefronts(which, sc, scene_camera(which, 256), wavefront, flat_names,
+                           sc.treelets, smi, failures)
+    for which, build, cam in (
+            ("instanced default", instanced_default_scene, scene_camera("default", 256)),
+            ("forest", forest_scene, forest_camera(256, 256))):
+        t0 = time.perf_counter()
+        scenes[which] = build().build(device=dev)
+        sc = scenes[which]
+        log(f"[kernels] {which}: {sc.n_faces} BLAS triangles (padded), "
+            f"{sc.inst.coef.shape[0]} BLAS treelets, {sc.inst.lo.shape[0]} world "
+            f"treelets, {sc.inst.inst_a.shape[0]} instances, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        compare_wavefronts(which, sc, cam, instanced, inst_names, None, smi, failures)
     if failures:
         raise SystemExit(f"kernel vs plain disagreement: {failures}")
 
@@ -209,63 +355,44 @@ def main() -> int:
             raise SystemExit(f"transport probe failed: {msg}")
     del scenes["mesh"]
     torch.cuda.empty_cache()
+    # the instanced default scene against the flat one: 4 spp averaged (the
+    # two builds order the emissive quad's triangles differently, so single
+    # samples differ by noise); the 1-spp probe beside the stored reference
+    # is printed for information
+    _, msg = check_transport(scenes["instanced default"], "default")
+    log(f"[transport] instanced {msg} (1 spp, for information)")
+    (fr, fc), (ir, ic) = (probe(scenes[w], PROBE_SPP) for w in ("default", "instanced default"))
+    dr, dc = abs(ir - fr) / fr, abs(ic - fc) / abs(fc)
+    ok = dr <= 0.005 and dc <= 0.02
+    log(f"[transport] instanced vs flat default, 64x64 depth 5, {PROBE_SPP} spp: rays "
+        f"{ir:.2f} vs {fr:.2f} ({dr * 100:.3f}%), mean RGB {ic:.7f} vs {fc:.7f} "
+        f"({dc * 100:.3f}%) -> {'pass' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the instanced default scene does not match the flat one")
 
-    # phase 5: the main path at full size
-    sc = scenes["default"]
-    cam = scene_camera("default", MAIN_RES)
-    vp = hk.VolPath(max_depth=5, samples_per_pixel=MAIN_SPP)
-    k = vp.sample_batch
-    n = MAIN_RES * MAIN_RES
-    lanes = torch.arange(n, device=dev)
-    # warm-up: sample 0 of the same render through render_lanes, which also
-    # reports its ray count and non-finite lanes and captures wavefronts
-    with Recorder(wavefront) as rec:
-        _, _, stats = render_lanes(
-            vp, sc, cam, hk.make_filter(), torch.arange(k, device=dev).repeat_interleave(n),
-            (lanes % MAIN_RES).repeat(k), (lanes // MAIN_RES).repeat(k))
-    rays = float(stats["rays_traced"])
-    nonfinite = float(stats["nonfinite_lanes"])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    sweep.reset_counts()
-    t0 = time.perf_counter()
-    film = hk.render(vp, sc, cam)
-    img = hk.framebuffer(film)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(sweep.launches)
-    plain_runs = dict(sweep.plain_cuda_runs)
-    peak = torch.cuda.max_memory_allocated()
-    finite = bool(torch.isfinite(img).all())
-    mean_rgb = float(img.mean())
-    log(f"[main] render {MAIN_RES}x{MAIN_RES}, {MAIN_SPP} spp, depth 5: {wall:.3f} s, "
-        f"{rays / wall / 1e6:.3f} Mray/s ({rays:.0f} rays), "
-        f"{wall / MAIN_SPP * 1e3:.1f} ms/sample, peak {peak / 2**30:.2f} GiB [{smi}]")
-    log(f"[main] mean RGB {mean_rgb:.6f}, finite {finite}, nonfinite lanes "
-        f"{nonfinite:.0f}, launches {counts}, plain sweeps on CUDA {plain_runs}")
-    if not finite or nonfinite != 0.0 or mean_rgb <= 0.0:
-        raise SystemExit("main path output is not a finite, non-black image")
-    if min(counts.values()) <= 0 or any(plain_runs.values()):
-        raise SystemExit("the main path did not go through both kernels")
+    # phase 5: the main paths at full size, flat then instanced
+    flat_counts, flat_rec = main_path("main", scenes["default"],
+                                      scene_camera("default", MAIN_RES), wavefront,
+                                      flat_names, smi)
+    inst_counts, inst_rec = main_path("instanced", scenes["instanced default"],
+                                      scene_camera("default", MAIN_RES), instanced,
+                                      inst_names, smi)
+    main_path("forest", scenes["forest"], forest_camera(MAIN_RES, MAIN_RES), instanced,
+              inst_names, smi)
 
-    # kernel times at the main path's shapes (after the counts were read)
-    records = []
-    for name, line, args in (
-            ("closest_tiles", 999, rec.calls["closest_tiles"][0]),
-            ("occlusion_tiles", 1052, rec.calls["occlusion_tiles"][0])):
-        r = compare(name, args, sc.treelets, reps=(5, 1))
-        log(f"[main] {name} at main-path shape: agree {r['agree']:.6f} "
-            f"(lanes {r['lanes']}, pairs {r['pairs']}), kernel {r['ms']:.3f} ms, "
-            f"plain {r['plain_ms']:.3f} ms [{smi}] -> {'ok' if r['ok'] else 'FAIL'}")
-        if not r["ok"]:
-            raise SystemExit(f"{name} disagrees with its plain version at main-path shape")
-        records.append({
-            "name": name, "route": "cuda",
-            "source": "hikari_tpu_torch/csrc/sweep_tiles.cu",
-            "replaces": f"hikari_tpu/geometry/wavefront.py:{line}",
-            "launches": counts[name], "max_abs_err": r["max_abs_err"],
-            "agree": r["agree"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-        })
+    # phase 6: kernel times at the main paths' shapes (after the counts were read)
+    flat_tl = scenes["default"].treelets
+    records = time_kernels([
+        ("closest_tiles", "hikari_tpu/geometry/wavefront.py:999",
+         flat_rec.calls["closest_tiles"][0], flat_tl),
+        ("occlusion_tiles", "hikari_tpu/geometry/wavefront.py:1052",
+         flat_rec.calls["occlusion_tiles"][0], flat_tl),
+    ], flat_counts, smi) + time_kernels([
+        ("closest_inst", "hikari_tpu/geometry/instanced.py:146",
+         inst_rec.calls["closest_inst"][0], None),
+        ("occlusion_inst", "hikari_tpu/geometry/instanced.py:194",
+         inst_rec.calls["occlusion_inst"][0], None),
+    ], inst_counts, smi)
     log(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

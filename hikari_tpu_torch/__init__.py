@@ -3,8 +3,9 @@ and CUDA, for an NVIDIA H100.
 
 The JAX package ``hikari_tpu`` is the reference; this package mirrors its
 module tree and names and is checked against it. It imports neither JAX nor
-``hikari_tpu``. The two Pallas sweep kernels of the main path are
-hand-written CUDA (``csrc/sweep_tiles.cu``), built with nvcc at first use.
+``hikari_tpu``. The Pallas sweep kernels of the flat and the instanced
+paths are hand-written CUDA (``csrc/sweep_tiles.cu``, ``csrc/sweep_inst.cu``),
+built with nvcc at first use.
 
     import hikari_tpu_torch as hk
 
@@ -26,11 +27,11 @@ from .film.filters import make_filter
 from .integrators.volpath import VolPath, render, render_lanes
 from .lights.types import PointLight
 from .materials.types import Conductor, Emissive, Glass, Gold, Matte, Mirror
-from .scene.mesh import TriangleMesh, make_quad, make_sphere
+from .scene.mesh import TriangleMesh, make_box, make_quad, make_sphere
 from .scene.scene import Scene, SceneData
 
 __all__ = [
-    "Scene", "SceneData", "TriangleMesh", "make_quad", "make_sphere",
+    "Scene", "SceneData", "TriangleMesh", "make_box", "make_quad", "make_sphere",
     "Matte", "Gold", "Conductor", "Glass", "Mirror", "Emissive", "PointLight",
     "make_perspective_camera", "make_filter", "VolPath", "render",
     "render_lanes", "make_film", "framebuffer",

@@ -50,10 +50,12 @@ _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "sweep_tiles.cu"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-# kernel launches, counted by the wrappers where they launch and nowhere else
-launches = {"closest_tiles": 0, "occlusion_tiles": 0}
+# kernel launches, counted by the wrappers where they launch and nowhere
+# else (the instanced sweeps of sweep_inst.py count here too)
+_KERNELS = ("closest_tiles", "occlusion_tiles", "closest_inst", "occlusion_inst")
+launches = dict.fromkeys(_KERNELS, 0)
 # plain-version runs on CUDA tensors (comparisons with the kernels only)
-plain_cuda_runs = {"closest_tiles": 0, "occlusion_tiles": 0}
+plain_cuda_runs = dict.fromkeys(_KERNELS, 0)
 
 
 def reset_counts() -> None:

@@ -380,8 +380,12 @@ class PairSweep:
         return self.order.numel()
 
 
-def _prepare(tl: Treelets, o, d, t_max, world_lo, world_hi, keys_fn) -> PairSweep:
-    if tl.lo.shape[0] > 1:
+def _prepare(tl, o, d, t_max, keys_fn) -> PairSweep:
+    """Sort, live-prefix slice, cull and pair a wavefront against flat
+    Treelets or the instanced tables (instanced.InstancedTreelets). Only
+    flat treelets run the per-ray super-box pre-pass: the instanced tables
+    have no super boxes, as in the reference's instanced path."""
+    if isinstance(tl, Treelets) and tl.lo.shape[0] > 1:
         t_max = torch.where(_ray_super_cull(tl, o, d, t_max), t_max, 0.0)
     o, d, t_max, n, n_pad = _pad_rays(o, d, t_max)
     keys = torch.clamp(keys_fn(o, d), max=0xFFFFFFFE)
@@ -396,14 +400,13 @@ def _prepare(tl: Treelets, o, d, t_max, world_lo, world_hi, keys_fn) -> PairSwee
     return PairSweep(order, n, os_, ds, ts, tre, tn_bits, seg)
 
 
-def prepare_closest(tl: Treelets, o, d, t_max, world_lo, world_hi,
-                    active=None) -> PairSweep:
+def prepare_closest(tl, o, d, t_max, world_lo, world_hi, active=None) -> PairSweep:
     """Cull, sort and pair a closest-hit wavefront."""
     t_max = torch.where(torch.isfinite(t_max), t_max, 3.0e37)
     t_max = _world_exit_clamp(o, d, t_max, world_lo, world_hi)
     if active is not None:
         t_max = torch.where(active, t_max, 0.0)
-    return _prepare(tl, o, d, t_max, world_lo, world_hi,
+    return _prepare(tl, o, d, t_max,
                     lambda o_, d_: ray_sort_keys(o_, d_, world_lo, world_hi))
 
 
@@ -435,8 +438,8 @@ def closest_hit_packets(tl: Treelets, o, d, t_max, world_lo, world_hi,
     return HitRecord(hit=tri >= 0, t=t_res[inv], tri=tri, b1=b1[inv], b2=b2[inv])
 
 
-def prepare_occlusion(tl: Treelets, o, d, t_max, world_lo, world_hi,
-                      active=None, group=None) -> PairSweep:
+def prepare_occlusion(tl, o, d, t_max, world_lo, world_hi, active=None,
+                      group=None) -> PairSweep:
     """Cull, sort and pair a shadow-ray wavefront. group: optional (R,) ids
     (NEE light ids) clustered ahead of the spatial key."""
     t_max = torch.where(torch.isfinite(t_max), t_max, 3.0e37)
@@ -453,7 +456,7 @@ def prepare_occlusion(tl: Treelets, o, d, t_max, world_lo, world_hi,
             keys = ((group & 63) << 26) | (keys >> 6)
         return keys
 
-    return _prepare(tl, o, d, t_max, world_lo, world_hi, keys_fn)
+    return _prepare(tl, o, d, t_max, keys_fn)
 
 
 def any_hit_packets(tl: Treelets, o, d, t_max, world_lo, world_hi,

@@ -9,6 +9,13 @@ masked lanes; ``lax.fori_loop`` becomes a Python loop over depth and
 ``where``-selects stay ``torch.where``. Every ``path_sample_*`` dimension
 index (0, 1, 3, 5, 6) is the JAX package's, so both draw the same samples.
 
+Instanced scenes (``SceneData.has_instances``) trace through the
+two-level traversal of ``geometry/instanced.py``; their hit records name a
+world treelet and column, decoded into the shared face row and the
+instance (``_face_decode``), whose normal transform and material override
+apply at the hit. The reference's instanced shadow-transmittance hook
+(``volpath.py:807-828``) belongs to media and is not ported with them.
+
 Participating media, textures, alpha, Mix and layered materials, other
 lights, the resident loop and the sorted/gated material dispatch are not
 ported; scenes and configurations that need them raise
@@ -28,6 +35,8 @@ from ..core.vecmath import dot, face_forward, make_frame, normalize, to_local, t
 from ..film.film import Film, film_add_weighted, make_film
 from ..film.filters import FilterSampler, filter_sample, make_filter
 from ..geometry.triangle import interpolate
+from ..geometry.instanced import any_hit_instanced, closest_hit_instanced
+from ..geometry.sweep import TREELET
 from ..geometry.wavefront import any_hit_packets, closest_hit_packets
 from ..lights import types as lt
 from ..materials import bsdf as mb
@@ -39,11 +48,17 @@ from ..spectral.cie import spectral_to_xyz, xyz_to_linear_srgb
 
 
 def scene_closest_hit(scene: SceneData, o, d, t_max, active=None):
+    if scene.has_instances:
+        return closest_hit_instanced(scene.inst, o, d, t_max, scene.world_lo,
+                                     scene.world_hi, active=active)
     return closest_hit_packets(scene.treelets, o, d, t_max, scene.world_lo,
                                scene.world_hi, active=active)
 
 
 def scene_any_hit(scene: SceneData, o, d, t_max, active=None, group=None):
+    if scene.has_instances:
+        return any_hit_instanced(scene.inst, o, d, t_max, scene.world_lo,
+                                 scene.world_hi, active=active, group=group)
     return any_hit_packets(scene.treelets, o, d, t_max, scene.world_lo,
                            scene.world_hi, active=active, group=group)
 
@@ -120,15 +135,37 @@ def _eval_bsdf_dispatch(scene, mat_type, mat_idx, wo, wi, lam, regularize):
     return f, pdf
 
 
+def _face_decode(scene: SceneData, tri_raw):
+    """Hit-record tri -> (face row, instance id or None). An instanced hit
+    names world treelet wt and column j; its shared object-space face row
+    is ti_obj[wt] * TREELET + j."""
+    tri = torch.clamp(tri_raw, min=0).long()
+    if not scene.has_instances:
+        return tri, None
+    wt = tri // TREELET
+    obj = scene.inst.ti_obj[wt].long() * TREELET + (tri - wt * TREELET)
+    return obj, scene.inst.ti_inst[wt].long()
+
+
+def _inst_xform_normal(scene: SceneData, inst, n_obj):
+    """Object -> world normal: rows of the instance's inverse transpose."""
+    return (scene.inst_nrm[inst] * n_obj[..., None, :]).sum(-1)
+
+
 def _surface_data(scene: SceneData, rec, o, d):
     """Hit-point attributes from one (F, 17) face-row gather."""
-    tri = torch.clamp(rec.tri, min=0).long()
+    tri, inst = _face_decode(scene, rec.tri)
     rows = scene.face_rows[tri]
     ng_raw = rows[..., 0:3]
     ns = normalize(interpolate(rec.b1, rec.b2, rows[..., 3:6], rows[..., 6:9],
                                rows[..., 9:12]))
     ns = torch.where((ns * ns).sum(-1, keepdim=True) > 0.5, ns, ng_raw)
     packed = (rows[..., 12].to(torch.int32) << 16) | rows[..., 13].to(torch.int32)
+    if inst is not None:
+        ng_raw = normalize(_inst_xform_normal(scene, inst, ng_raw))
+        ns = normalize(_inst_xform_normal(scene, inst, ns))
+        override = scene.inst_mat_packed[inst]  # per-instance material
+        packed = torch.where(override >= 0, override, packed)
     if mt.EMISSIVE in scene.present_materials:
         arealight = rows[..., 14].to(torch.int32) - 1
     else:

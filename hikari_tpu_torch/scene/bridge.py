@@ -7,9 +7,13 @@ leaf order and triangle indices.
 
 Keys of ``arrays``: ``face_rows``, ``mat_type``, ``mat_idx``,
 ``world_lo``, ``world_hi``, ``scene_radius``, ``present_materials``,
-``treelets.{lo,hi,sup_lo,sup_hi,bw,tri}`` (``bw`` converted to float32),
-``materials.<field>`` for every field of the port's ``MaterialBanks`` and
-``lights.<field>`` for every field of its ``LightBanks``.
+``materials.<field>`` for every field of the port's ``MaterialBanks``,
+``lights.<field>`` for every field of its ``LightBanks``, and either
+``treelets.{lo,hi,sup_lo,sup_hi,bw,tri}`` (a flat scene) or
+``inst.{lo,hi,bw,ti_obj,ti_inst,inst_a}``, ``inst_nrm``, ``inst_l2w`` and
+``inst_mat_packed`` (an instanced scene). Every ``bw`` is converted to
+float32 by the caller; the instanced BLAS blocks always use the 3-way
+split (``hikari_tpu/geometry/instanced.py:70-73``).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from dataclasses import fields
 import numpy as np
 import torch
 
+from ..geometry.instanced import InstancedTreelets
 from ..geometry.wavefront import Treelets, coef_from_m4
 from ..lights.types import LightBanks
 from ..materials.types import MaterialBanks
@@ -43,11 +48,23 @@ def scene_from_numpy(arrays: dict, device) -> SceneData:
         x = torch.from_numpy(np.array(arrays[key]))
         return x if dtype is None else x.to(dtype)
 
-    treelets = Treelets(
-        lo=t("treelets.lo"), hi=t("treelets.hi"), sup_lo=t("treelets.sup_lo"),
-        sup_hi=t("treelets.sup_hi"),
-        coef=torch.from_numpy(coef_from_bw(arrays["treelets.bw"])),
-        tri=t("treelets.tri"))
+    inst_kw = {}
+    treelets = None
+    if "inst.lo" in arrays:
+        inst_kw = dict(
+            inst=InstancedTreelets(
+                lo=t("inst.lo"), hi=t("inst.hi"),
+                coef=torch.from_numpy(coef_from_bw(arrays["inst.bw"])),
+                ti_obj=t("inst.ti_obj", torch.int32), ti_inst=t("inst.ti_inst", torch.int32),
+                inst_a=t("inst.inst_a")),
+            inst_nrm=t("inst_nrm"), inst_l2w=t("inst_l2w"),
+            inst_mat_packed=t("inst_mat_packed", torch.int32))
+    else:
+        treelets = Treelets(
+            lo=t("treelets.lo"), hi=t("treelets.hi"), sup_lo=t("treelets.sup_lo"),
+            sup_hi=t("treelets.sup_hi"),
+            coef=torch.from_numpy(coef_from_bw(arrays["treelets.bw"])),
+            tri=t("treelets.tri"))
     materials = MaterialBanks(**{f.name: t(f"materials.{f.name}")
                                  for f in fields(MaterialBanks)})
     light_kw = {}
@@ -62,5 +79,5 @@ def scene_from_numpy(arrays: dict, device) -> SceneData:
         materials=materials, lights=lights, world_lo=t("world_lo"),
         world_hi=t("world_hi"), scene_radius=float(arrays["scene_radius"]),
         present_materials=tuple(int(x) for x in arrays["present_materials"]),
-        n_lights=lights.n_flat, n_faces=int(arrays["face_rows"].shape[0]))
+        n_lights=lights.n_flat, n_faces=int(arrays["face_rows"].shape[0]), **inst_kw)
     return scene.to(device)

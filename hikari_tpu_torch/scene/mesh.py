@@ -53,6 +53,22 @@ def make_quad(p0, p1, p2, p3) -> TriangleMesh:
     return TriangleMesh(v, f, uvs=uv)
 
 
+def make_box(lo, hi) -> TriangleMesh:
+    """Axis-aligned box of 12 triangles with outward winding."""
+    x0, y0, z0 = np.asarray(lo, np.float32)
+    x1, y1, z1 = np.asarray(hi, np.float32)
+    quads = [  # -z, +z, -y, +y, -x, +x
+        [(x0, y0, z0), (x0, y1, z0), (x1, y1, z0), (x1, y0, z0)],
+        [(x0, y0, z1), (x1, y0, z1), (x1, y1, z1), (x0, y1, z1)],
+        [(x0, y0, z0), (x1, y0, z0), (x1, y0, z1), (x0, y0, z1)],
+        [(x0, y1, z0), (x0, y1, z1), (x1, y1, z1), (x1, y1, z0)],
+        [(x0, y0, z0), (x0, y0, z1), (x0, y1, z1), (x0, y1, z0)],
+        [(x1, y0, z0), (x1, y1, z0), (x1, y1, z1), (x1, y0, z1)],
+    ]
+    faces = [f for b in range(0, 24, 4) for f in ([b, b + 1, b + 2], [b, b + 2, b + 3])]
+    return TriangleMesh(np.array(quads, np.float32).reshape(24, 3), np.array(faces, np.int32))
+
+
 def make_sphere(center, radius, n_theta=32, n_phi=64) -> TriangleMesh:
     """UV sphere with smooth vertex normals."""
     center = np.asarray(center, np.float32)

@@ -1,21 +1,26 @@
-"""Scene builder and the device-resident scene (flat scenes).
+"""Scene builder and the device-resident scene.
 
-Port of the flat path of ``hikari_tpu/scene/scene.py`` (``Scene.build``,
-scene.py:263-478): meshes and materials are collected on the host,
-emissive faces become per-face area lights, the BVH fixes the leaf order
-of every per-face array, and the result is packed into tensors on one
-device. Media, stochastic alpha, textures and instancing are not ported
+Port of ``hikari_tpu/scene/scene.py``: meshes and materials are collected
+on the host, emissive faces become per-face area lights, the BVH fixes
+the leaf order of every per-face array, and the result is packed into
+tensors on one device. A flat scene (``Scene.build``, scene.py:263-478)
+has one treelet table; a scene with ``add_instanced`` meshes takes the
+two-level build (``_build_instanced_scene``, scene.py:561-777): one BLAS
+per instanced mesh plus BLAS 0 holding every non-instanced mesh under an
+identity instance. Media, stochastic alpha and textures are not ported
 and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
 
 from ..geometry.bvh import build_bvh
+from ..geometry.instanced import InstancedTreelets, build_instanced_treelets
+from ..geometry.sweep import TREELET
 from ..geometry.wavefront import Treelets, build_treelets, bvh_super_boxes
 from ..lights.types import LightBanks, pack_lights
 from ..materials.types import EMISSIVE, MaterialBanks, pack_materials
@@ -42,9 +47,10 @@ def pack_face_rows(ng_raw, n0, n1, n2, mat_packed, med_packed, arealight_idx):
 
 @dataclass
 class SceneData:
-    """Device-resident flat scene; per-face arrays are in BVH leaf order."""
+    """Device-resident scene; per-face arrays are in BVH leaf order (flat)
+    or in BLAS order, each BLAS padded to a TREELET multiple (instanced)."""
 
-    treelets: Treelets
+    treelets: Treelets | None  # flat scenes; None for an instanced scene
     face_rows: torch.Tensor    # (F, 17) packed per-face attributes
     mat_type: torch.Tensor     # (F,) int32 material type tag
     mat_idx: torch.Tensor      # (F,) int32 index into that type's bank
@@ -56,53 +62,140 @@ class SceneData:
     present_materials: tuple
     n_lights: int
     n_faces: int
+    # two-level instancing (geometry/instanced.py); None in a flat scene
+    inst: InstancedTreelets | None = None
+    inst_nrm: torch.Tensor | None = None         # (I, 3, 3) object->world normals
+    inst_l2w: torch.Tensor | None = None         # (I, 3, 4) object->world [linear | t]
+    inst_mat_packed: torch.Tensor | None = None  # (I,) int32 override; -1 = per-face
+
+    @property
+    def has_instances(self) -> bool:
+        return self.inst is not None
 
     @property
     def device(self) -> torch.device:
         return self.face_rows.device
 
     def to(self, device) -> "SceneData":
-        return SceneData(
-            treelets=self.treelets.to(device), face_rows=self.face_rows.to(device),
-            mat_type=self.mat_type.to(device), mat_idx=self.mat_idx.to(device),
-            materials=self.materials.to(device), lights=self.lights.to(device),
-            world_lo=self.world_lo.to(device), world_hi=self.world_hi.to(device),
-            scene_radius=self.scene_radius,
-            present_materials=self.present_materials, n_lights=self.n_lights,
-            n_faces=self.n_faces)
+        def move(x):
+            return x.to(device) if hasattr(x, "to") else x
+
+        return SceneData(**{f.name: move(getattr(self, f.name)) for f in fields(self)})
 
 
 def default_device() -> torch.device:
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
+_GEOMETRY = ("p0", "p1", "p2")
+
+
+def _mesh_face_arrays(mesh: TriangleMesh) -> dict:
+    """Per-face corner positions and vertex normals, the mesh's own
+    transform baked in (hikari_tpu/scene/scene.py:511-536)."""
+    v = mesh.vertices
+    if mesh.transform is not None:
+        m = np.asarray(mesh.transform, np.float32)
+        v = v @ m[:3, :3].T + m[:3, 3]
+    f = mesh.faces
+    n = mesh.normals
+    if n is None:
+        n = compute_vertex_normals(v, f)
+    elif mesh.transform is not None:
+        n = n @ np.linalg.inv(m[:3, :3])
+        n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+    return {k: a[f[:, c]].astype(np.float32)
+            for a, names in ((v, _GEOMETRY), (n, ("n0", "n1", "n2")))
+            for c, k in enumerate(names)}
+
+
+def _concat_meshes(meshes, mat_ids):
+    """Face arrays of several meshes, concatenated, and each face's material
+    slot."""
+    parts = [_mesh_face_arrays(m) for m in meshes]
+    arrs = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    slot = np.concatenate([np.full(len(p["p0"]), mid, np.int32)
+                           for p, mid in zip(parts, mat_ids)])
+    return arrs, slot
+
+
+def _area_tris(materials, slot, p0, p1, p2, which):
+    """Emissive faces `which` -> the per-face area lights (build_face_meta)."""
+    mats = [materials[slot[i]] for i in which]
+    a_le = np.stack([np.asarray(m.le, np.float32) * m.scale for m in mats])
+    a_two = np.array([m.two_sided for m in mats], bool)
+    return p0[which], p1[which], p2[which], a_le, a_two
+
+
+def _check_surface(inside_medium, outside_medium, alpha) -> None:
+    if inside_medium is not None or outside_medium is not None:
+        raise NotImplementedError("participating media are not ported yet")
+    if alpha is not None:
+        raise NotImplementedError("stochastic alpha is not ported yet")
+
+
+def _check_transforms(transforms) -> np.ndarray:
+    tr = np.asarray(transforms, np.float32)
+    if tr.ndim != 3 or tr.shape[1:] != (4, 4):
+        raise ValueError(f"transforms: shape {tr.shape}, expected (I, 4, 4)")
+    return tr
+
+
 class Scene:
-    """Host-side scene builder: Scene() -> add / add_light -> build()."""
+    """Host-side scene builder: Scene() -> add / add_instanced / add_light
+    -> build()."""
 
     def __init__(self):
         self._meshes: list[TriangleMesh] = []
         self._mesh_mat: list[int] = []
         self._materials: list = []
         self._lights: list = []
+        # instanced groups: (mesh, transforms (I, 4, 4), material slot,
+        # per-instance material slots or None)
+        self._instanced: list = []
+
+    def _material_id(self, material) -> int:
+        """Slot of `material`; materials are deduplicated."""
+        try:
+            return self._materials.index(material)
+        except ValueError:
+            self._materials.append(material)
+            return len(self._materials) - 1
 
     def add(self, mesh: TriangleMesh, material, inside_medium=None,
             outside_medium=None, alpha=None) -> int:
-        """push!(scene, mesh, material); materials are deduplicated."""
-        if inside_medium is not None or outside_medium is not None:
-            raise NotImplementedError("participating media are not ported yet")
-        if alpha is not None:
-            raise NotImplementedError("stochastic alpha is not ported yet")
-        try:
-            mat_id = self._materials.index(material)
-        except ValueError:
-            mat_id = len(self._materials)
-            self._materials.append(material)
+        """push!(scene, mesh, material)."""
+        _check_surface(inside_medium, outside_medium, alpha)
         self._meshes.append(mesh)
-        self._mesh_mat.append(mat_id)
+        self._mesh_mat.append(self._material_id(material))
         return len(self._meshes) - 1
 
-    def add_instanced(self, *args, **kwargs):
-        raise NotImplementedError("instancing is not ported yet")
+    def add_instanced(self, mesh: TriangleMesh, transforms, material,
+                      inside_medium=None, outside_medium=None, alpha=None,
+                      materials=None) -> int:
+        """Many placements of one mesh sharing a single BLAS: memory scales
+        with the unique mesh, not the instance count. transforms: (I, 4, 4)
+        world-from-object matrices; materials: optional per-instance list
+        overriding `material`. Returns a handle for set_instance_transforms."""
+        _check_surface(inside_medium, outside_medium, alpha)
+        tr = _check_transforms(transforms)
+        mat_id = self._material_id(material)
+        per_inst = None
+        if materials is not None:
+            if len(materials) != len(tr):
+                raise ValueError(f"{len(materials)} materials for {len(tr)} instances")
+            per_inst = [self._material_id(m) for m in materials]
+        self._instanced.append((mesh, tr, mat_id, per_inst))
+        return len(self._instanced) - 1
+
+    def set_instance_transforms(self, handle: int, transforms) -> None:
+        """Re-place an instanced group; takes effect at the next build()."""
+        mesh, _, mat_id, per_inst = self._instanced[handle]
+        tr = _check_transforms(transforms)
+        if per_inst is not None and len(per_inst) != len(tr):
+            raise ValueError(f"{len(tr)} transforms for {len(per_inst)} per-instance "
+                             "materials")
+        self._instanced[handle] = (mesh, tr, mat_id, per_inst)
 
     def set_camera_medium(self, medium) -> None:
         raise NotImplementedError("participating media are not ported yet")
@@ -117,48 +210,26 @@ class Scene:
     def build(self, device=None) -> SceneData:
         """sync!(scene): bake, BVH, pack, and move to `device` (default: the
         first CUDA device if there is one, else the CPU)."""
-        if not self._meshes:
+        if not self._meshes and not self._instanced:
             raise ValueError("scene has no geometry")
         device = default_device() if device is None else torch.device(device)
-        p0s, p1s, p2s, n0s, n1s, n2s, mat_of_face = [], [], [], [], [], [], []
-        for mesh, mat_id in zip(self._meshes, self._mesh_mat):
-            v = mesh.vertices
-            if mesh.transform is not None:
-                m = np.asarray(mesh.transform, np.float32)
-                v = v @ m[:3, :3].T + m[:3, 3]
-            f = mesh.faces
-            p0s.append(v[f[:, 0]])
-            p1s.append(v[f[:, 1]])
-            p2s.append(v[f[:, 2]])
-            n = mesh.normals
-            if n is None:
-                n = compute_vertex_normals(v, f)
-            elif mesh.transform is not None:
-                n = n @ np.linalg.inv(m[:3, :3])
-                n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
-            n0s.append(n[f[:, 0]])
-            n1s.append(n[f[:, 1]])
-            n2s.append(n[f[:, 2]])
-            mat_of_face.append(np.full(len(f), mat_id, np.int32))
-        p0, p1, p2, n0, n1, n2 = (np.concatenate(a).astype(np.float32)
-                                  for a in (p0s, p1s, p2s, n0s, n1s, n2s))
-        mat_of_face = np.concatenate(mat_of_face)
+        scene = self._build_instanced() if self._instanced else self._build_flat()
+        return scene.to(device)
 
+    def _build_flat(self) -> SceneData:
+        arrs, mat_of_face = _concat_meshes(self._meshes, self._mesh_mat)
+        p0, p1, p2 = (arrs[k] for k in _GEOMETRY)
         banks, tags, idxs, present = pack_materials(self._materials)
         face_type = tags[mat_of_face]
         face_idx = idxs[mat_of_face]
 
-        # emissive faces -> per-face area lights (build_face_meta)
         emissive = face_type == EMISSIVE
         arealight_idx = np.full(len(p0), -1, np.int32)
         area_tris = None
         if emissive.any():
             which = np.nonzero(emissive)[0]
             arealight_idx[which] = np.arange(len(which), dtype=np.int32)
-            mats = [self._materials[mat_of_face[i]] for i in which]
-            a_le = np.stack([np.asarray(m.le, np.float32) * m.scale for m in mats])
-            a_two = np.array([m.two_sided for m in mats], bool)
-            area_tris = (p0[which], p1[which], p2[which], a_le, a_two)
+            area_tris = _area_tris(self._materials, mat_of_face, p0, p1, p2, which)
 
         tri_lo = np.minimum(np.minimum(p0, p1), p2)
         tri_hi = np.maximum(np.maximum(p0, p1), p2)
@@ -174,13 +245,13 @@ class Scene:
         med_packed = np.zeros(len(p0), np.int32)
         face_rows = pack_face_rows(
             _face_normals(p0[order], p1[order], p2[order]),
-            n0[order], n1[order], n2[order], mat_packed, med_packed,
-            arealight_idx[order])
+            arrs["n0"][order], arrs["n1"][order], arrs["n2"][order], mat_packed,
+            med_packed, arealight_idx[order])
         treelets = build_treelets(
             p0[order], p1[order], p2[order],
             supers=bvh_super_boxes(fb, len(p0), prim_lo=tri_lo[order],
                                    prim_hi=tri_hi[order]))
-        scene = SceneData(
+        return SceneData(
             treelets=treelets, face_rows=torch.from_numpy(face_rows),
             mat_type=torch.from_numpy(face_type[order].astype(np.int32)),
             mat_idx=torch.from_numpy(face_idx[order].astype(np.int32)),
@@ -188,4 +259,85 @@ class Scene:
             world_lo=torch.from_numpy(world_lo), world_hi=torch.from_numpy(world_hi),
             scene_radius=max(radius, 1e-3), present_materials=tuple(sorted(present)),
             n_lights=lights.n_flat, n_faces=int(len(p0)))
-        return scene.to(device)
+
+    def _build_instanced(self) -> SceneData:
+        """Two-level build (scene.py:561-777): one BLAS per instanced mesh,
+        BLAS 0 for every non-instanced mesh under an identity instance."""
+        banks, tags, idxs, present = pack_materials(self._materials)
+        packed_of = (tags.astype(np.int32) << 24) | idxs.astype(np.int32)
+        for _, _, mat_id, per_inst in self._instanced:
+            if any(tags[m] == EMISSIVE for m in [mat_id] + (per_inst or [])):
+                raise ValueError(
+                    "emissive materials on instanced meshes are not supported (one "
+                    "area light per emissive face); add that mesh flattened instead")
+
+        blas_tris, chunks, instances, inst_mat = [], [], [], []
+
+        def finish_blas(arrs, slot):
+            """BVH leaf order, then padding to a TREELET multiple: far-away
+            degenerate corners (never hit) and slot -1."""
+            tri_lo = np.minimum(np.minimum(arrs["p0"], arrs["p1"]), arrs["p2"])
+            tri_hi = np.maximum(np.maximum(arrs["p0"], arrs["p1"]), arrs["p2"])
+            order = build_bvh(tri_lo, tri_hi).prim_order
+            pad = (-len(order)) % TREELET
+            arrs = {k: np.concatenate([a[order], np.full(
+                (pad, 3), 3.0e37 if k in _GEOMETRY else 0.0, np.float32)])
+                for k, a in arrs.items()}
+            chunks.append((arrs, np.concatenate([slot[order], np.full(pad, -1, np.int32)])))
+            blas_tris.append(tuple(arrs[k] for k in _GEOMETRY))
+            return len(blas_tris) - 1
+
+        if self._meshes:
+            bid = finish_blas(*_concat_meshes(self._meshes, self._mesh_mat))
+            instances.append((bid, np.eye(4, dtype=np.float32)))
+            inst_mat.append(-1)
+        for mesh, tr, mat_id, per_inst in self._instanced:
+            bid = finish_blas(*_concat_meshes([mesh], [mat_id]))
+            for k, m in enumerate(tr):
+                instances.append((bid, m))
+                inst_mat.append(-1 if per_inst is None else int(packed_of[per_inst[k]]))
+        inst_tl = build_instanced_treelets(blas_tris, instances)
+
+        arrs = {k: np.concatenate([c[0][k] for c in chunks]) for k in chunks[0][0]}
+        slot = np.concatenate([c[1] for c in chunks])
+        p0, p1, p2 = (arrs[k] for k in _GEOMETRY)
+        real = slot >= 0
+        face_packed = np.where(real, packed_of[np.maximum(slot, 0)], -1).astype(np.int32)
+        face_type = face_packed >> 24
+        face_idx = face_packed & 0xFFFFFF
+        # padding rows carry -1, as the reference's do (its fill for int fields)
+        med_packed = np.where(real, 0, -1).astype(np.int32)
+        present |= {int(t) for t in np.unique(face_type)}
+
+        # area lights: only BLAS-0 (identity instance) emissive faces
+        arealight_idx = np.full(len(p0), -1, np.int32)
+        area_tris = None
+        emissive = (face_type == EMISSIVE) & (p0[:, 0] < 1.0e37)
+        if emissive.any():
+            which = np.nonzero(emissive)[0]
+            arealight_idx[which] = np.arange(len(which), dtype=np.int32)
+            area_tris = _area_tris(self._materials, slot, p0, p1, p2, which)
+
+        lo, hi = inst_tl.lo.numpy(), inst_tl.hi.numpy()
+        finite = lo[:, 0] < 1.0e37
+        world_lo = lo[finite].min(axis=0)
+        world_hi = hi[finite].max(axis=0)
+        radius = 0.5 * float(np.linalg.norm(world_hi - world_lo))
+        lights = pack_lights(self._lights, area_tris)
+
+        mats44 = np.stack([m for _, m in instances]).astype(np.float64)
+        inv_lin = np.linalg.inv(mats44[:, :3, :3])
+        face_rows = pack_face_rows(_face_normals(p0, p1, p2), arrs["n0"], arrs["n1"],
+                                   arrs["n2"], face_packed, med_packed, arealight_idx)
+        return SceneData(
+            treelets=None, face_rows=torch.from_numpy(face_rows),
+            mat_type=torch.from_numpy(face_type), mat_idx=torch.from_numpy(face_idx),
+            materials=banks, lights=lights,
+            world_lo=torch.from_numpy(world_lo.astype(np.float32)),
+            world_hi=torch.from_numpy(world_hi.astype(np.float32)),
+            scene_radius=max(radius, 1e-3), present_materials=tuple(sorted(present)),
+            n_lights=lights.n_flat, n_faces=int(len(p0)), inst=inst_tl,
+            inst_nrm=torch.from_numpy(np.ascontiguousarray(
+                np.transpose(inv_lin, (0, 2, 1)), np.float32)),
+            inst_l2w=torch.from_numpy(np.ascontiguousarray(mats44[:, :3, :4], np.float32)),
+            inst_mat_packed=torch.from_numpy(np.asarray(inst_mat, np.int32)))

@@ -3,9 +3,13 @@
 ``bench.py`` imports JAX, so its scene builders are ported here:
 ``default_scene`` (``build_scene``, the main path's 61,450 triangles) and
 ``mesh_scene`` (``build_mesh_scene``, a 327,680-triangle displaced
-icosphere in the same room). ``transport_probe`` is the port of ``bench.transport_probe`` and
-``check_transport`` holds it against the stored reference
-``tools/transport_ref.json`` with the tolerances of ``bench.py:171-178``.
+icosphere in the same room). Two instanced scenes exercise the two-level
+path: ``instanced_default_scene`` (the default scene with its 16 spheres
+as 16 instances of one) and ``forest_scene`` (``examples/instancing_example.py``,
+400 placements of one tree). ``transport_probe`` is the port of
+``bench.transport_probe`` and ``check_transport`` holds it against the
+stored reference ``tools/transport_ref.json`` with the tolerances of
+``bench.py:171-178``.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from .film.filters import make_filter
 from .integrators.volpath import VolPath, render_lanes
 from .lights.types import PointLight
 from .materials.types import Emissive, Glass, Gold, Matte, Mirror
-from .scene.mesh import TriangleMesh, make_quad, make_sphere
+from .scene.mesh import TriangleMesh, make_box, make_quad, make_sphere
 from .scene.scene import Scene
 
 TRANSPORT_REF = Path(__file__).resolve().parent.parent / "tools" / "transport_ref.json"
@@ -51,22 +55,85 @@ def _lights(s: Scene):
     s.add_light(PointLight(position=(0.0, 3.0, -0.5), intensity=(8.0, 8.0, 8.0)))
 
 
+def _sphere_mats():
+    return [Gold(roughness=0.15), Glass(eta=1.5), Mirror(), Matte(kd=(0.3, 0.4, 0.8)),
+            Matte(kd=(0.8, 0.6, 0.2))]
+
+
+# the 16 sphere centres of bench.py build_scene, in its order
+SPHERE_CENTRES = [(-1.8 + 1.2 * ix, 0.45, 0.2 + 1.2 * iz)
+                  for ix in range(4) for iz in range(4)]
+
+
 def default_scene(sphere_res=(32, 64)) -> Scene:
     """bench.py build_scene: Cornell walls, 16 spheres cycling Gold / Glass /
     Mirror / two Mattes, an emissive quad and a point light. sphere_res
     (n_theta, n_phi) = (32, 64) gives the benchmark's 61,450 triangles."""
     s = Scene()
     _room(s)
-    mats = [Gold(roughness=0.15), Glass(eta=1.5), Mirror(), Matte(kd=(0.3, 0.4, 0.8)),
-            Matte(kd=(0.8, 0.6, 0.2))]
-    k = 0
-    for ix in range(4):
-        for iz in range(4):
-            s.add(make_sphere((-1.8 + 1.2 * ix, 0.45, 0.2 + 1.2 * iz), 0.42,
-                              *sphere_res), mats[k % len(mats)])
-            k += 1
+    mats = _sphere_mats()
+    for k, c in enumerate(SPHERE_CENTRES):
+        s.add(make_sphere(c, 0.42, *sphere_res), mats[k % len(mats)])
     _lights(s)
     return s
+
+
+def instanced_default_scene() -> Scene:
+    """The default scene with its 16 spheres as 16 instances of one
+    make_sphere((0, 0, 0), 0.42, 32, 64) translated to the same centres,
+    with the same materials; walls and emissive quad form BLAS 0. One
+    3,840-triangle BLAS (15 treelets): 16 x 15 + 1 = 241 world treelets, as
+    many as the flat default scene has treelets."""
+    s = Scene()
+    _room(s)
+    mats = _sphere_mats()
+    tr = np.tile(np.eye(4, dtype=np.float32), (len(SPHERE_CENTRES), 1, 1))
+    tr[:, :3, 3] = SPHERE_CENTRES
+    s.add_instanced(make_sphere((0.0, 0.0, 0.0), 0.42, 32, 64), tr, mats[0],
+                    materials=[mats[k % len(mats)] for k in range(len(tr))])
+    _lights(s)
+    return s
+
+
+def tree_mesh() -> TriangleMesh:
+    """examples/instancing_example.py tree_mesh: a 10 x 20 sphere canopy on
+    a box trunk, one mesh of 332 triangles."""
+    canopy = make_sphere((0.0, 1.2, 0.0), 0.55, 10, 20)
+    trunk = make_box((-0.08, 0.0, -0.08), (0.08, 0.8, 0.08))
+    v = np.concatenate([canopy.vertices, trunk.vertices])
+    f = np.concatenate([canopy.faces, trunk.faces + len(canopy.vertices)])
+    return TriangleMesh(vertices=v, faces=f)
+
+
+def forest_scene() -> Scene:
+    """examples/instancing_example.py: a ground quad and 400 placements of
+    tree_mesh() from RandomState(7) (random yaw, scale 0.6-1.4). The example
+    lights it with sunsky_environment, which the port does not have yet
+    (ROADMAP A12); a PointLight((0, 20, 8), intensity 600) stands in. 800
+    instanced world treelets plus BLAS 0's one."""
+    n = 400
+    s = Scene()
+    s.add(make_quad((-20, 0, -20), (20, 0, -20), (20, 0, 20), (-20, 0, 20)),
+          Matte(kd=(0.35, 0.4, 0.25)))
+    rng = np.random.RandomState(7)
+    tr = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    scale = rng.uniform(0.6, 1.4, n).astype(np.float32)
+    theta = rng.uniform(0, 2 * np.pi, n).astype(np.float32)
+    tr[:, 0, 0] = np.cos(theta) * scale
+    tr[:, 0, 2] = np.sin(theta) * scale
+    tr[:, 2, 0] = -np.sin(theta) * scale
+    tr[:, 2, 2] = np.cos(theta) * scale
+    tr[:, 1, 1] = scale
+    tr[:, 0, 3] = rng.uniform(-15, 15, n)
+    tr[:, 2, 3] = rng.uniform(-2, 30, n)
+    s.add_instanced(tree_mesh(), tr, Matte(kd=(0.15, 0.45, 0.12)))
+    s.add_light(PointLight(position=(0.0, 20.0, 8.0), intensity=(600.0, 600.0, 600.0)))
+    return s
+
+
+def forest_camera(width: int, height: int):
+    """The example's camera at another resolution."""
+    return make_perspective_camera((0, 3.0, -8), (0, 1.0, 8), (width, height), fov_deg=55.0)
 
 
 def _displaced_icosphere(subdiv: int, seed: int = 7):
