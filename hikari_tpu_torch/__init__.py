@@ -3,9 +3,11 @@ and CUDA, for an NVIDIA H100.
 
 The JAX package ``hikari_tpu`` is the reference; this package mirrors its
 module tree and names and is checked against it. It imports neither JAX nor
-``hikari_tpu``. The Pallas sweep kernels of the flat and the instanced
-paths are hand-written CUDA (``csrc/sweep_tiles.cu``, ``csrc/sweep_inst.cu``),
-built with nvcc at first use.
+``hikari_tpu``. The Pallas sweep kernels of the flat, pair-grid and
+instanced paths are hand-written CUDA (``csrc/sweep_tiles.cu``,
+``csrc/sweep_pairs.cu``, ``csrc/sweep_inst.cu``), built with nvcc at first
+use. Entry points run on the first CUDA device unless given
+``device="cpu"``.
 
     import hikari_tpu_torch as hk
 
@@ -16,7 +18,7 @@ built with nvcc at first use.
     s.add_light(hk.PointLight(position=(1, 2, -1), intensity=(6, 6, 6)))
     cam = hk.make_perspective_camera((0, 1, -3), (0, 0.4, 0), (256, 256))
     img = hk.framebuffer(hk.render(hk.VolPath(samples_per_pixel=16),
-                                   s.build(device="cuda"), cam))
+                                   s.build(), cam))
 """
 
 __version__ = "0.1.0"

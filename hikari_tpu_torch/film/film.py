@@ -11,6 +11,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..core.device import resolve_device
+
 
 @dataclass
 class Film:
@@ -22,8 +24,11 @@ class Film:
 
 
 def make_film(width: int, height: int, device=None, crop_bounds=None) -> Film:
+    """An empty film on `device` (default: the first CUDA device; without
+    one this raises, and device="cpu" makes the film on the CPU)."""
     if crop_bounds is not None:
         raise NotImplementedError("film crop windows are not ported yet")
+    device = resolve_device(device)
     return Film(width=width, height=height,
                 rgb_sum=torch.zeros((height, width, 3), device=device),
                 weight_sum=torch.zeros((height, width), device=device))

@@ -27,7 +27,7 @@ import torch
 from .sweep import TREELET
 from .sweep_inst import closest_inst, occlusion_inst
 from .traverse import HitRecord
-from .wavefront import _inverse_permutation, build_treelets, prepare_closest, prepare_occlusion
+from .wavefront import _unsort, build_treelets, prepare_closest, prepare_occlusion
 
 # the reference packs (tile << 16 | world treelet) into one int32 per pair,
 # so it accepts at most this many world treelets; the port keeps the limit
@@ -101,10 +101,11 @@ def _sweep_args(tl: InstancedTreelets):
 
 
 def closest_hit_instanced(tl: InstancedTreelets, o, d, t_max, world_lo, world_hi,
-                          active=None) -> HitRecord:
+                          active=None, presorted=False) -> HitRecord:
     """Two-level closest hit. o/d (R, 3), t_max (R,); returns tri =
-    world_treelet * TREELET + column. Inactive lanes get reach 0."""
-    ps = prepare_closest(tl, o, d, t_max, world_lo, world_hi, active)
+    world_treelet * TREELET + column. Inactive lanes get reach 0.
+    presorted: as in wavefront.closest_hit_packets."""
+    ps = prepare_closest(tl, o, d, t_max, world_lo, world_hi, active, presorted)
     n_pad, sz = ps.n_pad, ps.os.shape[0]
     t_res = o.new_zeros(n_pad)
     b1 = o.new_zeros(n_pad)
@@ -113,9 +114,8 @@ def closest_hit_instanced(tl: InstancedTreelets, o, d, t_max, world_lo, world_hi
     if sz:
         t_res[:sz], tri[:sz], b1[:sz], b2[:sz] = closest_inst(
             ps.os, ps.ds, ps.ts, ps.tre, ps.tn_bits, ps.seg, *_sweep_args(tl))
-    inv = _inverse_permutation(ps.order)[:ps.n]
-    tri = tri[inv]
-    return HitRecord(hit=tri >= 0, t=t_res[inv], tri=tri, b1=b1[inv], b2=b2[inv])
+    t_res, tri, b1, b2 = _unsort(ps, t_res, tri, b1, b2)
+    return HitRecord(hit=tri >= 0, t=t_res, tri=tri, b1=b1, b2=b2)
 
 
 def any_hit_instanced(tl: InstancedTreelets, o, d, t_max, world_lo, world_hi,
@@ -130,7 +130,7 @@ def any_hit_instanced(tl: InstancedTreelets, o, d, t_max, world_lo, world_hi,
         occ[:sz] = occlusion_inst(ps.os, ps.ds, ps.ts, (ps.ts <= 0.0).to(torch.int32),
                                   ps.tre, ps.tn_bits, ps.seg, *_sweep_args(tl))
         reach[:sz] = ps.ts
-    inv = _inverse_permutation(ps.order)[:ps.n]
+    occ, reach = _unsort(ps, occ, reach)
     # lanes with reach 0 (inactive, padding) are not occluded
-    return (occ[inv] > 0) & (reach[inv] > 0.0)
+    return (occ > 0) & (reach > 0.0)
 

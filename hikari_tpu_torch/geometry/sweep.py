@@ -51,8 +51,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 # kernel launches, counted by the wrappers where they launch and nowhere
-# else (the instanced sweeps of sweep_inst.py count here too)
-_KERNELS = ("closest_tiles", "occlusion_tiles", "closest_inst", "occlusion_inst")
+# else (the instanced sweeps of sweep_inst.py and the pair-grid sweeps of
+# sweep_pairs.py count here too)
+_KERNELS = ("closest_tiles", "occlusion_tiles", "closest_inst", "occlusion_inst",
+            "closest_pairs", "occlusion_pairs")
 launches = dict.fromkeys(_KERNELS, 0)
 # plain-version runs on CUDA tensors (comparisons with the kernels only)
 plain_cuda_runs = dict.fromkeys(_KERNELS, 0)
@@ -67,33 +69,35 @@ def reset_counts() -> None:
 # --- plain PyTorch versions ------------------------------------------------------
 
 
-def _block_tuv(o, d, coef):
-    """(C, L, 3) rays x (C, TT, 12) coefficients -> t, u, v of (C, L, TT)."""
-    def affine(g, x, w):  # g: (C, TT, 3), x: (C, L, 3) -> (C, L, TT)
-        return (x[:, :, None, 0] * g[:, None, :, 0] + x[:, :, None, 1] * g[:, None, :, 1]
-                + x[:, :, None, 2] * g[:, None, :, 2]) + (0.0 if w is None else w[:, None, :])
+def affine(g, x, w):
+    """(C, TT, 3) coefficient columns g and (C, TT) offsets w (or None)
+    against (C, L, 3) rays x -> x . g + w of (C, L, TT)."""
+    return (x[:, :, None, 0] * g[:, None, :, 0] + x[:, :, None, 1] * g[:, None, :, 1]
+            + x[:, :, None, 2] * g[:, None, :, 2]) + (0.0 if w is None else w[:, None, :])
 
+
+def _block_hit(o, d, coef):
+    """(C, L, 3) rays x (C, TT, 12) coefficients -> t and the hit mask, each
+    (C, L, TT)."""
     n, dw = coef[..., 0:3], coef[..., 3]
     au, bu = coef[..., 4:7], coef[..., 7]
     av, bv = coef[..., 8:11], coef[..., 11]
     t = -affine(n, o, dw) / affine(n, d, None)
     u = affine(au, o, bu) + t * affine(au, d, None)
     v = affine(av, o, bv) + t * affine(av, d, None)
-    return t, u, v
-
-
-def _hit(t, u, v):
     w = (1.0 + _EPS) - (u + v)
-    return (u >= -_EPS) & (v >= -_EPS) & (w >= -_EPS) & (t > _T_MIN)
+    return t, (u >= -_EPS) & (v >= -_EPS) & (w >= -_EPS) & (t > _T_MIN)
 
 
-def _walk(seg, tn_bits, thr, step):
+def _walk(seg, tn_bits, thr, step, stats=None):
     """Walk every tile's segment by pair rank k with the early-out; step(idx,
-    p) sweeps tiles idx at pairs p and returns their new thresholds."""
+    p) sweeps tiles idx at pairs p and returns their new thresholds. stats:
+    optional dict that receives the number of (tile, pair) sweeps made
+    under "pairs"."""
     start = seg[:-1].long()
     length = (seg[1:] - seg[:-1]).long()
     running = length > 0
-    k = 0
+    k = swept = 0
     while True:
         p = start + k
         pc = torch.clamp(p, max=max(tn_bits.numel() - 1, 0))
@@ -102,59 +106,104 @@ def _walk(seg, tn_bits, thr, step):
             running = running & (tn_bits[pc] < thr)
         idx = running.nonzero().squeeze(1)
         if idx.numel() == 0:
-            return
+            break
+        swept += idx.numel()
         for chunk in idx.split(_PLAIN_TILES):
             thr[chunk] = step(chunk, p[chunk])
         k += 1
+    if stats is not None:
+        stats["pairs"] = swept
 
 
-def closest_tiles_plain(o, d, key_in, tr_in, tre, tn_bits, seg, coef):
-    """Plain PyTorch closest-hit sweep with the kernel's signature."""
-    if o.is_cuda:
-        plain_cuda_runs["closest_tiles"] += 1
+def tests_needed(bound_bits, tn_bits_p) -> int:
+    """Ray-triangle tests a step of a walk needs: TREELET for every lane of
+    (C, L) bound_bits (a closest key | COL_MASK, or an unoccluded lane's
+    reach bits) above its pair's entry distance tn_bits_p (C,); no other
+    lane can gain from the treelet."""
+    return int((bound_bits > tn_bits_p[:, None]).sum()) * TREELET
+
+
+def closest_walk(o, d, key_in, tr_in, tre, tn_bits, seg, coef, block_hit, stats=None):
+    """The closest-hit walk of the contract above with the hit test
+    block_hit(o, d, coef) -> (t, hit): the plain version of K1 and, with
+    its own hit test, of the pair-grid K5 (sweep_pairs.py)."""
     n_tiles = seg.numel() - 1
     key = key_in.clone().view(n_tiles, RAY_TILE)
     tr = tr_in.clone().view(n_tiles, RAY_TILE)
     o_t, d_t = o.view(n_tiles, RAY_TILE, 3), d.view(n_tiles, RAY_TILE, 3)
     cols = torch.arange(TREELET, dtype=torch.int32, device=o.device)
     thr = (key | COL_MASK).amax(1)
+    tests = 0
 
     def step(idx, p):
+        nonlocal tests
         tre_c = tre[p].long()
-        t, u, v = _block_tuv(o_t[idx], d_t[idx], coef[tre_c])
-        bits = torch.where(_hit(t, u, v), t, _MISS_T).view(torch.int32)
+        if stats is not None:
+            tests += tests_needed(key[idx] | COL_MASK, tn_bits[p])
+        t, hit = block_hit(o_t[idx], d_t[idx], coef[tre_c])
+        bits = torch.where(hit, t, _MISS_T).view(torch.int32)
         key_new = ((bits & ~COL_MASK) | cols).amin(-1)
         better = key_new < key[idx]
         key[idx] = torch.where(better, key_new, key[idx])
         tr[idx] = torch.where(better, tre_c[:, None].to(torch.int32), tr[idx])
         return (key[idx] | COL_MASK).amax(1)
 
-    _walk(seg, tn_bits, thr, step)
+    _walk(seg, tn_bits, thr, step, stats)
+    if stats is not None:
+        stats["tests"] = tests
     return key.view(-1), tr.view(-1)
 
 
+def _live_reach_bits(occ, tmax):
+    """Per lane: the bits of its reach while unoccluded, else 0."""
+    return torch.where(occ == 0, tmax, 0.0).view(torch.int32)
+
+
 def _reach_bits(occ, tmax):
-    return torch.where(occ == 0, tmax, 0.0).view(torch.int32).amax(1)
+    return _live_reach_bits(occ, tmax).amax(1)
 
 
-def occlusion_tiles_plain(o, d, tmax, occ_in, tre, tn_bits, seg, coef):
-    """Plain PyTorch occlusion sweep with the kernel's signature."""
-    if o.is_cuda:
-        plain_cuda_runs["occlusion_tiles"] += 1
+def occlusion_walk(o, d, tmax, occ_in, tre, tn_bits, seg, coef, block_hit, stats=None):
+    """The occlusion walk of the contract above with the hit test
+    block_hit(o, d, coef) -> (t, hit): the plain version of K2 and, with
+    its own hit test, of the pair-grid K6 (sweep_pairs.py)."""
     n_tiles = seg.numel() - 1
     occ = occ_in.clone().view(n_tiles, RAY_TILE)
     tm = tmax.view(n_tiles, RAY_TILE)
     o_t, d_t = o.view(n_tiles, RAY_TILE, 3), d.view(n_tiles, RAY_TILE, 3)
     thr = _reach_bits(occ, tm)
+    tests = 0
 
     def step(idx, p):
-        t, u, v = _block_tuv(o_t[idx], d_t[idx], coef[tre[p].long()])
-        hit = _hit(t, u, v) & (t < tm[idx][..., None])
+        nonlocal tests
+        if stats is not None:
+            tests += tests_needed(_live_reach_bits(occ[idx], tm[idx]), tn_bits[p])
+        t, hit = block_hit(o_t[idx], d_t[idx], coef[tre[p].long()])
+        hit = hit & (t < tm[idx][..., None])
         occ[idx] = occ[idx] | hit.any(-1).to(torch.int32)
         return _reach_bits(occ[idx], tm[idx])
 
-    _walk(seg, tn_bits, thr, step)
+    _walk(seg, tn_bits, thr, step, stats)
+    if stats is not None:
+        stats["tests"] = tests
     return occ.view(-1)
+
+
+def closest_tiles_plain(o, d, key_in, tr_in, tre, tn_bits, seg, coef, stats=None):
+    """Plain PyTorch closest-hit sweep with the kernel's signature. stats:
+    optional dict that receives the (tile, pair) sweeps made ("pairs") and
+    the ray-triangle tests they need ("tests")."""
+    if o.is_cuda:
+        plain_cuda_runs["closest_tiles"] += 1
+    return closest_walk(o, d, key_in, tr_in, tre, tn_bits, seg, coef, _block_hit, stats)
+
+
+def occlusion_tiles_plain(o, d, tmax, occ_in, tre, tn_bits, seg, coef, stats=None):
+    """Plain PyTorch occlusion sweep with the kernel's signature (stats as in
+    closest_tiles_plain)."""
+    if o.is_cuda:
+        plain_cuda_runs["occlusion_tiles"] += 1
+    return occlusion_walk(o, d, tmax, occ_in, tre, tn_bits, seg, coef, _block_hit, stats)
 
 
 # --- CUDA kernels -------------------------------------------------------------------

@@ -43,7 +43,8 @@ import torch
 
 from .._build import build_shared_library
 from .sweep import (NVCC_FLAGS, RAY_TILE, TREELET, _check, _check_sweep, _nvcc,
-                    _reach_bits, _stream, _walk, launches, plain_cuda_runs)
+                    _live_reach_bits, _reach_bits, _stream, _walk, launches,
+                    plain_cuda_runs, tests_needed)
 
 _EPS = 1e-6
 _T_MIN = 1e-4
@@ -89,8 +90,11 @@ def _pair_blocks(o_t, d_t, idx, p, tre, ti_obj, ti_inst, coef, inst_a):
     return wt, _block_tuv_inst(o4, d4, coef[ti_obj[wt].long()])
 
 
-def closest_inst_plain(o, d, t_in, tre, tn_bits, seg, ti_obj, ti_inst, coef, inst_a):
-    """Plain PyTorch instanced closest-hit sweep with the kernel's signature."""
+def closest_inst_plain(o, d, t_in, tre, tn_bits, seg, ti_obj, ti_inst, coef, inst_a,
+                       stats=None):
+    """Plain PyTorch instanced closest-hit sweep with the kernel's signature.
+    stats: optional dict that receives the (tile, pair) sweeps made
+    ("pairs") and the ray-triangle tests they need ("tests")."""
     if o.is_cuda:
         plain_cuda_runs["closest_inst"] += 1
     n_tiles = seg.numel() - 1
@@ -100,8 +104,12 @@ def closest_inst_plain(o, d, t_in, tre, tn_bits, seg, ti_obj, ti_inst, coef, ins
     o_t, d_t = o.view(n_tiles, RAY_TILE, 3), d.view(n_tiles, RAY_TILE, 3)
     cols = torch.arange(TREELET, dtype=torch.int32, device=o.device)
     thr = t_c.view(torch.int32).amax(1)
+    tests = 0
 
     def step(idx, p):
+        nonlocal tests
+        if stats is not None:
+            tests += tests_needed(t_c[idx].view(torch.int32), tn_bits[p])
         wt, (t, u, v, hit) = _pair_blocks(o_t, d_t, idx, p, tre, ti_obj, ti_inst,
                                           coef, inst_a)
         t_cand = torch.where(hit, t, _MISS_T)
@@ -115,13 +123,16 @@ def closest_inst_plain(o, d, t_in, tre, tn_bits, seg, ti_obj, ti_inst, coef, ins
         b2[idx] = torch.where(better, torch.gather(v, -1, jl)[..., 0], b2[idx])
         return t_c[idx].view(torch.int32).amax(1)
 
-    _walk(seg, tn_bits, thr, step)
+    _walk(seg, tn_bits, thr, step, stats)
+    if stats is not None:
+        stats["tests"] = tests
     return t_c.view(-1), tri.view(-1), b1.view(-1), b2.view(-1)
 
 
 def occlusion_inst_plain(o, d, tmax, occ_in, tre, tn_bits, seg, ti_obj, ti_inst, coef,
-                         inst_a):
-    """Plain PyTorch instanced occlusion sweep with the kernel's signature."""
+                         inst_a, stats=None):
+    """Plain PyTorch instanced occlusion sweep with the kernel's signature
+    (stats as in closest_inst_plain)."""
     if o.is_cuda:
         plain_cuda_runs["occlusion_inst"] += 1
     n_tiles = seg.numel() - 1
@@ -129,15 +140,21 @@ def occlusion_inst_plain(o, d, tmax, occ_in, tre, tn_bits, seg, ti_obj, ti_inst,
     tm = tmax.view(n_tiles, RAY_TILE)
     o_t, d_t = o.view(n_tiles, RAY_TILE, 3), d.view(n_tiles, RAY_TILE, 3)
     thr = _reach_bits(occ, tm)
+    tests = 0
 
     def step(idx, p):
+        nonlocal tests
+        if stats is not None:
+            tests += tests_needed(_live_reach_bits(occ[idx], tm[idx]), tn_bits[p])
         _, (t, _, _, hit) = _pair_blocks(o_t, d_t, idx, p, tre, ti_obj, ti_inst,
                                          coef, inst_a)
         hit = hit & (t < tm[idx][..., None])
         occ[idx] = occ[idx] | hit.any(-1).to(torch.int32)
         return _reach_bits(occ[idx], tm[idx])
 
-    _walk(seg, tn_bits, thr, step)
+    _walk(seg, tn_bits, thr, step, stats)
+    if stats is not None:
+        stats["tests"] = tests
     return occ.view(-1)
 
 

@@ -1,8 +1,20 @@
 """Wavefront packet traversal: sorted ray tiles swept against treelets.
 
-Port of ``hikari_tpu/geometry/wavefront.py`` along the shipping defaults
-of the JAX package (``SWEEP_MODE="tile"``, ``RAY_TILE=1024``,
-``TREELET=256``, ``KEY_OBITS=6``, per-ray pre-pass on, no banded sweep):
+Port of ``hikari_tpu/geometry/wavefront.py`` (``RAY_TILE=1024``,
+``TREELET=256``, ``KEY_OBITS=6``, per-ray pre-pass on) with the reference's
+three traversal switches, read from the same environment variables at
+import and from the module attributes at call time:
+
+* ``SWEEP_MODE`` (``HIKARI_SWEEP``, default ``"tile"``): ``"tile"`` sweeps
+  with the tile kernels of ``sweep.py`` (K1/K2), anything else with the
+  pair-grid kernels of ``sweep_pairs.py`` (K5/K6);
+* ``BAND_FRAC`` (``HIKARI_BAND_FRAC``, default 0): above 0 the flat
+  closest hit of ``integrators/volpath.py`` runs the banded two-pass sweep
+  with a band of that fraction of the world diagonal;
+* ``SHADOW_REV`` (``HIKARI_SHADOW_REV=on``, default off): shadow rays are
+  traced from the far end of their segment.
+
+The steps:
 
 1. lanes are pre-culled against coarse BVH boxes and clamped to the world
    box, then sorted by (direction octant, origin Morton, direction Morton);
@@ -10,8 +22,8 @@ of the JAX package (``SWEEP_MODE="tile"``, ``RAY_TILE=1024``,
    conservative interval slab test over 8 sub-frusta;
 3. the surviving (tile, treelet) pairs form one tile-major pair list,
    front to back per tile by conservative entry distance;
-4. the sweep kernels of ``sweep.py`` walk each tile's pair segment with
-   the front-to-back early-out, and the winning triangle's exact t and
+4. the sweep kernels walk each tile's pair segment with the
+   front-to-back early-out, and the winning triangle's exact t and
    barycentrics are recomputed per lane afterwards.
 
 Triangles are tested in the Baldwin-Weber affine form: per treelet the
@@ -32,14 +44,20 @@ int32.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
 
 from .sweep import COL_MASK, RAY_TILE, TREELET, closest_tiles, occlusion_tiles
+from .sweep_pairs import closest_pairs, occlusion_pairs
 from .traverse import HitRecord
 from ..core.vecmath import cross
+
+SWEEP_MODE = os.environ.get("HIKARI_SWEEP", "tile")
+BAND_FRAC = float(os.environ.get("HIKARI_BAND_FRAC", "0.0"))
+SHADOW_REV = os.environ.get("HIKARI_SHADOW_REV", "off") == "on"
 
 KEY_OBITS = 6        # origin-Morton bits per axis in the sort key
 SUBFRUSTA = 8        # 128-ray sub-frusta per tile in the cull
@@ -366,7 +384,7 @@ def _world_exit_clamp(o, d, t_max, world_lo, world_hi):
 class PairSweep:
     """A sorted wavefront and its pair list, ready for a sweep kernel."""
 
-    order: torch.Tensor    # (n_pad,) sorted lane -> input lane
+    order: torch.Tensor | None  # (n_pad,) sorted lane -> input lane; None = presorted
     n: int                 # input lanes
     os: torch.Tensor       # (sz, 3) sorted live-prefix origins
     ds: torch.Tensor       # (sz, 3)
@@ -374,77 +392,132 @@ class PairSweep:
     tre: torch.Tensor      # (P,) int32
     tn_bits: torch.Tensor  # (P,) int32
     seg: torch.Tensor      # (sz // RAY_TILE + 1,) int32
-
-    @property
-    def n_pad(self) -> int:
-        return self.order.numel()
+    n_pad: int             # input lanes padded to a RAY_TILE multiple
 
 
-def _prepare(tl, o, d, t_max, keys_fn) -> PairSweep:
+def pair_list(tl, os_, ds, ts):
+    """Cull the tiles of a sorted wavefront against the treelets and
+    compact the survivors into (tre, tn_bits, seg) (see _build_pairs)."""
+    mask, tnear = tile_treelet_mask(os_, ds, ts, tl, os_.shape[0] // RAY_TILE)
+    return _build_pairs(mask, tnear)
+
+
+def _prepare(tl, o, d, t_max, keys_fn, presorted=False, band=None) -> PairSweep:
     """Sort, live-prefix slice, cull and pair a wavefront against flat
     Treelets or the instanced tables (instanced.InstancedTreelets). Only
     flat treelets run the per-ray super-box pre-pass: the instanced tables
-    have no super boxes, as in the reference's instanced path."""
+    have no super boxes, as in the reference's instanced path.
+
+    presorted: the caller's lanes are already in a tile-coherent order; no
+    sort, and the sweep covers every lane, because the pre-pass and the
+    world-exit clamp can zero the reach of lanes inside the caller's live
+    prefix. band: pair the tiles for reach min(ts, band) (the first pass
+    of the banded closest hit); ts stays the full reach."""
     if isinstance(tl, Treelets) and tl.lo.shape[0] > 1:
         t_max = torch.where(_ray_super_cull(tl, o, d, t_max), t_max, 0.0)
     o, d, t_max, n, n_pad = _pad_rays(o, d, t_max)
-    keys = torch.clamp(keys_fn(o, d), max=0xFFFFFFFE)
-    keys = torch.where(t_max > 0.0, keys, 0xFFFFFFFF)
-    order, os_, ds, ts = _sort_wavefront(o, d, t_max, keys)
-    # dead lanes sort last: the live lanes are a prefix of the sorted order
-    live = int((ts > 0.0).sum())
-    sz = -(-live // RAY_TILE) * RAY_TILE
-    os_, ds, ts = os_[:sz].contiguous(), ds[:sz].contiguous(), ts[:sz].contiguous()
-    mask, tnear = tile_treelet_mask(os_, ds, ts, tl, sz // RAY_TILE)
-    tre, tn_bits, seg = _build_pairs(mask, tnear)
-    return PairSweep(order, n, os_, ds, ts, tre, tn_bits, seg)
+    if presorted:
+        order, os_, ds, ts = None, o, d, t_max
+    else:
+        keys = torch.clamp(keys_fn(o, d), max=0xFFFFFFFE)
+        keys = torch.where(t_max > 0.0, keys, 0xFFFFFFFF)
+        order, os_, ds, ts = _sort_wavefront(o, d, t_max, keys)
+        # dead lanes sort last: the live lanes are a prefix of the sorted order
+        live = int((ts > 0.0).sum())
+        sz = -(-live // RAY_TILE) * RAY_TILE
+        os_, ds, ts = os_[:sz].contiguous(), ds[:sz].contiguous(), ts[:sz].contiguous()
+    reach = ts if band is None else torch.clamp(ts, max=band)
+    tre, tn_bits, seg = pair_list(tl, os_, ds, reach)
+    return PairSweep(order, n, os_, ds, ts, tre, tn_bits, seg, n_pad)
 
 
-def prepare_closest(tl, o, d, t_max, world_lo, world_hi, active=None) -> PairSweep:
+def prepare_closest(tl, o, d, t_max, world_lo, world_hi, active=None, presorted=False,
+                    band=None) -> PairSweep:
     """Cull, sort and pair a closest-hit wavefront."""
     t_max = torch.where(torch.isfinite(t_max), t_max, 3.0e37)
     t_max = _world_exit_clamp(o, d, t_max, world_lo, world_hi)
     if active is not None:
         t_max = torch.where(active, t_max, 0.0)
     return _prepare(tl, o, d, t_max,
-                    lambda o_, d_: ray_sort_keys(o_, d_, world_lo, world_hi))
+                    lambda o_, d_: ray_sort_keys(o_, d_, world_lo, world_hi),
+                    presorted, band)
+
+
+def _keyify(t):
+    """A reach as a closest-hit key rounded up, so unbeaten lanes keep a
+    conservative early-out threshold."""
+    return torch.clamp(t, min=0.0).view(torch.int32) | COL_MASK
 
 
 def closest_carry(ps: PairSweep):
-    """Initial (key, tr) carries: the lane's reach as a key rounded up, so
-    unbeaten lanes keep a conservative early-out threshold."""
-    key = torch.clamp(ps.ts, min=0.0).view(torch.int32) | COL_MASK
+    """Initial (key, tr) carries: the lanes' reach as keys, no treelet."""
+    key = _keyify(ps.ts)
     return key, torch.full_like(key, -1)
 
 
+def _closest_sweep():
+    """The closest-hit sweep of the current SWEEP_MODE (read at call time)."""
+    return closest_tiles if SWEEP_MODE == "tile" else closest_pairs
+
+
+def _occlusion_sweep():
+    return occlusion_tiles if SWEEP_MODE == "tile" else occlusion_pairs
+
+
+def _unsort(ps: PairSweep, *lanes):
+    """Sorted-order lane values -> input order, padding stripped."""
+    if ps.order is None:
+        return tuple(x[:ps.n] for x in lanes)
+    inv = _inverse_permutation(ps.order)[:ps.n]
+    return tuple(x[inv] for x in lanes)
+
+
 def closest_hit_packets(tl: Treelets, o, d, t_max, world_lo, world_hi,
-                        active=None) -> HitRecord:
+                        active=None, band=None, presorted=False) -> HitRecord:
     """Sorted-packet closest hit. o/d (R, 3), t_max (R,); tri indices are in
-    BVH leaf order. Inactive lanes get reach 0 and are culled."""
-    ps = prepare_closest(tl, o, d, t_max, world_lo, world_hi, active)
+    BVH leaf order. Inactive lanes get reach 0 and are culled.
+
+    band: optional float32 scalar; sweep in two passes, the first with
+    every reach capped at `band` (its hits and the lanes that reach no
+    further are final), the second at full reach over the rest, as
+    ``wavefront.py:1331-1360`` of the reference does. presorted: the lanes
+    arrive in a tile-coherent order (the resident bounce loop sorts them
+    with ray_sort_keys); no sort and no unsort."""
+    ps = prepare_closest(tl, o, d, t_max, world_lo, world_hi, active, presorted, band)
     n_pad, sz = ps.n_pad, ps.os.shape[0]
     t_res = o.new_zeros(n_pad)
     b1 = o.new_zeros(n_pad)
     b2 = o.new_zeros(n_pad)
     tri = torch.full((n_pad,), -1, dtype=torch.int32, device=o.device)
     if sz:
-        key0, tr0 = closest_carry(ps)
-        key, tr = closest_tiles(ps.os, ps.ds, key0, tr0, ps.tre, ps.tn_bits,
-                                ps.seg, tl.coef)
-        t_res[:sz], b1[:sz], b2[:sz], tri[:sz] = _resolve_hits(
-            tl, key, tr, ps.os, ps.ds)
-    inv = _inverse_permutation(ps.order)[:ps.n]
-    tri = tri[inv]
-    return HitRecord(hit=tri >= 0, t=t_res[inv], tri=tri, b1=b1[inv], b2=b2[inv])
+        sweep = _closest_sweep()
+        if band is None:
+            key, tr = sweep(ps.os, ps.ds, *closest_carry(ps), ps.tre, ps.tn_bits, ps.seg,
+                            tl.coef)
+        else:
+            ts1 = torch.clamp(ps.ts, max=band)
+            key1, tr1 = sweep(ps.os, ps.ds, _keyify(ts1), torch.full_like(tri[:sz], -1),
+                              ps.tre, ps.tn_bits, ps.seg, tl.coef)
+            done = (tr1 >= 0) | (ps.ts <= band)
+            tre2, tn2, seg2 = pair_list(tl, ps.os, ps.ds, torch.where(done, 0.0, ps.ts))
+            key, tr = sweep(ps.os, ps.ds, torch.where(done, key1, _keyify(ps.ts)), tr1,
+                            tre2, tn2, seg2, tl.coef)
+        t_res[:sz], b1[:sz], b2[:sz], tri[:sz] = _resolve_hits(tl, key, tr, ps.os, ps.ds)
+    t_res, tri, b1, b2 = _unsort(ps, t_res, tri, b1, b2)
+    return HitRecord(hit=tri >= 0, t=t_res, tri=tri, b1=b1, b2=b2)
 
 
 def prepare_occlusion(tl, o, d, t_max, world_lo, world_hi, active=None,
-                      group=None) -> PairSweep:
+                      group=None, reverse=False) -> PairSweep:
     """Cull, sort and pair a shadow-ray wavefront. group: optional (R,) ids
-    (NEE light ids) clustered ahead of the spatial key."""
+    (NEE light ids) clustered ahead of the spatial key. reverse: trace each
+    segment from its far end back to its origin."""
     t_max = torch.where(torch.isfinite(t_max), t_max, 3.0e37)
     if active is not None:
         t_max = torch.where(active, t_max, 0.0)
+    if reverse:
+        o = o + d * t_max[:, None]
+        d = -d
     t_max = t_max * 0.9999
     if group is not None:
         pad = (-group.shape[0]) % RAY_TILE
@@ -460,17 +533,21 @@ def prepare_occlusion(tl, o, d, t_max, world_lo, world_hi, active=None,
 
 
 def any_hit_packets(tl: Treelets, o, d, t_max, world_lo, world_hi,
-                    active=None, group=None) -> torch.Tensor:
-    """Occlusion: True where a triangle lies within (1e-4, 0.9999 t_max)."""
-    ps = prepare_occlusion(tl, o, d, t_max, world_lo, world_hi, active, group)
+                    active=None, group=None, reverse=None) -> torch.Tensor:
+    """Occlusion: True where a triangle lies within (1e-4, 0.9999 t_max).
+    reverse (default SHADOW_REV): trace from the far end of each segment
+    (occlusion over an open segment is symmetric), which turns NEE rays
+    converging on a few light points into shared-origin packets."""
+    if reverse is None:
+        reverse = SHADOW_REV
+    ps = prepare_occlusion(tl, o, d, t_max, world_lo, world_hi, active, group, reverse)
     sz = ps.os.shape[0]
     occ = torch.zeros(ps.n_pad, dtype=torch.int32, device=o.device)
-    if sz:
-        occ0 = (ps.ts <= 0.0).to(torch.int32)
-        occ[:sz] = occlusion_tiles(ps.os, ps.ds, ps.ts, occ0, ps.tre,
-                                   ps.tn_bits, ps.seg, tl.coef)
     reach = torch.zeros(ps.n_pad, device=o.device)
-    reach[:sz] = ps.ts
-    inv = _inverse_permutation(ps.order)[:ps.n]
+    if sz:
+        occ[:sz] = _occlusion_sweep()(ps.os, ps.ds, ps.ts, (ps.ts <= 0.0).to(torch.int32),
+                                      ps.tre, ps.tn_bits, ps.seg, tl.coef)
+        reach[:sz] = ps.ts
+    occ, reach = _unsort(ps, occ, reach)
     # lanes pre-resolved with reach 0 (inactive, culled) are not occluded
-    return (occ[inv] > 0) & (reach[inv] > 0.0)
+    return (occ > 0) & (reach > 0.0)

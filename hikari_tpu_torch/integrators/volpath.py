@@ -1,11 +1,13 @@
 """VolPath: spectral wavefront path tracer, surface-only main path.
 
-Port of ``hikari_tpu/integrators/volpath.py`` along the path the benchmark
-renders: non-resident bounce loop, dense material dispatch
-(``material_coherence="none"``), power light sampler, NEE through the
-occlusion sweep, emission MIS, Russian roulette and glass dispersion.
-The whole wavefront is a structure-of-arrays of one path per lane with
-masked lanes; ``lax.fori_loop`` becomes a Python loop over depth and
+Port of ``hikari_tpu/integrators/volpath.py`` for surface-only scenes:
+power light sampler, NEE through the occlusion sweep, emission MIS,
+Russian roulette and glass dispersion, with the reference's bounce-loop
+modes: material coherence 'none' / 'gated' / 'sorted', the resident loop
+(``resident='on'``) and depth segments (``render_lanes_segmented``). The
+path state is a dict of per-lane tensors (the reference's state dict,
+without the media channels), advanced by ``_bounce_core`` one bounce at a
+time; ``lax.fori_loop`` becomes a Python loop over depth and
 ``where``-selects stay ``torch.where``. Every ``path_sample_*`` dimension
 index (0, 1, 3, 5, 6) is the JAX package's, so both draw the same samples.
 
@@ -16,15 +18,15 @@ instance (``_face_decode``), whose normal transform and material override
 apply at the hit. The reference's instanced shadow-transmittance hook
 (``volpath.py:807-828``) belongs to media and is not ported with them.
 
-Participating media, textures, alpha, Mix and layered materials, other
-lights, the resident loop and the sorted/gated material dispatch are not
-ported; scenes and configurations that need them raise
+Participating media, textures, alpha, Mix and layered materials and the
+other lights are not ported; scenes that need them raise
 ``NotImplementedError`` instead of rendering a wrong image.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, fields
 
 import torch
 
@@ -34,10 +36,11 @@ from ..core.ray import spawn_ray
 from ..core.vecmath import dot, face_forward, make_frame, normalize, to_local, to_world
 from ..film.film import Film, film_add_weighted, make_film
 from ..film.filters import FilterSampler, filter_sample, make_filter
+from ..geometry import wavefront as wf
 from ..geometry.triangle import interpolate
 from ..geometry.instanced import any_hit_instanced, closest_hit_instanced
-from ..geometry.sweep import TREELET
-from ..geometry.wavefront import any_hit_packets, closest_hit_packets
+from ..geometry.sweep import RAY_TILE, TREELET
+from ..geometry.wavefront import _inverse_permutation, ray_sort_keys
 from ..lights import types as lt
 from ..materials import bsdf as mb
 from ..materials import types as mt
@@ -47,26 +50,48 @@ from ..spectral import spectrum as sp
 from ..spectral.cie import spectral_to_xyz, xyz_to_linear_srgb
 
 
-def scene_closest_hit(scene: SceneData, o, d, t_max, active=None):
+def scene_closest_hit(scene: SceneData, o, d, t_max, active=None, presorted=False):
+    """The scene's closest hit; flat scenes take the banded two-pass sweep
+    when wavefront.BAND_FRAC > 0 (band = BAND_FRAC x the world diagonal),
+    as the reference does. presorted: see wavefront.closest_hit_packets."""
     if scene.has_instances:
         return closest_hit_instanced(scene.inst, o, d, t_max, scene.world_lo,
-                                     scene.world_hi, active=active)
-    return closest_hit_packets(scene.treelets, o, d, t_max, scene.world_lo,
-                               scene.world_hi, active=active)
+                                     scene.world_hi, active=active, presorted=presorted)
+    band = None
+    if wf.BAND_FRAC > 0.0:
+        band = wf.BAND_FRAC * torch.linalg.vector_norm(scene.world_hi - scene.world_lo)
+    return wf.closest_hit_packets(scene.treelets, o, d, t_max, scene.world_lo,
+                                  scene.world_hi, active=active, band=band,
+                                  presorted=presorted)
 
 
 def scene_any_hit(scene: SceneData, o, d, t_max, active=None, group=None):
     if scene.has_instances:
         return any_hit_instanced(scene.inst, o, d, t_max, scene.world_lo,
                                  scene.world_hi, active=active, group=group)
-    return any_hit_packets(scene.treelets, o, d, t_max, scene.world_lo,
-                           scene.world_hi, active=active, group=group)
+    return wf.any_hit_packets(scene.treelets, o, d, t_max, scene.world_lo,
+                              scene.world_hi, active=active, group=group)
 
 
 @dataclass(frozen=True)
 class VolPath:
     """Config mirrors the JAX VolPath. sample_batch = K dispatches K
-    consecutive samples of the frame as one K*w*h-lane wavefront."""
+    consecutive samples of the frame as one K*w*h-lane wavefront (default
+    4, or HIKARI_SAMPLE_BATCH).
+
+    material_coherence: 'none' evaluates every present material type over
+    all lanes; 'gated' skips a type that no lane has; 'sorted' stable-sorts
+    the lanes by material tag and evaluates each present type on its run
+    only. All three give the same result per lane.
+
+    resident: 'on' keeps the path state in sorted order: each bounce sorts
+    the lanes once by ray_sort_keys (dead lanes last), runs the whole
+    bounce on the live prefix rounded up to a whole ray tile, with the
+    closest hit presorted, and lane order is restored once at the end.
+    'off' and 'auto' (which resolves off, as in the JAX package) run the
+    bounce over every lane with the traversal's own sort. resident_levels
+    is the reference's prefix-ladder depth; the port sizes the prefix to
+    the live count itself, so the field is accepted and changes nothing."""
 
     max_depth: int = 5
     samples_per_pixel: int = 16
@@ -74,64 +99,119 @@ class VolPath:
     regularize: bool = False
     max_component_value: float = 1e6  # firefly clamp
     seed: int = 0
-    material_coherence: str = "none"
-    sample_batch: int = 4
-    resident: str = "auto"  # 'auto' resolves off, as in the JAX package
+    material_coherence: str = "none"  # 'none' | 'gated' | 'sorted'
+    sample_batch: int = int(os.environ.get("HIKARI_SAMPLE_BATCH", "4"))
+    resident: str = "auto"  # 'on' | 'off' | 'auto'
+    resident_levels: int = 0
     nee: bool = True
 
 
 def _check_supported(vp: VolPath):
-    if vp.resident == "on":
-        raise NotImplementedError("the resident bounce loop is not ported yet")
-    if vp.material_coherence != "none":
-        raise NotImplementedError(
-            f"material_coherence={vp.material_coherence!r} is not ported yet; "
-            "use 'none'")
+    if vp.material_coherence not in ("none", "gated", "sorted"):
+        raise ValueError(f"material_coherence={vp.material_coherence!r}: expected "
+                         "'none', 'gated' or 'sorted'")
+    if vp.resident not in ("on", "off", "auto"):
+        raise ValueError(f"resident={vp.resident!r}: expected 'on', 'off' or 'auto'")
 
 
-def _sample_bsdf_dispatch(scene, mat_type, mat_idx, wo, lam, u2, uc, regularize):
-    """Dense per-type BSDF sampling, selected by tag."""
-    banks = scene.materials
-    out = mb.invalid_sample(tuple(mat_type.shape), mat_type.device)
-    samplers = [
-        (mt.MATTE, lambda: mb.sample_matte(banks, mat_idx, wo, lam, u2, uc)),
-        (mt.MIRROR, lambda: mb.sample_mirror(banks, mat_idx, wo, lam, u2, uc)),
-        (mt.GLASS, lambda: mb.sample_glass(banks, mat_idx, wo, lam, u2, uc, regularize)),
-        (mt.CONDUCTOR, lambda: mb.sample_conductor(banks, mat_idx, wo, lam, u2, uc,
-                                                   regularize)),
-    ]
-    for tag, fn in samplers:
-        if tag not in scene.present_materials:
-            continue
-        s = fn()
+# --- material dispatch ------------------------------------------------------------
+
+
+def _masked(m, new, old):
+    """where(m, new, old) with m broadcast over new's trailing axes."""
+    return torch.where(m.view(m.shape + (1,) * (new.dim() - m.dim())), new, old)
+
+
+def _sorted_type_dispatch(mat_type, per_lane, out_init, present, run_type):
+    """Material-sorted shading (the reference's _sorted_type_dispatch,
+    ``volpath.py:192``): one stable sort of the lanes by tag, each present
+    type evaluated on its contiguous run only, one scatter back to lane
+    order. The reference's window ladder and clamped dynamic_slice give
+    XLA static shapes; eager PyTorch slices the run exactly.
+
+    per_lane: dict of (N, ...) inputs (None entries pass through);
+    out_init: list of (N, ...) outputs for lanes of no listed type;
+    run_type(tag, sliced per_lane) -> list matching out_init."""
+    order = torch.sort(mat_type, stable=True).indices
+    mt_s = mat_type[order]
+    pl_s = {k: None if v is None else v[order] for k, v in per_lane.items()}
+    out = [x[order] for x in out_init]
+    tags = torch.tensor(present, dtype=mt_s.dtype, device=mt_s.device)
+    starts = torch.searchsorted(mt_s, tags).tolist()
+    ends = torch.searchsorted(mt_s, tags, right=True).tolist()
+    for tag, a, b in zip(present, starts, ends):
+        if b > a:
+            res = run_type(tag, {k: None if v is None else v[a:b] for k, v in pl_s.items()})
+            for o, r in zip(out, res):
+                o[a:b] = r
+    back = [torch.empty_like(x) for x in out]
+    for dst, src in zip(back, out):
+        dst[order] = src
+    return back
+
+
+def _sample_type(banks, tag, idx, wo, lam, u2, uc, reg):
+    if tag == mt.MATTE:
+        return mb.sample_matte(banks, idx, wo, lam, u2, uc)
+    if tag == mt.MIRROR:
+        return mb.sample_mirror(banks, idx, wo, lam, u2, uc)
+    if tag == mt.GLASS:
+        return mb.sample_glass(banks, idx, wo, lam, u2, uc, reg)
+    return mb.sample_conductor(banks, idx, wo, lam, u2, uc, reg)
+
+
+_SAMPLE_TAGS = (mt.MATTE, mt.MIRROR, mt.GLASS, mt.CONDUCTOR)
+_EVAL_TAGS = (mt.MATTE, mt.CONDUCTOR, mt.GLASS)
+_SAMPLE_FIELDS = tuple(f.name for f in fields(mb.BSDFSample))
+
+
+def _dispatch(mat_type, tags, per_lane, out, run_type, coherence):
+    """Evaluate run_type per tag and merge by mat_type: densely ('none'),
+    skipping tags no lane has ('gated'), or on sorted runs ('sorted')."""
+    if coherence == "sorted":
+        return _sorted_type_dispatch(mat_type, per_lane, out, list(tags), run_type)
+    for tag in tags:
         m = mat_type == tag
-        m3 = m[..., None]
-        out = mb.BSDFSample(
-            wi=torch.where(m3, s.wi, out.wi), f=torch.where(m3, s.f, out.f),
-            pdf=torch.where(m, s.pdf, out.pdf),
-            specular=torch.where(m, s.specular, out.specular),
-            transmission=torch.where(m, s.transmission, out.transmission),
-            eta_scale=torch.where(m, s.eta_scale, out.eta_scale),
-            valid=torch.where(m, s.valid, out.valid))
+        if coherence == "gated" and not bool(m.any()):
+            continue
+        out = [_masked(m, new, old) for new, old in zip(run_type(tag, per_lane), out)]
     return out
 
 
-def _eval_bsdf_dispatch(scene, mat_type, mat_idx, wo, wi, lam, regularize):
+def _sample_bsdf_dispatch(scene, mat_type, mat_idx, wo, lam, u2, uc, regularize,
+                          coherence="none"):
+    """Per-type BSDF sampling, selected by tag."""
+    banks = scene.materials
+    init = mb.invalid_sample(tuple(mat_type.shape), mat_type.device)
+    tags = [t for t in _SAMPLE_TAGS if t in scene.present_materials]
+
+    def run(tag, pl):
+        s = _sample_type(banks, tag, pl["idx"], pl["wo"], pl["lam"], pl["u2"], pl["uc"],
+                         pl["reg"])
+        return [getattr(s, f) for f in _SAMPLE_FIELDS]
+
+    out = _dispatch(mat_type, tags,
+                    dict(idx=mat_idx, wo=wo, lam=lam, u2=u2, uc=uc, reg=regularize),
+                    [getattr(init, f) for f in _SAMPLE_FIELDS], run, coherence)
+    return mb.BSDFSample(**dict(zip(_SAMPLE_FIELDS, out)))
+
+
+def _eval_bsdf_dispatch(scene, mat_type, mat_idx, wo, wi, lam, regularize,
+                        coherence="none"):
     """(f, pdf) for NEE MIS; zero for specular-only materials."""
     banks = scene.materials
-    f = torch.zeros_like(lam)
-    pdf = torch.zeros(mat_type.shape, device=lam.device)
-    evals = [
-        (mt.MATTE, lambda: mb.eval_matte(banks, mat_idx, wo, wi, lam)),
-        (mt.CONDUCTOR, lambda: mb.eval_conductor(banks, mat_idx, wo, wi, lam, regularize)),
-        (mt.GLASS, lambda: mb.eval_glass(banks, mat_idx, wo, wi, lam, regularize)),
-    ]
-    for tag, fn in evals:
-        if tag in scene.present_materials:
-            fe, pe = fn()
-            m = mat_type == tag
-            f = torch.where(m[..., None], fe, f)
-            pdf = torch.where(m, pe, pdf)
+    tags = [t for t in _EVAL_TAGS if t in scene.present_materials]
+
+    def run(tag, pl):
+        if tag == mt.MATTE:
+            return mb.eval_matte(banks, pl["idx"], pl["wo"], pl["wi"], pl["lam"])
+        fn = mb.eval_conductor if tag == mt.CONDUCTOR else mb.eval_glass
+        return fn(banks, pl["idx"], pl["wo"], pl["wi"], pl["lam"], pl["reg"])
+
+    f, pdf = _dispatch(mat_type, tags,
+                       dict(idx=mat_idx, wo=wo, wi=wi, lam=lam, reg=regularize),
+                       [torch.zeros_like(lam), torch.zeros(mat_type.shape, device=lam.device)],
+                       run, coherence)
     return f, pdf
 
 
@@ -175,12 +255,169 @@ def _surface_data(scene: SceneData, rec, o, d):
                 arealight=arealight)
 
 
+# --- the bounce loop ----------------------------------------------------------------
+
+
+def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays_traced,
+                 presorted: bool = False):
+    """One bounce over an arbitrary lane subset: the state dict `st` of
+    render_lanes (the whole wavefront, or the resident loop's sorted live
+    prefix) -> (new state, rays_traced). px, py and si ride in the state,
+    so permuted lanes draw their own ZSobol samples."""
+    o, d, beta, r_u, r_l, L = st["o"], st["d"], st["beta"], st["r_u"], st["r_l"], st["L"]
+    alive, specular, eta_scale = st["alive"], st["spec"], st["eta"]
+    any_nonspec, prev_p, disp_term = st["anyns"], st["prev_p"], st["disp"]
+    lam, px, py, si = st["lam"], st["px"], st["py"], st["si"]
+    lights = scene.lights
+    coherence = vp.material_coherence
+
+    rays_traced = rays_traced + alive.float().sum()
+    t_inf = torch.full((o.shape[0],), float("inf"), device=o.device)
+    rec = scene_closest_hit(scene, o, d, t_inf, active=alive, presorted=presorted)
+    alive = alive & rec.hit
+    sd = _surface_data(scene, rec, o, d)
+    hit = alive
+    wo = -d
+    frame = make_frame(sd["ns"])
+    wo_l = to_local(*frame, wo)
+    reg = any_nonspec if vp.regularize else None
+
+    # area-light emission with MIS (surface-eval.jl:147-237)
+    if mt.EMISSIVE in scene.present_materials:
+        is_emitter = hit & (sd["arealight"] >= 0)
+        le = mb.emitted_radiance(scene.materials, torch.clamp(sd["mat_idx"], min=0),
+                                 lam, dot(sd["ng"], wo))
+        area_flat = torch.clamp(lights.area_flat_base + sd["arealight"], 0,
+                                lights.pmf.shape[0] - 1)
+        pdf_light = lt.area_light_pdf(
+            lights, torch.clamp(sd["arealight"], min=0), prev_p, sd["p"],
+            sd["ng"]) * _bl(lights.pmf, area_flat)
+        if vp.nee:
+            denom = torch.where(specular, r_u.mean(-1),
+                                (r_u + r_l * pdf_light[..., None]).mean(-1))
+        else:
+            denom = r_u.mean(-1)
+        contrib = beta * le / torch.clamp(denom[..., None], min=1e-12)
+        L = L + torch.where((is_emitter & (denom > 0.0))[..., None], contrib, 0.0)
+
+    # NEE (surface_direct_lighting_inner!)
+    if scene.n_lights > 0 and vp.nee:
+        ul = sb.path_sample_1d(zcfg, px, py, si, depth, 0)
+        ul2 = torch.stack(sb.path_sample_2d(zcfg, px, py, si, depth, 1), -1)
+        li_flat, pmf_sel = lt.sample_light_index(lights, ul)
+        ls = lt.sample_li(lights, _bl(lights.light_type, li_flat),
+                          _bl(lights.light_idx, li_flat), sd["p"], lam, ul2)
+        wi_l = to_local(*frame, ls.wi)
+        f_s, pdf_b = _eval_bsdf_dispatch(scene, sd["mat_type"], sd["mat_idx"],
+                                         wo_l, wi_l, lam, reg, coherence)
+        f_hat = f_s * torch.abs(wi_l[..., 2])[..., None]
+        pdf_l = ls.pdf * pmf_sel
+        contrib_ok = hit & ls.valid & (pdf_l > 0.0) & (f_hat > 0.0).any(-1)
+        o_sh = spawn_ray(sd["p"], sd["ng"], ls.wi)
+        rays_traced = rays_traced + contrib_ok.float().sum()
+        occluded = scene_any_hit(scene, o_sh, ls.wi, ls.t_max, active=contrib_ok,
+                                 group=li_flat)
+        r_l_sh = r_u * pdf_l[..., None]
+        r_u_sh = r_u * pdf_b[..., None]
+        denom = torch.where(ls.is_delta, r_l_sh.mean(-1), (r_l_sh + r_u_sh).mean(-1))
+        ld = beta * f_hat * ls.li / torch.clamp(denom[..., None], min=1e-12)
+        ok = contrib_ok & (denom > 0.0) & ~occluded
+        L = L + torch.where(ok[..., None], ld, 0.0)
+
+    # continuation: BSDF sample (evaluate_material_inner!)
+    ub = torch.stack(sb.path_sample_2d(zcfg, px, py, si, depth, 3), -1)
+    uc = sb.path_sample_1d(zcfg, px, py, si, depth, 5)
+    bs = _sample_bsdf_dispatch(scene, sd["mat_type"], sd["mat_idx"], wo_l, lam,
+                               ub, uc, reg, coherence)
+    wi_surf = to_world(*frame, bs.wi)
+    thr = bs.f * (torch.abs(bs.wi[..., 2]) / torch.clamp(bs.pdf, min=1e-12))[..., None]
+    go = hit & bs.valid & (bs.pdf > 0.0) & (thr > 0.0).any(-1)
+    go3 = go[..., None]
+    beta = torch.where(go3, beta * thr, beta)
+    r_l = torch.where(go3, r_u / torch.clamp(bs.pdf, min=1e-12)[..., None], r_l)
+    eta_scale = torch.where(go, eta_scale * bs.eta_scale, eta_scale)
+    if mt.GLASS in scene.present_materials:
+        gi = torch.clamp(sd["mat_idx"], 0, scene.materials.glass_cauchy.shape[0] - 1).long()
+        dispersive = (sd["mat_type"] == mt.GLASS) & (
+            (scene.materials.glass_cauchy[gi] > 0.0)
+            | (scene.materials.glass_sell[gi, 0] > 0.0))
+        disp_term = disp_term | (go & bs.transmission & dispersive)
+    specular = torch.where(go, bs.specular, specular)
+    any_nonspec = any_nonspec | (go & ~bs.specular)
+    o = torch.where(go3, spawn_ray(sd["p"], sd["ng"], wi_surf), o)
+    d = torch.where(go3, wi_surf, d)
+    prev_p = torch.where(go3, o, prev_p)
+    alive = alive & go
+
+    # Russian roulette (russian_roulette_spectral); q = 1 below rr depth
+    u_rr = sb.path_sample_1d(zcfg, px, py, si, depth, 6)
+    if depth >= vp.russian_roulette_depth:
+        rr_beta = sp.max_component(beta) * eta_scale / torch.clamp(r_u.mean(-1), min=1e-12)
+        q = torch.clamp(rr_beta, 0.0, 0.95)
+    else:
+        q = torch.ones_like(u_rr)
+    survive = u_rr < q
+    beta = torch.where((alive & survive & (q < 1.0))[..., None],
+                       beta / torch.clamp(q, min=1e-6)[..., None], beta)
+    alive = alive & survive
+
+    out = dict(st)
+    out.update(o=o, d=d, beta=beta, r_l=r_l, L=L, alive=alive, spec=specular,
+               eta=eta_scale, anyns=any_nonspec, prev_p=prev_p, disp=disp_term)
+    return out, rays_traced
+
+
+def _resident_bounce_loop(vp: VolPath, scene: SceneData, st: dict, rays_traced, bounce,
+                          n: int):
+    """The reference's _resident_bounce_loop (``volpath.py:1011``): each
+    bounce sorts the lanes once by ray_sort_keys (dead lanes keyed
+    0xFFFFFFFF, so they sort last), gathers the state once, and runs the
+    bounce on the live prefix rounded up to a whole ray tile with the
+    closest hit presorted; the lanes past the prefix are dead and keep
+    their state. The carried lane ids restore lane order once at the end.
+    The reference packs the state into one f32 row gather because a TPU
+    gather costs per address; here each field is gathered on its own.
+    Returns (L, disp, rays_traced) in lane order."""
+    n_pad = -(-n // RAY_TILE) * RAY_TILE
+    if n_pad > n:
+        # pad lanes are dead, with unit directions for the sort key and
+        # their own lane ids so the final permutation is a bijection
+        st = {k: torch.cat([v, v.new_zeros((n_pad - n,) + v.shape[1:])])
+              for k, v in st.items()}
+        st["d"][n:] = 1.0
+        st["lane"][n:] = torch.arange(n, n_pad, device=st["lane"].device)
+    for depth in range(vp.max_depth):
+        keys = torch.clamp(ray_sort_keys(st["o"], st["d"], scene.world_lo, scene.world_hi),
+                           max=0xFFFFFFFE)
+        keys = torch.where(st["alive"], keys, 0xFFFFFFFF)
+        order = torch.sort(keys, stable=True).indices
+        st = {k: v[order] for k, v in st.items()}
+        sz = -(-int(st["alive"].sum()) // RAY_TILE) * RAY_TILE
+        if sz == 0:
+            break
+        out, rays_traced = bounce(depth, {k: v[:sz] for k, v in st.items()}, rays_traced)
+        st = {k: torch.cat([out[k], st[k][sz:]]) for k in st}
+    inv = _inverse_permutation(st["lane"])[:n]
+    return st["L"][inv], st["disp"][inv], rays_traced
+
+
 def render_lanes(vp: VolPath, scene: SceneData, camera: PerspectiveCamera,
-                 filt: FilterSampler, sample_idx, px, py):
+                 filt: FilterSampler, sample_idx, px, py, depth_lo=None, depth_hi=None,
+                 carry_in=None, return_carry: bool = False):
     """Trace one path per lane (px, py). Returns (rgb (n, 3), filter weight
     (n,), stats) with stats 'rays_traced' and 'nonfinite_lanes' as 0-dim
-    tensors on the scene's device."""
+    tensors on the scene's device.
+
+    depth_lo / depth_hi / carry_in / return_carry run bounces [depth_lo,
+    depth_hi) only (render_lanes_segmented): carry_in is the (state,
+    rays_traced) a previous call returned with return_carry=True, which
+    returns that pair instead of the image. Not with resident='on'."""
     _check_supported(vp)
+    segmented = (depth_lo is not None or depth_hi is not None or carry_in is not None
+                 or return_carry)
+    resident = vp.resident == "on"
+    if resident and segmented:
+        raise ValueError("depth segments need resident='off'")
     dev = scene.device
     w, h = camera.resolution
     px = torch.as_tensor(px, device=dev).long()
@@ -197,110 +434,32 @@ def render_lanes(vp: VolPath, scene: SceneData, camera: PerspectiveCamera,
     o, d = camera.generate_rays(CameraSample(p_film=p_film, lens=ps.lens,
                                              time=ps.time, filter_weight=filter_w))
 
+    # path state (the reference's st0, volpath.py:1126-1146, with the
+    # channels of the surface-only path); camera rays count as specular
     lam = wl.lam
-    lights = scene.lights
-    beta = torch.ones_like(lam)
-    r_u = torch.ones_like(lam)
-    r_l = torch.ones_like(lam)
-    L = torch.zeros_like(lam)
-    alive = torch.ones(n, dtype=torch.bool, device=dev)
-    specular = torch.ones_like(alive)  # camera rays count as specular for MIS
-    any_nonspec = torch.zeros_like(alive)
-    disp_term = torch.zeros_like(alive)
-    eta_scale = torch.ones(n, device=dev)
-    prev_p = o
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    st = dict(o=o, d=d, beta=torch.ones_like(lam), r_u=torch.ones_like(lam),
+              r_l=torch.ones_like(lam), L=torch.zeros_like(lam), alive=ones, spec=ones,
+              eta=torch.ones(n, device=dev), anyns=~ones, prev_p=o, disp=~ones, lam=lam,
+              px=px, py=py, si=si, lane=torch.arange(n, device=dev))
     rays_traced = torch.zeros((), device=dev)
-    t_inf = torch.full((n,), float("inf"), device=dev)
 
-    for depth in range(vp.max_depth):
-        rays_traced = rays_traced + alive.float().sum()
-        rec = scene_closest_hit(scene, o, d, t_inf, active=alive)
-        alive = alive & rec.hit
-        sd = _surface_data(scene, rec, o, d)
-        hit = alive
-        wo = -d
-        frame = make_frame(sd["ns"])
-        wo_l = to_local(*frame, wo)
-        reg = any_nonspec if vp.regularize else None
+    def bounce(depth, st_, rays):
+        return _bounce_core(vp, scene, zcfg, depth, st_, rays, presorted=resident)
 
-        # area-light emission with MIS (surface-eval.jl:147-237)
-        if mt.EMISSIVE in scene.present_materials:
-            is_emitter = hit & (sd["arealight"] >= 0)
-            le = mb.emitted_radiance(scene.materials, torch.clamp(sd["mat_idx"], min=0),
-                                     lam, dot(sd["ng"], wo))
-            area_flat = torch.clamp(lights.area_flat_base + sd["arealight"], 0,
-                                    lights.pmf.shape[0] - 1)
-            pdf_light = lt.area_light_pdf(
-                lights, torch.clamp(sd["arealight"], min=0), prev_p, sd["p"],
-                sd["ng"]) * _bl(lights.pmf, area_flat)
-            if vp.nee:
-                denom = torch.where(specular, r_u.mean(-1),
-                                    (r_u + r_l * pdf_light[..., None]).mean(-1))
-            else:
-                denom = r_u.mean(-1)
-            contrib = beta * le / torch.clamp(denom[..., None], min=1e-12)
-            L = L + torch.where((is_emitter & (denom > 0.0))[..., None], contrib, 0.0)
-
-        # NEE (surface_direct_lighting_inner!)
-        if scene.n_lights > 0 and vp.nee:
-            ul = sb.path_sample_1d(zcfg, px, py, si, depth, 0)
-            ul2 = torch.stack(sb.path_sample_2d(zcfg, px, py, si, depth, 1), -1)
-            li_flat, pmf_sel = lt.sample_light_index(lights, ul)
-            ls = lt.sample_li(lights, _bl(lights.light_type, li_flat),
-                              _bl(lights.light_idx, li_flat), sd["p"], lam, ul2)
-            wi_l = to_local(*frame, ls.wi)
-            f_s, pdf_b = _eval_bsdf_dispatch(scene, sd["mat_type"], sd["mat_idx"],
-                                             wo_l, wi_l, lam, reg)
-            f_hat = f_s * torch.abs(wi_l[..., 2])[..., None]
-            pdf_l = ls.pdf * pmf_sel
-            contrib_ok = hit & ls.valid & (pdf_l > 0.0) & (f_hat > 0.0).any(-1)
-            o_sh = spawn_ray(sd["p"], sd["ng"], ls.wi)
-            rays_traced = rays_traced + contrib_ok.float().sum()
-            occluded = scene_any_hit(scene, o_sh, ls.wi, ls.t_max, active=contrib_ok,
-                                     group=li_flat)
-            r_l_sh = r_u * pdf_l[..., None]
-            r_u_sh = r_u * pdf_b[..., None]
-            denom = torch.where(ls.is_delta, r_l_sh.mean(-1), (r_l_sh + r_u_sh).mean(-1))
-            ld = beta * f_hat * ls.li / torch.clamp(denom[..., None], min=1e-12)
-            ok = contrib_ok & (denom > 0.0) & ~occluded
-            L = L + torch.where(ok[..., None], ld, 0.0)
-
-        # continuation: BSDF sample (evaluate_material_inner!)
-        ub = torch.stack(sb.path_sample_2d(zcfg, px, py, si, depth, 3), -1)
-        uc = sb.path_sample_1d(zcfg, px, py, si, depth, 5)
-        bs = _sample_bsdf_dispatch(scene, sd["mat_type"], sd["mat_idx"], wo_l, lam,
-                                   ub, uc, reg)
-        wi_surf = to_world(*frame, bs.wi)
-        thr = bs.f * (torch.abs(bs.wi[..., 2]) / torch.clamp(bs.pdf, min=1e-12))[..., None]
-        go = hit & bs.valid & (bs.pdf > 0.0) & (thr > 0.0).any(-1)
-        go3 = go[..., None]
-        beta = torch.where(go3, beta * thr, beta)
-        r_l = torch.where(go3, r_u / torch.clamp(bs.pdf, min=1e-12)[..., None], r_l)
-        eta_scale = torch.where(go, eta_scale * bs.eta_scale, eta_scale)
-        if mt.GLASS in scene.present_materials:
-            gi = torch.clamp(sd["mat_idx"], 0, scene.materials.glass_cauchy.shape[0] - 1).long()
-            dispersive = (sd["mat_type"] == mt.GLASS) & (
-                (scene.materials.glass_cauchy[gi] > 0.0)
-                | (scene.materials.glass_sell[gi, 0] > 0.0))
-            disp_term = disp_term | (go & bs.transmission & dispersive)
-        specular = torch.where(go, bs.specular, specular)
-        any_nonspec = any_nonspec | (go & ~bs.specular)
-        o = torch.where(go3, spawn_ray(sd["p"], sd["ng"], wi_surf), o)
-        d = torch.where(go3, wi_surf, d)
-        prev_p = torch.where(go3, o, prev_p)
-        alive = alive & go
-
-        # Russian roulette (russian_roulette_spectral); q = 1 below rr depth
-        u_rr = sb.path_sample_1d(zcfg, px, py, si, depth, 6)
-        if depth >= vp.russian_roulette_depth:
-            rr_beta = sp.max_component(beta) * eta_scale / torch.clamp(r_u.mean(-1), min=1e-12)
-            q = torch.clamp(rr_beta, 0.0, 0.95)
-        else:
-            q = torch.ones_like(u_rr)
-        survive = u_rr < q
-        beta = torch.where((alive & survive & (q < 1.0))[..., None],
-                           beta / torch.clamp(q, min=1e-6)[..., None], beta)
-        alive = alive & survive
+    if resident:
+        L, disp_term, rays_traced = _resident_bounce_loop(vp, scene, st, rays_traced,
+                                                          bounce, n)
+    else:
+        if carry_in is not None:
+            st, rays_traced = carry_in
+        lo = 0 if depth_lo is None else depth_lo
+        hi = vp.max_depth if depth_hi is None else depth_hi
+        for depth in range(lo, hi):
+            st, rays_traced = bounce(depth, st, rays_traced)
+        if return_carry:
+            return st, rays_traced
+        L, disp_term = st["L"], st["disp"]
 
     # film accumulation (vp_accumulate_to_rgb_kernel!, volpath.jl:326-375);
     # dispersion keeps the hero wavelength only, at 4x weight
@@ -316,6 +475,25 @@ def render_lanes(vp: VolPath, scene: SceneData, camera: PerspectiveCamera,
     rgb = torch.nan_to_num(rgb, nan=0.0, posinf=0.0, neginf=0.0)
     return rgb, filter_w, {"rays_traced": rays_traced,
                            "nonfinite_lanes": bad.float().sum()}
+
+
+def render_lanes_segmented(vp: VolPath, scene: SceneData, camera: PerspectiveCamera,
+                           filt: FilterSampler, sample_idx, px, py, n_segments: int):
+    """render_lanes split into n_segments calls over the depth axis, each
+    of ceil(max_depth / n_segments) bounces, handing the path state on;
+    the last call finishes the image. Bit-identical to render_lanes (the
+    reference's, ``volpath.py:1491``, bounds each dispatch's wall time)."""
+    if vp.resident == "on":
+        raise ValueError("depth segments need resident='off'")
+    seg = max(1, -(-vp.max_depth // max(n_segments, 1)))
+    carry = None
+    d0 = 0
+    while d0 + seg < vp.max_depth:
+        carry = render_lanes(vp, scene, camera, filt, sample_idx, px, py, depth_lo=d0,
+                             depth_hi=d0 + seg, carry_in=carry, return_carry=True)
+        d0 += seg
+    return render_lanes(vp, scene, camera, filt, sample_idx, px, py, depth_lo=d0,
+                        depth_hi=vp.max_depth, carry_in=carry)
 
 
 def render_sample(vp: VolPath, scene: SceneData, camera: PerspectiveCamera,

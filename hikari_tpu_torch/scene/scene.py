@@ -18,6 +18,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..geometry.bvh import build_bvh
 from ..geometry.instanced import InstancedTreelets, build_instanced_treelets
 from ..geometry.sweep import TREELET
@@ -81,10 +82,6 @@ class SceneData:
             return x.to(device) if hasattr(x, "to") else x
 
         return SceneData(**{f.name: move(getattr(self, f.name)) for f in fields(self)})
-
-
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 _GEOMETRY = ("p0", "p1", "p2")
@@ -209,10 +206,11 @@ class Scene:
 
     def build(self, device=None) -> SceneData:
         """sync!(scene): bake, BVH, pack, and move to `device` (default: the
-        first CUDA device if there is one, else the CPU)."""
+        first CUDA device; without one this raises, and device="cpu" builds
+        the scene on the CPU)."""
         if not self._meshes and not self._instanced:
             raise ValueError("scene has no geometry")
-        device = default_device() if device is None else torch.device(device)
+        device = resolve_device(device)
         scene = self._build_instanced() if self._instanced else self._build_flat()
         return scene.to(device)
 

@@ -22,7 +22,7 @@ import torch
 
 from .camera.camera import make_perspective_camera
 from .film.filters import make_filter
-from .integrators.volpath import VolPath, render_lanes
+from .integrators.volpath import VolPath, render_lanes, render_lanes_segmented
 from .lights.types import PointLight
 from .materials.types import Emissive, Glass, Gold, Matte, Mirror
 from .scene.mesh import TriangleMesh, make_box, make_quad, make_sphere
@@ -205,26 +205,30 @@ def scene_camera(which: str, res_px: int):
     return make_perspective_camera(eye, at, (res_px, res_px), fov_deg=fov)
 
 
-def transport_probe(scene, which: str = "default"):
+def transport_probe(scene, which: str = "default", n_segments: int = 0, **vp_kw):
     """1-spp render of a bench scene at the probe size: (rays traced,
-    mean framebuffer RGB), as bench.transport_probe computes them."""
+    mean framebuffer RGB), as bench.transport_probe computes them.
+    vp_kw: further VolPath fields (the bounce-loop modes); n_segments > 0
+    renders through render_lanes_segmented."""
     _, (pres, pdepth, pspp, _) = SCENE_DEFS[which]
     camera = scene_camera(which, pres)
-    vp = VolPath(max_depth=pdepth, samples_per_pixel=1)
+    vp = VolPath(max_depth=pdepth, samples_per_pixel=1, **vp_kw)
     lanes = torch.arange(pres * pres, device=scene.device)
     rays = mean_rgb = 0.0
     for s in range(pspp):
-        rgb, _, stats = render_lanes(vp, scene, camera, make_filter(), s,
-                                     lanes % pres, lanes // pres)
+        args = (vp, scene, camera, make_filter(), s, lanes % pres, lanes // pres)
+        rgb, _, stats = (render_lanes_segmented(*args, n_segments) if n_segments
+                         else render_lanes(*args))
         rays += float(stats["rays_traced"])
         mean_rgb += float(rgb.mean())
     return rays / pspp, mean_rgb / pspp
 
 
-def check_transport(scene, which: str = "default"):
-    """Probe against tools/transport_ref.json. Returns (ok, message)."""
+def check_transport(scene, which: str = "default", **probe_kw):
+    """Probe (transport_probe's keywords) against tools/transport_ref.json.
+    Returns (ok, message)."""
     ref = json.loads(TRANSPORT_REF.read_text())["scenes"][which]
-    rays, mean_rgb = transport_probe(scene, which)
+    rays, mean_rgb = transport_probe(scene, which, **probe_kw)
     tol = SCENE_DEFS[which][1][3]
     dr = abs(rays - ref["rays_traced"]) / max(ref["rays_traced"], 1.0)
     dc = abs(mean_rgb - ref["mean_rgb"]) / max(abs(ref["mean_rgb"]), 1e-6)

@@ -9,6 +9,7 @@ sides (coefficients of the RGB uplift, triangle normals and areas) agree
 to 1e-6 relative.
 """
 
+import os
 from dataclasses import fields
 
 import numpy as np
@@ -27,11 +28,18 @@ from hikari_tpu_torch.materials.types import MaterialBanks
 from hikari_tpu_torch.scene.bridge import coef_from_bw, scene_from_numpy
 from hikari_tpu_torch.scenes import default_scene
 
+# pytest-xdist runs several workers on the host's cores, and each worker
+# imports every test module when it collects: give each worker its share
+# of the cores here, or torch's spinning intra-op threads oversubscribe
+# them and every port render slows down many times over
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+
 F32_RTOL = 1e-6
 SPHERE_RES = (8, 16)  # the benchmark scene with coarse spheres: 3082 faces
 
 
-def jax_default_scene():
+def jax_default_scene(traversal="skiplink"):
     """bench.py build_scene through the JAX API, spheres at SPHERE_RES."""
     s = JScene()
     white = jmt.Matte(kd=(0.73, 0.73, 0.73))
@@ -52,7 +60,7 @@ def jax_default_scene():
     s.add(j_quad((-1.0, 3.99, 1.0), (1.0, 3.99, 1.0), (1.0, 3.99, 3.0), (-1.0, 3.99, 3.0)),
           jmt.Emissive(le=(1.0, 0.95, 0.85), scale=25.0))
     s.add_light(JPointLight(position=(0.0, 3.0, -0.5), intensity=(8.0, 8.0, 8.0)))
-    return s.build(traversal="skiplink")
+    return s.build(traversal=traversal)
 
 
 def jax_scene_arrays(js) -> dict:
@@ -156,6 +164,33 @@ def test_build_treelets_random_triangles():
     np.testing.assert_array_equal(tt.lo.numpy(), np.asarray(jt.lo))
     assert not tt.coef[0, 5].any()
     assert torch.equal(tt.coef[2, p - 512:], torch.zeros_like(tt.coef[2, p - 512:]))
+
+
+def _one_quad():
+    from hikari_tpu_torch import Matte, Scene, make_quad
+
+    s = Scene()
+    s.add(make_quad((-1, 0, -1), (1, 0, -1), (1, 0, 1), (-1, 0, 1)), Matte())
+    return s
+
+
+def test_build_needs_a_device_without_cuda(monkeypatch):
+    """Without a card, build() raises instead of falling back to the CPU;
+    device="cpu" builds there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _one_quad().build()
+    assert _one_quad().build(device="cpu").device.type == "cpu"
+
+
+def test_make_film_needs_a_device_without_cuda(monkeypatch):
+    from hikari_tpu_torch.film.film import make_film
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make_film(8, 4)
+    film = make_film(8, 4, device="cpu")
+    assert film.rgb_sum.shape == (4, 8, 3) and film.rgb_sum.device.type == "cpu"
 
 
 @pytest.mark.parametrize("native", [True, False])
