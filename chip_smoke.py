@@ -10,7 +10,9 @@ exits nonzero without its result line:
    and power limit;
 2. build: csrc/sweep_tiles.cu (flat tile sweeps K1/K2), csrc/sweep_inst.cu
    (instanced sweeps K3/K4) and csrc/sweep_pairs.cu (pair-grid sweeps
-   K5/K6), one nvcc each, started together;
+   K5/K6), one nvcc each, started together; K3/K4's registers a thread,
+   spilled bytes and resident blocks per SM as the CUDA runtime reports
+   them;
 3. kernels vs plain: the camera, first-bounce and first-bounce NEE
    wavefronts of a 256x256 render of each scene go through each kernel and
    its plain PyTorch version on the same CUDA tensors. Flat scenes: default
@@ -21,7 +23,9 @@ exits nonzero without its result line:
    agree.
    Instanced scenes: the default scene with its spheres instanced, and the
    400-tree forest; tri must agree on >= 99.9% of live lanes, t within 1e-5
-   relative and b1 / b2 within 1e-4 where it agrees.
+   relative and b1 / b2 within 1e-4 where it agrees; the K3/K4 lines also
+   give the microseconds per listed pair and whether every output equals
+   the plain version's bit for bit.
    Occlusion flags on >= 99.9%;
 4. transport probes: the 64x64 probes of the default and mesh scenes
    against tools/transport_ref.json (rays within 0.5%, mean RGB within 2%);
@@ -40,11 +44,12 @@ exits nonzero without its result line:
    must have launched, and no other sweep, kernel or plain, may have run.
    Then each switch of the all-modes path alone on the pair grid, timed
    only;
-6. timings: each kernel against its plain version on a wavefront of its
-   main path, and the tile kernels K1/K2 on the pair-grid path's pair
-   lists, so the two decompositions are compared on the same work. Each
-   kernel's bound is reckoned from the ray-triangle tests its plain
-   version needs on those inputs (see BOUND below).
+6. timings: each kernel's wrapper call (the pair-grid and instanced
+   wrappers' pair_schedule included) against its plain version on a
+   wavefront of its main path, and the tile kernels K1/K2 on the pair-grid
+   path's pair lists, so the two decompositions are compared on the same
+   work. Each kernel's bound is reckoned from the ray-triangle tests its
+   plain version needs on those inputs (see BOUND below).
 
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. It needs no network and one card; the
@@ -219,15 +224,33 @@ def compare(name, args, tl=None, reps=(10, 2)):
         err = float((out_k - out_p).abs().max()) if n else 0.0
         rel = 0.0
         ok = agree >= AGREE_MIN
+    outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
+    outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
+    exact = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in zip(outs_k, outs_p))
+    # the wrapper call, the instanced and pair-grid wrappers' pair_schedule included
     ms_k = cuda_ms(lambda: kernel(*args), reps[0])
     ms_p = cuda_ms(lambda: plain(*args), reps[1])
     tre = args[3] if name == "closest_inst" else args[4]
     bound_ms, bound_by = bound(name, args, out_k, stats)
-    return dict(ok=ok, agree=agree, max_abs_err=err, max_rel_err=rel, b_err=b_err,
-                lanes=n, live=int(live.sum()), pairs=int(tre.numel()),
+    return dict(ok=ok, agree=agree, exact=exact, max_abs_err=err, max_rel_err=rel,
+                b_err=b_err, lanes=n, live=int(live.sum()), pairs=int(tre.numel()),
                 swept=stats["pairs"], tests=stats["tests"],
                 hits=int(hit_k[live].sum()), ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
                 bound_by=bound_by, out=out_k)
+
+
+def inst_detail(name, r) -> str:
+    """K3/K4 only: registers, spills, resident blocks per SM, us per listed
+    pair and whether every output equals the plain version's bit for bit."""
+    from hikari_tpu_torch.geometry import sweep_inst
+
+    if not name.endswith("_inst"):
+        return ""
+    regs, spill, blocks = sweep_inst.kernel_attributes()[name]
+    per_pair = r["ms"] * 1e3 / max(r["pairs"], 1)
+    return (f", {regs} registers, {spill} B spilled, {blocks} blocks/SM, "
+            f"{per_pair:.3f} us per listed pair, bit-equal {'yes' if r['exact'] else 'no'}")
 
 
 def compare_wavefronts(label, sc, cam, module, names, tl, smi, failures, also=()):
@@ -258,7 +281,8 @@ def compare_wavefronts(label, sc, cam, module, names, tl, smi, failures, also=()
             f"(lanes {r['lanes']}, live {r['live']}, pairs {r['pairs']}, swept "
             f"{r['swept']}, hits {r['hits']}), t max rel err {r['max_rel_err']:.2e}{b}, "
             f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.3f} ms [{smi}] -> {'ok' if r['ok'] else 'FAIL'}")
+            f"{r['bound_ms']:.3f} ms{inst_detail(name, r)} [{smi}] -> "
+            f"{'ok' if r['ok'] else 'FAIL'}")
         if not r["ok"]:
             failures.append(f"{label} {what} {name}")
         if name == closest:
@@ -365,7 +389,8 @@ def time_kernels(cases, counts, smi, label="at main-path shape"):
         log(f"[timing] {name} {label}: agree {r['agree']:.6f} (lanes {r['lanes']}, "
             f"pairs {r['pairs']}, swept {r['swept']}, tests {r['tests']}), kernel "
             f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']}) [{smi}] -> {'ok' if r['ok'] else 'FAIL'}")
+            f"({r['bound_by']}){inst_detail(name, r)} [{smi}] -> "
+            f"{'ok' if r['ok'] else 'FAIL'}")
         if not r["ok"]:
             raise SystemExit(f"{name} disagrees with its plain version {label}")
         records.append({
@@ -374,7 +399,7 @@ def time_kernels(cases, counts, smi, label="at main-path shape"):
             "replaces": replaces, "launches": counts[name], "max_abs_err": r["max_abs_err"],
             "agree": r["agree"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-            "pairs_swept": r["swept"],
+            "pairs_listed": r["pairs"], "pairs_swept": r["swept"],
         })
     return records
 
@@ -417,6 +442,9 @@ def main() -> int:
     log(f"[build] nvcc built csrc/sweep_tiles.cu, csrc/sweep_inst.cu and "
         f"csrc/sweep_pairs.cu in {time.perf_counter() - t0:.1f} s "
         f"(flags: {' '.join(sweep.NVCC_FLAGS)})")
+    for name, (regs, spill, blocks) in sweep_inst.kernel_attributes().items():
+        log(f"[build] {name}: {regs} registers a thread, {spill} B spilled, "
+            f"{blocks} resident blocks per SM")
 
     from hikari_tpu_torch.scenes import (BUILDERS, check_transport, forest_camera,
                                          forest_scene, instanced_default_scene,

@@ -3,7 +3,9 @@ and CUDA, for an NVIDIA H100.
 
 The JAX package ``hikari_tpu`` is the reference; this package mirrors its
 module tree and names and is checked against it. It imports neither JAX nor
-``hikari_tpu``. The Pallas sweep kernels of the flat, pair-grid and
+``hikari_tpu`` and reads no file of it: its data tables (``data/``) and
+BVH builder source (``csrc/bvh_builder.cpp``) are copies of the
+reference's. The Pallas sweep kernels of the flat, pair-grid and
 instanced paths are hand-written CUDA (``csrc/sweep_tiles.cu``,
 ``csrc/sweep_pairs.cu``, ``csrc/sweep_inst.cu``), built with nvcc at first
 use. Entry points run on the first CUDA device unless given

@@ -1,10 +1,11 @@
-"""Locate the data tables shipped with the JAX reference package.
+"""Locate the data tables shipped with this package.
 
-The port reads the same published tables (CIE 1931, D65, measured metal
-spectra, Joe-Kuo Sobol matrices, the sRGB sigmoid-coefficient table) by
-path from ``hikari_tpu/data/`` instead of copying them, so both packages
-evaluate identical constants. Reading a file does not import ``hikari_tpu``
-(whose ``__init__`` imports JAX).
+``hikari_tpu_torch/data/`` holds byte-for-byte copies of the published
+tables the JAX package ships in ``hikari_tpu/data/`` (CIE 1931, D65,
+measured metal spectra, Joe-Kuo Sobol matrices, the sRGB
+sigmoid-coefficient table), so both packages evaluate identical constants
+while the port reads nothing of the JAX package
+(``tests/test_torch_independence.py`` checks that the copies do not drift).
 """
 
 from __future__ import annotations
@@ -14,15 +15,15 @@ from pathlib import Path
 
 import numpy as np
 
-DATA_DIR = Path(__file__).resolve().parent.parent / "hikari_tpu" / "data"
+DATA_DIR = Path(__file__).resolve().parent / "data"
 
 
 def data_path(name: str) -> Path:
     path = DATA_DIR / name
     if not path.exists():
         raise FileNotFoundError(
-            f"{path} is missing: hikari_tpu_torch reads its tables from the "
-            "hikari_tpu package directory next to it")
+            f"{path} is missing: hikari_tpu_torch reads its tables from its own "
+            "data/ directory")
     return path
 
 

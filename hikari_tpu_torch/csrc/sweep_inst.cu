@@ -8,40 +8,82 @@
 // is stated in hikari_tpu_torch/geometry/sweep_inst.py, which also holds the
 // plain PyTorch versions these kernels are checked against.
 //
-// Design: that of sweep_tiles.cu. One 1024-thread block per 1024-ray tile,
-// one thread per ray, the whole wavefront in one launch; the block walks
-// its tile's front-to-back segment of (tile, world treelet) pairs. Per pair
-// it stages the shared object-space coefficient block coef[ti_obj[wt]]
-// (256 x 12 float32, 12 KB) and the instance matrix inst_a[ti_inst[wt]]
-// (4 x 4 float32, 64 B) in shared memory; every thread then moves its own
-// ray into that instance's object space ([o,1] A and [d,0] A, once
-// per pair since the instance changes from pair to pair) and reads each
-// triangle row as a warp broadcast. Directions stay unnormalised, so the
-// object-space t is the world t.
+// Design: the pair grid of sweep_pairs.cu. One block per (tile, world
+// treelet) pair, the whole pair list in one launch, issued rank-major (the
+// wrapper's pair_schedule: every tile's nearest pair first), so a tile with
+// a long segment spreads over many SMs instead of walking it in one block.
+// A block has 512 threads and each takes two neighbouring rays of the
+// 1024-ray tile, so that two blocks fit on an SM (at most 64 registers a
+// thread): one block's 12 KB stage overlaps the other's arithmetic, and
+// every triangle row read from shared memory (a warp broadcast) serves two
+// rays. Per pair the block stages the shared object-space coefficient block
+// coef[ti_obj[wt]] (256 x 12 float32) and the instance matrix
+// inst_a[ti_inst[wt]] (4 x 4) and moves its rays into that instance's
+// object space ([o,1] A and [d,0] A; directions stay unnormalised, so the
+// object-space t is the world t).
 //
-// Early-out. The TPU grid visits every pair and *skips* one whose entry
-// distance bits reach the tile threshold (K3: max bits of the carried t;
-// K4: max bits of tmax over unoccluded lanes). Along a segment the entry
-// distances rise (the pair list is sorted front to back) and the threshold
-// never rises (carried t only shrinks; lanes only become occluded), so once
-// a pair is skipped every later pair of the segment is skipped too, and
-// leaving the loop there is the same walk.
+// Blocks run in no order, so the TPU's sequential carry becomes state in
+// device memory:
 //
-// Bound. ~50 float32 operations and one IEEE divide per (ray, triangle)
-// against broadcast shared-memory reads, so the FP32 issue rate and the
-// divide bound it; the per-pair transform adds 28 operations per ray, 1/256
-// of a pair's triangle work. The TPU split the transformed rays three ways
-// into bf16 in-kernel (instanced.py:119) only for its bf16 matrix unit; here
-// the affine form is evaluated directly in float32.
+// * closest: a 64-bit word per lane, bits(t) << 32 | (rank * 256 + column +
+//   1) with rank the pair's index in its tile's segment (p - seg[tile]); the
+//   carried-in reach has low word 0. Hits have t > 1e-4 and reaches are >= 0,
+//   and a lane lies in one tile, whose pairs order by rank as by p, so the
+//   words order as (t, p, column), and their minimum is exactly the
+//   sequential walk's result: within a treelet the lowest column wins a tie,
+//   an earlier treelet wins a tie, and a pair beats the carry only when
+//   strictly nearer. The field holds 2^24 pairs a tile, far above the world
+//   treelets a tile can list (each at most once). Each block merges its
+//   per-lane best with atomicMin; a last kernel re-evaluates the winner's
+//   (lane, seg[tile] + rank, column) with the same device function and
+//   writes (t, tri, b1, b2).
+// * occlusion: the int32 flag is updated in place; a block stores 1 on the
+//   lanes it occludes (concurrent stores of 1 are benign).
+//
+// Early-out. A hit in pair p lies at t >= the pair's conservative entry
+// distance tn[p], so a lane can gain from pair p only when bits(tn[p]) <=
+// bits(its current t) (closest) or < bits(tmax) while unoccluded
+// (occlusion). A block reads its tile's carry once at its start and skips
+// the pair (before staging) when no lane can gain, and a warp skips it when
+// none of its lanes can. Read concurrently, the carry may be older or newer
+// than the sequential walk's at that pair, and the skip is still exact: the
+// carry only falls, and never below the final result, so a lane's final
+// winning pair always has bits(tn) <= bits(the carry read) and is never
+// skipped. The test is <= and not <, unlike K5's (sweep_pairs.cu), so that
+// a pair whose hit would tie the carry in t is still swept: it may hold the
+// earlier (p, column) that the tie needs. The occlusion skip is the
+// sequential walk's own threshold applied per lane. The decomposition
+// therefore gives the in-order walk's result, ties included, from the same
+// per-pair hits (but see Rounding).
+//
+// Bound. The FP32 issue rate: per (ray, triangle) the pre-test below is ~34
+// float32 instructions (six 3-term dot products as FMAs, the scaled
+// compares) against broadcast shared-memory reads; the per-pair transform
+// adds 28 operations per ray, 1/256 of a pair's triangle work. The TPU
+// split the transformed rays three ways into bf16 in-kernel
+// (instanced.py:119) only for its bf16 matrix unit; here the affine form is
+// evaluated directly in float32.
 //
 // Rounding. Unlike the flat sweeps, whose winner is re-resolved exactly
 // afterwards, the instanced hit record is the affine form's own t, u, v:
 // near a surface n.o and dw cancel, and u = au + t bu amplifies any change
-// in t by bu, which is large on small triangles. So every operation here is
-// an explicitly rounded multiply or add (__fmul_rn / __fadd_rn: no FMA
-// contraction) in the order of the plain PyTorch version, which makes the
-// kernel and its plain version agree bit for bit. FMA contraction would
-// save about a third of the arithmetic; it is left for a later version.
+// in t by bu, which is large on small triangles. So the record comes from
+// hit_inst, which rounds every operation explicitly (__fmul_rn /
+// __fadd_rn: no FMA contraction, an IEEE divide for t) in the order of the
+// plain PyTorch version. hit_inst is ~50 operations and a divide, though,
+// and almost every (ray, triangle) misses, so each is first put through
+// may_hit: the same predicate multiplied through by |den| (no divide),
+// evaluated with FMAs in one fixed order and loosened by 1/64 in u, v and
+// the far limit of t and by half at T_MIN. Only the (ray, triangle)
+// combinations that pass it, a few per ray and treelet, reach hit_inst;
+// both sweeps then decide, and the decode kernel re-evaluates, with
+// hit_inst alone. The slack is not proven conservative: where |den| is
+// small (a ray grazing the triangle's plane) or au and t bu cancel, the two
+// evaluations can differ by more than it, and may_hit may then drop a hit
+// that hit_inst would take. So the kernels equal their plain versions bit
+// for bit on the wavefronts checked (chip_smoke.py reports it per
+// wavefront), not by construction; the checks' floor of 99.9% agreement
+// covers such grazing hits.
 //
 // Build without --use_fast_math: the hit test relies on IEEE division and on
 // NaN / inf failing every comparison.
@@ -52,25 +94,16 @@
 namespace {
 
 constexpr int RAY_TILE = 1024;
+constexpr int THREADS = 512;  // two rays a thread
 constexpr int TREELET = 256;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float EPS = 1e-6f;
 constexpr float T_MIN = 1e-4f;
 constexpr float DEN_MIN = 1e-20f;
 constexpr float MISS_T = 3.0e38f;
-
-// Block-wide max of an int over the 32 warps of a 1024-thread block; every
-// thread returns the result.
-__device__ __forceinline__ int block_max(int v, int* s_warp, int* s_out) {
-    v = __reduce_max_sync(0xffffffffu, v);
-    if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = v;
-    __syncthreads();
-    if (threadIdx.x < 32) {
-        int w = __reduce_max_sync(0xffffffffu, s_warp[threadIdx.x]);
-        if (threadIdx.x == 0) *s_out = w;
-    }
-    __syncthreads();
-    return *s_out;
-}
+constexpr float PRE_MARGIN = 1.0f / 64.0f;  // the pre-test's slack in u and v
+constexpr float PRE_T = 1.0f + 1.0f / 64.0f;  // and at the far limit of t
+constexpr int ELEMWISE_THREADS = 256;
 
 // Copy world treelet wt's coefficient block and instance matrix into shared
 // memory.
@@ -78,7 +111,7 @@ __device__ __forceinline__ void stage(float4* s_coef, float4* s_a, const float* 
                                       const float* inst_a, const int* ti_obj,
                                       const int* ti_inst, int wt) {
     const float4* src = reinterpret_cast<const float4*>(coef) + (size_t)ti_obj[wt] * TREELET * 3;
-    for (int i = threadIdx.x; i < TREELET * 3; i += RAY_TILE) s_coef[i] = src[i];
+    for (int i = threadIdx.x; i < TREELET * 3; i += THREADS) s_coef[i] = src[i];
     if (threadIdx.x < 4)
         s_a[threadIdx.x] = reinterpret_cast<const float4*>(inst_a)[(size_t)ti_inst[wt] * 4 + threadIdx.x];
     __syncthreads();
@@ -111,6 +144,12 @@ struct Ray4 {
     float4 o, d;
 };
 
+__device__ __forceinline__ Ray4 object_ray(const float* o, const float* d, int64_t r,
+                                           const float4* a) {
+    return Ray4{xform_point(o[3 * r], o[3 * r + 1], o[3 * r + 2], a),
+                xform_dir(d[3 * r], d[3 * r + 1], d[3 * r + 2], a)};
+}
+
 // The instanced hit test (instanced.py:140-175): t, u, v of one ray against
 // triangle row (pn, pu, pv), true on a hit.
 __device__ __forceinline__ bool hit_inst(const Ray4& r, const float4& pn, const float4& pu,
@@ -125,122 +164,243 @@ __device__ __forceinline__ bool hit_inst(const Ray4& r, const float4& pn, const 
            && (t > T_MIN);
 }
 
-__global__ void __launch_bounds__(RAY_TILE)
-closest_inst_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                    const float* __restrict__ t_in, const int* __restrict__ tre,
-                    const int* __restrict__ tn_bits, const int* __restrict__ seg,
-                    const int* __restrict__ ti_obj, const int* __restrict__ ti_inst,
-                    const float* __restrict__ coef, const float* __restrict__ inst_a,
-                    float* __restrict__ t_out, int* __restrict__ tri_out,
-                    float* __restrict__ b1_out, float* __restrict__ b2_out) {
-    __shared__ float4 s_coef[TREELET * 3];
-    __shared__ float4 s_a[4];
-    __shared__ int s_warp[32];
-    __shared__ int s_thr;
-    const int64_t r = (int64_t)blockIdx.x * RAY_TILE + threadIdx.x;
-    const float ox = o[3 * r], oy = o[3 * r + 1], oz = o[3 * r + 2];
-    const float dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
-    float t_best = t_in[r];
-    int tri = -1;
-    float b1 = 0.0f, b2 = 0.0f;
-    int thr = block_max(__float_as_int(t_best), s_warp, &s_thr);
-    const int end = seg[blockIdx.x + 1];
-    // thr and p are uniform over the block: the barriers inside are safe,
-    // and block_max's barriers order this pair's shared-memory reads before
-    // the next stage() overwrites them
-    for (int p = seg[blockIdx.x]; p < end && tn_bits[p] < thr; ++p) {
-        const int wt = tre[p];
-        stage(s_coef, s_a, coef, inst_a, ti_obj, ti_inst, wt);
-        const Ray4 ray{xform_point(ox, oy, oz, s_a), xform_dir(dx, dy, dz, s_a)};
-        float tb = MISS_T, ub = 0.0f, vb = 0.0f;
-        int jb = 0;
-#pragma unroll 4
-        for (int j = 0; j < TREELET; ++j) {
-            float t, u, v;
-            // strict: the lowest column wins among equal t
-            if (hit_inst(ray, s_coef[3 * j], s_coef[3 * j + 1], s_coef[3 * j + 2], t, u, v)
-                && t < tb) {
-                tb = t;
-                ub = u;
-                vb = v;
-                jb = j;
-            }
-        }
-        if (tb < t_best) {  // strict: an earlier treelet wins a tie
-            t_best = tb;
-            tri = wt * TREELET + jb;
-            b1 = ub;
-            b2 = vb;
-        }
-        thr = block_max(__float_as_int(t_best), s_warp, &s_thr);
-    }
-    t_out[r] = t_best;
-    tri_out[r] = tri;
-    b1_out[r] = b1;
-    b2_out[r] = b2;
+// The pre-test's dot products with the object-space ray: FMAs in one fixed
+// order, taking o.w = 1 and d.w = 0 (the instance matrices invert affine
+// transforms, as the world boxes of instanced.py already assume).
+__device__ __forceinline__ float fdot_o(const float4& g, const float4& o) {
+    return __fmaf_rn(o.x, g.x, __fmaf_rn(o.y, g.y, __fmaf_rn(o.z, g.z, g.w)));
 }
 
-__global__ void __launch_bounds__(RAY_TILE)
-occlusion_inst_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                      const float* __restrict__ tmax_in, const int* __restrict__ occ_in,
-                      const int* __restrict__ tre, const int* __restrict__ tn_bits,
-                      const int* __restrict__ seg, const int* __restrict__ ti_obj,
-                      const int* __restrict__ ti_inst, const float* __restrict__ coef,
-                      const float* __restrict__ inst_a, int* __restrict__ occ_out) {
+__device__ __forceinline__ float fdot_d(const float4& g, const float4& d) {
+    return __fmaf_rn(d.x, g.x, __fmaf_rn(d.y, g.y, __fmul_rn(d.z, g.z)));
+}
+
+// The pre-test: hit_inst's predicate and t < t_hi / PRE_T multiplied
+// through by |den| (no divide), evaluated with FMAs and loosened by
+// PRE_MARGIN in u and v, a factor 2 at T_MIN and PRE_T at the far limit.
+// Only a ray and triangle that pass it go through hit_inst.
+__device__ __forceinline__ bool may_hit(const Ray4& r, const float4& pn, const float4& pu,
+                                        const float4& pv, float t_hi) {
+    const float den = fdot_d(pn, r.d);
+    const float aden = fabsf(den);
+    const float num = fdot_o(pn, r.o);
+    const float nt = den < 0.0f ? num : -num;  // t |den|
+    const float su = __fmaf_rn(nt, fdot_d(pu, r.d), __fmul_rn(fdot_o(pu, r.o), aden));
+    const float sv = __fmaf_rn(nt, fdot_d(pv, r.d), __fmul_rn(fdot_o(pv, r.o), aden));
+    const float slack = __fmul_rn(EPS + PRE_MARGIN, aden);
+    // explicit compares: a NaN in any of them rejects the pair
+    return (su >= -slack) && (sv >= -slack) && (__fadd_rn(su, sv) <= __fadd_rn(aden, slack))
+           && (nt > __fmul_rn(0.5f * T_MIN, aden)) && (nt < __fmul_rn(t_hi, aden));
+}
+
+// One ray's running best within a treelet.
+struct Best {
+    float t;
+    int j;
+};
+
+__global__ void init_best(const float* __restrict__ t_in, unsigned long long* __restrict__ best,
+                          int64_t n) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) best[i] = (unsigned long long)(unsigned)__float_as_int(t_in[i]) << 32;
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+closest_inst_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                    const int* __restrict__ tre, const int* __restrict__ tn_bits,
+                    const int* __restrict__ seg, const int* __restrict__ tile_of,
+                    const int* __restrict__ order, const int* __restrict__ ti_obj,
+                    const int* __restrict__ ti_inst, const float* __restrict__ coef,
+                    const float* __restrict__ inst_a, unsigned long long* best) {
     __shared__ float4 s_coef[TREELET * 3];
     __shared__ float4 s_a[4];
-    __shared__ int s_warp[32];
-    __shared__ int s_thr;
-    const int64_t r = (int64_t)blockIdx.x * RAY_TILE + threadIdx.x;
-    const float ox = o[3 * r], oy = o[3 * r + 1], oz = o[3 * r + 2];
-    const float dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
-    const float tmax = tmax_in[r];
-    int occ = occ_in[r];
-    // reach of the farthest unoccluded lane; bits(0.0f) = 0 once all are
-    int thr = block_max(occ == 0 ? __float_as_int(tmax) : 0, s_warp, &s_thr);
-    const int end = seg[blockIdx.x + 1];
-    for (int p = seg[blockIdx.x]; p < end && tn_bits[p] < thr; ++p) {
-        stage(s_coef, s_a, coef, inst_a, ti_obj, ti_inst, tre[p]);
-        if (occ == 0) {
-            const Ray4 ray{xform_point(ox, oy, oz, s_a), xform_dir(dx, dy, dz, s_a)};
-            for (int j = 0; j < TREELET; ++j) {
+    const int p = order[blockIdx.x];
+    const int tn = tn_bits[p];
+    const int tile = tile_of[p];
+    const int64_t r = (int64_t)tile * RAY_TILE + 2 * threadIdx.x;
+    // the freshest words in L2 (other blocks merge with atomics)
+    const unsigned long long w[2] = {__ldcg(best + r), __ldcg(best + r + 1)};
+    const int tc[2] = {(int)(w[0] >> 32), (int)(w[1] >> 32)};
+    const bool need = tn <= tc[0] || tn <= tc[1];
+    // uniform over the block: either every thread returns or none does
+    if (!__syncthreads_or(need)) return;
+    stage(s_coef, s_a, coef, inst_a, ti_obj, ti_inst, tre[p]);
+    // no barrier follows: a warp with nothing to gain may leave
+    if (!__any_sync(FULL, need)) return;
+    const unsigned rank = (unsigned)(p - seg[tile]);
+    Ray4 ray[2];
+    Best b[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+        ray[k] = object_ray(o, d, r + k, s_a);
+        // only t <= the carry can win (a tie may hold an earlier pair);
+        // MISS_T caps it as the plain version's no-hit value
+        b[k] = Best{__int_as_float(tc[k] >= __float_as_int(MISS_T) ? __float_as_int(MISS_T)
+                                                                  : tc[k] + 1), 0};
+    }
+    float t_hi[2] = {__fmul_rn(b[0].t, PRE_T), __fmul_rn(b[1].t, PRE_T)};
+#pragma unroll 2
+    for (int j = 0; j < TREELET; ++j) {
+        const float4 pn = s_coef[3 * j], pu = s_coef[3 * j + 1], pv = s_coef[3 * j + 2];
+        const bool m[2] = {may_hit(ray[0], pn, pu, pv, t_hi[0]),
+                           may_hit(ray[1], pn, pu, pv, t_hi[1])};
+        if (__any_sync(FULL, m[0] || m[1])) {
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {
                 float t, u, v;
-                if (hit_inst(ray, s_coef[3 * j], s_coef[3 * j + 1], s_coef[3 * j + 2], t, u, v)
-                    && t < tmax) {
-                    occ = 1;
-                    break;
+                // strict: the lowest column wins among equal t
+                if (m[k] && hit_inst(ray[k], pn, pu, pv, t, u, v) && t < b[k].t) {
+                    b[k] = Best{t, j};
+                    t_hi[k] = __fmul_rn(t, PRE_T);
                 }
             }
         }
-        thr = block_max(occ == 0 ? __float_as_int(tmax) : 0, s_warp, &s_thr);
     }
-    occ_out[r] = occ;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+        const unsigned long long word =
+            ((unsigned long long)(unsigned)__float_as_int(b[k].t) << 32)
+            | (rank * TREELET + (unsigned)b[k].j + 1u);
+        if (word < w[k]) atomicMin(best + r + k, word);
+    }
+}
+
+// Split each word into the hit record: the winner's t, u, v re-evaluated by
+// hit_inst for its (lane, pair seg[tile] + rank, column), as the sweep
+// evaluated them.
+__global__ void decode_best(const unsigned long long* __restrict__ best,
+                            const float* __restrict__ o, const float* __restrict__ d,
+                            const int* __restrict__ tre, const int* __restrict__ seg,
+                            const int* __restrict__ ti_obj,
+                            const int* __restrict__ ti_inst, const float* __restrict__ coef,
+                            const float* __restrict__ inst_a, float* __restrict__ t_out,
+                            int* __restrict__ tri_out, float* __restrict__ b1_out,
+                            float* __restrict__ b2_out, int64_t n) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const unsigned long long w = best[i];
+    const unsigned low = (unsigned)(w & 0xffffffffull);
+    t_out[i] = __int_as_float((int)(w >> 32));
+    if (low == 0) {  // the carried-in reach: no hit
+        tri_out[i] = -1;
+        b1_out[i] = 0.0f;
+        b2_out[i] = 0.0f;
+        return;
+    }
+    const int p = seg[i / RAY_TILE] + (int)((low - 1) >> 8);
+    const int j = (int)((low - 1) & (TREELET - 1));
+    const int wt = tre[p];
+    const float4* a4 = reinterpret_cast<const float4*>(inst_a) + (size_t)ti_inst[wt] * 4;
+    const float4 a[4] = {a4[0], a4[1], a4[2], a4[3]};
+    const float4* row =
+        reinterpret_cast<const float4*>(coef) + ((size_t)ti_obj[wt] * TREELET + j) * 3;
+    float t, u, v;
+    hit_inst(object_ray(o, d, i, a), row[0], row[1], row[2], t, u, v);
+    tri_out[i] = wt * TREELET + j;
+    b1_out[i] = u;
+    b2_out[i] = v;
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+occlusion_inst_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                      const float* __restrict__ tmax_in, const int* __restrict__ tre,
+                      const int* __restrict__ tn_bits, const int* __restrict__ tile_of,
+                      const int* __restrict__ order, const int* __restrict__ ti_obj,
+                      const int* __restrict__ ti_inst, const float* __restrict__ coef,
+                      const float* __restrict__ inst_a, int* occ) {
+    __shared__ float4 s_coef[TREELET * 3];
+    __shared__ float4 s_a[4];
+    const int p = order[blockIdx.x];
+    const int tn = tn_bits[p];
+    const int64_t r = (int64_t)tile_of[p] * RAY_TILE + 2 * threadIdx.x;
+    const float tmax[2] = {tmax_in[r], tmax_in[r + 1]};
+    // unoccluded lanes that reach past the pair's entry distance
+    bool live[2] = {__ldcg(occ + r) == 0 && tn < __float_as_int(tmax[0]),
+                    __ldcg(occ + r + 1) == 0 && tn < __float_as_int(tmax[1])};
+    if (!__syncthreads_or(live[0] || live[1])) return;
+    stage(s_coef, s_a, coef, inst_a, ti_obj, ti_inst, tre[p]);
+    if (!__any_sync(FULL, live[0] || live[1])) return;
+    Ray4 ray[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) ray[k] = object_ray(o, d, r + k, s_a);
+    const float t_hi[2] = {__fmul_rn(tmax[0], PRE_T), __fmul_rn(tmax[1], PRE_T)};
+#pragma unroll 2
+    for (int j = 0; j < TREELET; ++j) {
+        const float4 pn = s_coef[3 * j], pu = s_coef[3 * j + 1], pv = s_coef[3 * j + 2];
+        // & and not &&: both sides evaluated, no branch per lane
+        const bool m[2] = {static_cast<bool>(live[0] & may_hit(ray[0], pn, pu, pv, t_hi[0])),
+                           static_cast<bool>(live[1] & may_hit(ray[1], pn, pu, pv, t_hi[1]))};
+        if (__any_sync(FULL, m[0] || m[1])) {
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {
+                float t, u, v;
+                if (m[k] && hit_inst(ray[k], pn, pu, pv, t, u, v) && t < tmax[k]) {
+                    occ[r + k] = 1;
+                    live[k] = false;
+                }
+            }
+            // the warp leaves once all its lanes are occluded
+            if (!__any_sync(FULL, live[0] || live[1])) break;
+        }
+    }
+}
+
+inline unsigned elementwise_blocks(int64_t n) {
+    return (unsigned)((n + ELEMWISE_THREADS - 1) / ELEMWISE_THREADS);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each returns cudaGetLastError() after the launch (0 = cudaSuccess).
+// Each returns cudaGetLastError() after its launches (0 = cudaSuccess).
+// seg: (n_tiles + 1,) segment starts; tile_of, order: (n_pairs,) from the
+// wrapper's schedule; best: (n_tiles * 1024,) 64-bit scratch.
 int hikari_closest_inst(const float* o, const float* d, const float* t_in, const int* tre,
-                        const int* tn_bits, const int* seg, const int* ti_obj,
-                        const int* ti_inst, const float* coef, const float* inst_a,
-                        float* t_out, int* tri_out, float* b1_out, float* b2_out,
-                        int n_tiles, cudaStream_t stream) {
-    closest_inst_kernel<<<n_tiles, RAY_TILE, 0, stream>>>(
-        o, d, t_in, tre, tn_bits, seg, ti_obj, ti_inst, coef, inst_a, t_out, tri_out,
-        b1_out, b2_out);
+                        const int* tn_bits, const int* seg, const int* tile_of,
+                        const int* order, const int* ti_obj, const int* ti_inst,
+                        const float* coef, const float* inst_a, unsigned long long* best,
+                        float* t_out, int* tri_out, float* b1_out, float* b2_out, int n_tiles,
+                        int n_pairs, cudaStream_t stream) {
+    const int64_t n = (int64_t)n_tiles * RAY_TILE;
+    init_best<<<elementwise_blocks(n), ELEMWISE_THREADS, 0, stream>>>(t_in, best, n);
+    if (n_pairs > 0)
+        closest_inst_kernel<<<n_pairs, THREADS, 0, stream>>>(
+            o, d, tre, tn_bits, seg, tile_of, order, ti_obj, ti_inst, coef, inst_a, best);
+    decode_best<<<elementwise_blocks(n), ELEMWISE_THREADS, 0, stream>>>(
+        best, o, d, tre, seg, ti_obj, ti_inst, coef, inst_a, t_out, tri_out, b1_out, b2_out,
+        n);
     return (int)cudaGetLastError();
 }
 
-int hikari_occlusion_inst(const float* o, const float* d, const float* tmax,
-                          const int* occ_in, const int* tre, const int* tn_bits,
-                          const int* seg, const int* ti_obj, const int* ti_inst,
-                          const float* coef, const float* inst_a, int* occ_out,
-                          int n_tiles, cudaStream_t stream) {
-    occlusion_inst_kernel<<<n_tiles, RAY_TILE, 0, stream>>>(
-        o, d, tmax, occ_in, tre, tn_bits, seg, ti_obj, ti_inst, coef, inst_a, occ_out);
+// occ holds the carried-in flags and is updated in place.
+int hikari_occlusion_inst(const float* o, const float* d, const float* tmax, const int* tre,
+                          const int* tn_bits, const int* tile_of, const int* order,
+                          const int* ti_obj, const int* ti_inst, const float* coef,
+                          const float* inst_a, int* occ, int n_pairs, cudaStream_t stream) {
+    if (n_pairs > 0)
+        occlusion_inst_kernel<<<n_pairs, THREADS, 0, stream>>>(
+            o, d, tmax, tre, tn_bits, tile_of, order, ti_obj, ti_inst, coef, inst_a, occ);
     return (int)cudaGetLastError();
+}
+
+// Registers a thread, local (spill) bytes a thread and resident blocks per
+// SM of the two sweep kernels, into out[0..2] (closest) and out[3..5]
+// (occlusion).
+int hikari_inst_attributes(int* out) {
+    const void* kernels[2] = {reinterpret_cast<const void*>(closest_inst_kernel),
+                              reinterpret_cast<const void*>(occlusion_inst_kernel)};
+    for (int k = 0; k < 2; ++k) {
+        cudaFuncAttributes a;
+        cudaError_t err = cudaFuncGetAttributes(&a, kernels[k]);
+        if (err != cudaSuccess) return (int)err;
+        out[3 * k] = a.numRegs;
+        out[3 * k + 1] = (int)a.localSizeBytes;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3 * k + 2], kernels[k],
+                                                            THREADS, 0);
+        if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
 }
 
 }  // extern "C"

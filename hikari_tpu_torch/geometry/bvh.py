@@ -1,11 +1,12 @@
 """Host-side BVH construction (binned SAH) with a skip-link flat layout.
 
-Port of ``hikari_tpu/geometry/bvh.py``. The native C++ builder is the JAX
-package's own ``hikari_tpu/native/bvh_builder.cpp``, read by path and
-compiled with ``g++`` into this package's build directory; the numpy
-builder below is the fallback where no compiler is available. Both produce
-the same tree as the JAX package on the same machine, so both packages see
-the same BVH leaf order and triangle indices.
+Port of ``hikari_tpu/geometry/bvh.py``. The native C++ builder is
+``csrc/bvh_builder.cpp``, a byte-for-byte copy of the JAX package's
+``hikari_tpu/native/bvh_builder.cpp`` (``tests/test_torch_independence.py``
+checks that it does not drift), compiled with ``g++`` into this package's
+build directory; the numpy builder below is the fallback where no compiler
+is available. Both produce the same tree as the JAX package on the same
+machine, so both packages see the same BVH leaf order and triangle indices.
 """
 
 from __future__ import annotations
@@ -24,8 +25,7 @@ from .._build import build_shared_library
 N_BINS = 16
 DEFAULT_LEAF_SIZE = 4
 
-_NATIVE_SOURCE = (Path(__file__).resolve().parent.parent.parent
-                  / "hikari_tpu" / "native" / "bvh_builder.cpp")
+_NATIVE_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "bvh_builder.cpp"
 # the JAX package's own compiler command (hikari_tpu/native/__init__.py)
 _GXX = ["g++", "-O3", "-march=native", "-shared", "-fPIC"]
 

@@ -29,8 +29,20 @@ the object-space [o, 1] and den, bu, bv with [d, 0]. A hit needs
   reach, tri at -1. Within a treelet the smallest t wins, the lowest
   column among equal t; the treelet's best replaces the carry only if
   strictly smaller. tri = wt * 256 + column. ``thr = max(bits(t))``.
+  The result is therefore the minimum over every listed pair of
+  (t, pair rank, column), the rank a pair's index in its tile's segment,
+  the reach ranking before every pair.
 * occlusion: a lane is occluded once any hit has ``t < tmax``;
   ``thr = max(bits(tmax))`` over the tile's unoccluded lanes.
+
+The plain versions walk the pairs in that order. The kernels run one
+block per pair, issued in ``sweep_pairs.pair_schedule`` order, and merge
+into a per-lane carry in device memory: for closest a 64-bit word
+``bits(t) << 32 | rank * 256 + column + 1`` (the reach with low word 0)
+under ``atomicMin``, so a segment must list fewer than 2**24 pairs, which
+holds while a tile lists each world treelet at most once
+(``csrc/sweep_inst.cu`` argues that the result and the early-out match the
+walk, ties included).
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ from .._build import build_shared_library
 from .sweep import (NVCC_FLAGS, RAY_TILE, TREELET, _check, _check_sweep, _nvcc,
                     _live_reach_bits, _reach_bits, _stream, _walk, launches,
                     plain_cuda_runs, tests_needed)
+from .sweep_pairs import pair_schedule
 
 _EPS = 1e-6
 _T_MIN = 1e-4
@@ -172,11 +185,23 @@ def inst_library() -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed to build {_SOURCE}:\n{e.stderr}") from e
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hikari_closest_inst.argtypes = [p] * 14 + [i, p]
+    lib.hikari_closest_inst.argtypes = [p] * 17 + [i, i, p]
     lib.hikari_closest_inst.restype = i
     lib.hikari_occlusion_inst.argtypes = [p] * 12 + [i, p]
     lib.hikari_occlusion_inst.restype = i
+    lib.hikari_inst_attributes.argtypes = [p]
+    lib.hikari_inst_attributes.restype = i
     return lib
+
+
+def kernel_attributes() -> dict:
+    """{kernel: (registers a thread, spill bytes a thread, resident blocks
+    per SM)} of the two sweep kernels, as the CUDA runtime reports them."""
+    out = (ctypes.c_int * 6)()
+    err = inst_library().hikari_inst_attributes(ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"hikari_inst_attributes failed: cudaError {err}")
+    return {"closest_inst": tuple(out[0:3]), "occlusion_inst": tuple(out[3:6])}
 
 
 def _check_inst(o, d, lane_args, tre, tn_bits, seg, ti_obj, ti_inst, coef, inst_a):
@@ -201,11 +226,19 @@ def closest_inst(o, d, t_in, tre, tn_bits, seg, ti_obj, ti_inst, coef, inst_a):
     tri = torch.empty(t_in.shape, dtype=torch.int32, device=o.device)
     if n_tiles == 0:
         return t, tri, b1, b2
+    n_pairs = tre.numel()
+    # the carry word's low half holds rank * TREELET + column + 1, rank < the
+    # segment's length (checked, with a host sync, only where it could overflow)
+    if n_pairs * TREELET >= 2 ** 32 and int((seg[1:] - seg[:-1]).max()) * TREELET >= 2 ** 32:
+        raise ValueError("a tile's segment overflows the 32-bit (rank, column) field")
+    tile, order = pair_schedule(seg, n_pairs)
+    best = torch.empty(t_in.shape, dtype=torch.int64, device=o.device)
     err = inst_library().hikari_closest_inst(
-        o.data_ptr(), d.data_ptr(), t_in.data_ptr(), tre.data_ptr(),
-        tn_bits.data_ptr(), seg.data_ptr(), ti_obj.data_ptr(), ti_inst.data_ptr(),
-        coef.data_ptr(), inst_a.data_ptr(), t.data_ptr(), tri.data_ptr(),
-        b1.data_ptr(), b2.data_ptr(), n_tiles, _stream(o.device))
+        o.data_ptr(), d.data_ptr(), t_in.data_ptr(), tre.data_ptr(), tn_bits.data_ptr(),
+        seg.data_ptr(), tile.data_ptr(), order.data_ptr(), ti_obj.data_ptr(),
+        ti_inst.data_ptr(), coef.data_ptr(), inst_a.data_ptr(), best.data_ptr(),
+        t.data_ptr(), tri.data_ptr(), b1.data_ptr(), b2.data_ptr(), n_tiles, n_pairs,
+        _stream(o.device))
     if err:
         raise RuntimeError(f"hikari_closest_inst launch failed: cudaError {err}")
     launches["closest_inst"] += 1
@@ -220,13 +253,16 @@ def occlusion_inst(o, d, tmax, occ_in, tre, tn_bits, seg, ti_obj, ti_inst, coef,
     n_tiles = _check_inst(o, d, [("tmax", tmax, torch.float32),
                                  ("occ_in", occ_in, torch.int32)],
                           tre, tn_bits, seg, ti_obj, ti_inst, coef, inst_a)
-    occ = torch.empty_like(occ_in)
+    # the kernel updates the carry in place: tiles without a pair keep it
+    occ = occ_in.clone()
     if n_tiles == 0:
         return occ
+    n_pairs = tre.numel()
+    tile, order = pair_schedule(seg, n_pairs)
     err = inst_library().hikari_occlusion_inst(
-        o.data_ptr(), d.data_ptr(), tmax.data_ptr(), occ_in.data_ptr(), tre.data_ptr(),
-        tn_bits.data_ptr(), seg.data_ptr(), ti_obj.data_ptr(), ti_inst.data_ptr(),
-        coef.data_ptr(), inst_a.data_ptr(), occ.data_ptr(), n_tiles, _stream(o.device))
+        o.data_ptr(), d.data_ptr(), tmax.data_ptr(), tre.data_ptr(), tn_bits.data_ptr(),
+        tile.data_ptr(), order.data_ptr(), ti_obj.data_ptr(), ti_inst.data_ptr(),
+        coef.data_ptr(), inst_a.data_ptr(), occ.data_ptr(), n_pairs, _stream(o.device))
     if err:
         raise RuntimeError(f"hikari_occlusion_inst launch failed: cudaError {err}")
     launches["occlusion_inst"] += 1

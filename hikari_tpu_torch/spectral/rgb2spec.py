@@ -1,7 +1,7 @@
 """RGB -> spectrum uplifting via sigmoid polynomials (pbrt-v4 style).
 
 Port of ``hikari_tpu/spectral/rgb2spec.py``: the trilinear lookup in the
-sRGB coefficient table (read from ``hikari_tpu/data``), and the albedo,
+sRGB coefficient table (this package's copy in ``data/``), and the albedo,
 unbounded and illuminant spectrum wrappers. Scene banks store the
 coefficients of constant colours as ``[c0, c1, c2, scale]`` so the render
 path evaluates one polynomial per lane.

@@ -127,18 +127,20 @@ N_RAYS = 5120
 BOX_LO, BOX_HI = np.array([-3.0, 0.0, -3.0]), np.array([3.0, 2.5, 3.0])
 
 
-def _rays(seed=0):
-    """1024 camera-like rays, 3072 random rays inside the grid's box (four
-    live tiles together), 1024 inactive lanes, shuffled; and shadow
-    distances."""
+def _rays(seed=0, eye=EYE, dy=(0.8, 0.9), box=(BOX_LO, BOX_HI)):
+    """1024 camera-like rays from `eye` (direction y = U(0, 1) * dy[0] -
+    dy[1], z = 1), 3072 random rays inside `box` (four live tiles
+    together), 1024 inactive lanes, shuffled; and shadow distances.
+    Defaults: the grid's."""
     n = N_RAYS
     rng = np.random.RandomState(seed)
     o = np.empty((n, 3), np.float32)
     d = np.empty((n, 3), np.float32)
-    o[:1024] = EYE
-    d[:1024] = np.stack([rng.rand(1024) * 1.2 - 0.6, rng.rand(1024) * 0.8 - 0.9,
+    o[:1024] = eye
+    d[:1024] = np.stack([rng.rand(1024) * 1.2 - 0.6, rng.rand(1024) * dy[0] - dy[1],
                          np.ones(1024)], -1)
-    o[1024:] = BOX_LO + rng.rand(n - 1024, 3) * (BOX_HI - BOX_LO)
+    box_lo, box_hi = box
+    o[1024:] = box_lo + rng.rand(n - 1024, 3) * (box_hi - box_lo)
     d[1024:] = rng.randn(n - 1024, 3)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     active = np.ones(n, bool)
@@ -238,6 +240,52 @@ def test_plain_closest_inst_matches_pallas_interpret(grid):
     hit = both & (jtri >= 0)
     np.testing.assert_allclose(b1.numpy()[hit], jb1[hit], atol=B_ATOL)
     np.testing.assert_allclose(b2.numpy()[hit], jb2[hit], atol=B_ATOL)
+
+
+def test_plain_closest_inst_is_the_lexicographic_minimum(grid):
+    """closest_inst_plain (a walk in pair order with the early-out) equals
+    the minimum over every listed pair, swept without early-out, of the
+    word (t, pair rank, column), the rank a pair's index in its tile's
+    segment and the carried-in reach at rank -1: the order the closest_inst
+    kernel's 64-bit carry relies on, ties included."""
+    _, ts = grid
+    o, d, act, _ = _torch(*_rays(seed=5))
+    ps = twf.prepare_closest(ts.inst, o, d, torch.full((N_RAYS,), float("inf")),
+                             ts.world_lo, ts.world_hi, active=act)
+    args = _sweep_args(ts.inst)
+    t, tri, b1, b2 = sweep_inst.closest_inst_plain(ps.os, ps.ds, ps.ts, ps.tre, ps.tn_bits,
+                                                   ps.seg, *args)
+    n_tiles, n_pairs = ps.seg.numel() - 1, ps.tre.numel()
+    o_t, d_t = ps.os.view(n_tiles, 1024, 3), ps.ds.view(n_tiles, 1024, 3)
+    tile = torch.repeat_interleave(torch.arange(n_tiles), (ps.seg[1:] - ps.seg[:-1]).long())
+    start = ps.seg.long()
+    assert int((start[1:] - start[:-1]).max()) > 1 and n_tiles > 1  # ranks are not indices
+    # bits(t) << 32 | rank * 256 + column + 1 (the kernel's word); reach: rank -1
+    assert (ps.ts >= 0).all()
+    best = (ps.ts.view(torch.int32).long() << 32).view(n_tiles, 1024)
+    ub, vb = torch.zeros(n_tiles, 1024), torch.zeros(n_tiles, 1024)
+    cols = torch.arange(256)
+    for p0 in range(0, n_pairs, 8):
+        p = torch.arange(p0, min(p0 + 8, n_pairs))
+        _, (tt, u, v, hit) = sweep_inst._pair_blocks(o_t, d_t, tile[p], p, ps.tre, *args)
+        word = torch.where(hit, (tt.view(torch.int32).long() << 32)
+                           | ((p - start[tile[p]])[:, None, None] * 256 + cols + 1),
+                           torch.iinfo(torch.int64).max)
+        w_min, j = word.min(-1)
+        for c, i in enumerate(tile[p].tolist()):
+            better = w_min[c] < best[i]
+            best[i] = torch.where(better, w_min[c], best[i])
+            ub[i] = torch.where(better, u[c].gather(-1, j[c][:, None])[:, 0], ub[i])
+            vb[i] = torch.where(better, v[c].gather(-1, j[c][:, None])[:, 0], vb[i])
+    best = best.view(-1)
+    low = best & 0xFFFFFFFF
+    rank, col = (low - 1) >> 8, (low - 1) & 255
+    pair = start[:-1].repeat_interleave(1024) + rank.clamp(min=0)
+    exp_tri = torch.where(low > 0, ps.tre[pair].long() * 256 + col, -1)
+    assert (tri >= 0).sum() > 1000  # the wavefront does hit
+    assert torch.equal(tri.long(), exp_tri)
+    assert torch.equal(t.view(torch.int32).long(), best >> 32)
+    assert torch.equal(b1, ub.view(-1)) and torch.equal(b2, vb.view(-1))
 
 
 def test_plain_occlusion_inst_matches_pallas_interpret(grid):
@@ -340,14 +388,25 @@ def test_make_box_matches_jax():
 
 
 @pytest.mark.cuda
-def test_cuda_instanced_sweeps_match_plain(grid):
-    """On the card: both instanced kernels against their plain versions."""
+@pytest.mark.parametrize("scene", ["grid", "forest"])
+def test_cuda_instanced_sweeps_match_plain(request, scene):
+    """On the card: both instanced kernels against their plain versions, on
+    the grid and on the 400-tree forest, whose padded BLAS treelets have
+    unbounded boxes (entry distance 0 in every tile that lists them)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the instanced sweep kernels have no CPU mode")
-    _, ts = grid
     dev = torch.device("cuda")
-    sc = ts.to(dev)
-    o, d, act, tmax = (x.to(dev) for x in _torch(*_rays()))
+    if scene == "grid":
+        sc = request.getfixturevalue("grid")[1].to(dev)
+        rays = _rays()
+    else:
+        from hikari_tpu_torch.scenes import forest_scene
+
+        sc = forest_scene().build(device=dev)
+        assert bool((sc.inst.hi > 1e37).any())
+        rays = _rays(eye=(0.0, 3.0, -8.0), dy=(0.6, 0.45),
+                     box=(np.array([-15.0, 0.0, -2.0]), np.array([15.0, 3.0, 30.0])))
+    o, d, act, tmax = (x.to(dev) for x in _torch(*rays))
     ps = twf.prepare_closest(sc.inst, o, d, torch.full((N_RAYS,), float("inf"), device=dev),
                              sc.world_lo, sc.world_hi, active=act)
     args = (ps.os, ps.ds, ps.ts, ps.tre, ps.tn_bits, ps.seg, *_sweep_args(sc.inst))
@@ -355,8 +414,8 @@ def test_cuda_instanced_sweeps_match_plain(grid):
     live = ps.ts > 0
     same = k[1] == p[1]
     assert float(same[live].float().mean()) >= 0.999
+    assert float((k[1][live] >= 0).float().mean()) > 0.1  # the wavefront does hit
     both = same & live
-    # the kernel rounds every operation as the plain version does
     assert bool(((k[0] - p[0]).abs() <= T_RTOL * p[0].abs())[both].all())
     hit = both & (k[1] >= 0)
     assert float((k[2] - p[2]).abs()[hit].max()) <= B_ATOL
