@@ -8,11 +8,11 @@ exits nonzero without its result line:
 
 1. device: the card's name, torch and CUDA versions, and nvidia-smi's name
    and power limit;
-2. build: csrc/sweep_tiles.cu (flat tile sweeps K1/K2), csrc/sweep_inst.cu
-   (instanced sweeps K3/K4) and csrc/sweep_pairs.cu (pair-grid sweeps
-   K5/K6), one nvcc each, started together; K3/K4's registers a thread,
-   spilled bytes and resident blocks per SM as the CUDA runtime reports
-   them;
+2. build: csrc/sweep_tiles.cu (flat tile sweeps K1/K2, with the shared
+   body csrc/sweep_grid.cuh), csrc/sweep_inst.cu (instanced sweeps K3/K4)
+   and csrc/sweep_pairs.cu (pair-grid sweeps K5/K6), one nvcc each, started
+   together; K1-K4's registers a thread, spilled bytes and resident blocks
+   per SM as the CUDA runtime reports them;
 3. kernels vs plain: the camera, first-bounce and first-bounce NEE
    wavefronts of a 256x256 render of each scene go through each kernel and
    its plain PyTorch version on the same CUDA tensors. Flat scenes: default
@@ -20,13 +20,16 @@ exits nonzero without its result line:
    tile kernels (K1/K2) and the pair-grid kernels (K5/K6) on the same pair
    list, with K5 against K1 printed for information; tr and column must
    agree on >= 99.9% of live lanes, t within 1e-5 relative where they
-   agree.
+   agree; K2's flags must equal the plain version's bit for bit. Where a
+   tile kernel's output is not bit-equal, the plain hits that its pre-test
+   would refuse are counted with the pre-test's PyTorch mirror (a
+   diagnostic).
    Instanced scenes: the default scene with its spheres instanced, and the
    400-tree forest; tri must agree on >= 99.9% of live lanes, t within 1e-5
-   relative and b1 / b2 within 1e-4 where it agrees; the K3/K4 lines also
-   give the microseconds per listed pair and whether every output equals
-   the plain version's bit for bit.
-   Occlusion flags on >= 99.9%;
+   relative and b1 / b2 within 1e-4 where it agrees.
+   Occlusion flags on >= 99.9%. Every line gives the microseconds per
+   listed pair and whether every output equals the plain version's bit for
+   bit;
 4. transport probes: the 64x64 probes of the default and mesh scenes
    against tools/transport_ref.json (rays within 0.5%, mean RGB within 2%);
    the default probe again under each mode of the main path: pair-grid
@@ -44,12 +47,15 @@ exits nonzero without its result line:
    must have launched, and no other sweep, kernel or plain, may have run.
    Then each switch of the all-modes path alone on the pair grid, timed
    only;
-6. timings: each kernel's wrapper call (the pair-grid and instanced
-   wrappers' pair_schedule included) against its plain version on a
-   wavefront of its main path, and the tile kernels K1/K2 on the pair-grid
-   path's pair lists, so the two decompositions are compared on the same
+6. timings: each kernel's wrapper call (pair_schedule and scratch
+   included) against its plain version on every sweep call of its main
+   path's first wavefront (one per bounce), summed per render beside the
+   depth-0 call, and the tile kernels K1/K2 on the pair-grid path's
+   depth-0 pair lists, so the two decompositions are compared on the same
    work. Each kernel's bound is reckoned from the ray-triangle tests its
-   plain version needs on those inputs (see BOUND below).
+   plain version needs on those inputs (see BOUND below); where a call's
+   plain walk would take longer than PLAIN_CALL_S, only the kernel is timed
+   and the record's sums of bounds and plain times are null.
 
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. It needs no network and one card; the
@@ -73,6 +79,11 @@ MAIN_RES = 800
 MAIN_SPP = 4
 PROBE_SPP = 4
 BAND_FRAC = 0.15    # banded closest hit: band = 0.15 x the world diagonal
+# phase 6 runs a kernel's plain version on a bounce's call only while that
+# run is expected to stay under this many seconds (the plain walks of the
+# instanced default scene's middle bounces take 30-80 s each); the call's
+# kernel is timed all the same.
+PLAIN_CALL_S = 20.0
 
 # BOUND: the least time the card could take for a sweep, the larger of its
 # bytes (each tensor argument read once, each output written once) over
@@ -177,40 +188,54 @@ def bound(name, args, out, stats):
     return max(t_bytes, t_ops) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def compare(name, args, tl=None, reps=(10, 2)):
+def same_lanes(name, args, out_a, out_b):
+    """(same, live) masks of two results of sweep `name` on inputs `args`:
+    where the winner (flat: treelet and column; instanced: tri) or the
+    occlusion flag is equal, and the lanes that entered with a reach."""
+    from hikari_tpu_torch.geometry.sweep import COL_MASK
+
+    if name in ("closest_tiles", "closest_pairs"):
+        (key_a, tr_a), (key_b, tr_b) = out_a, out_b
+        return ((tr_a == tr_b) & ((key_a & COL_MASK) == (key_b & COL_MASK)),
+                (args[2] & ~COL_MASK) > 0)
+    if name == "closest_inst":
+        return out_a[1] == out_b[1], args[2] > 0.0
+    return out_a == out_b, args[2] > 0.0
+
+
+def compare(name, args, tl=None, reps=10):
     """Kernel vs plain on one captured input; returns a result dict. tl:
-    the flat treelets (the flat closest sweeps resolve t from their rows)."""
+    the flat treelets (the flat closest sweeps resolve t from their rows).
+    reps: timed calls of the kernel after a warm-up call; the plain version
+    runs once, timed."""
     import torch
-    from hikari_tpu_torch.geometry import sweep
     from hikari_tpu_torch.geometry.wavefront import _resolve_hits
 
     kernel, plain = kernel_and_plain(name)
     out_k = kernel(*args)
     stats = {}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     out_p = plain(*args, stats=stats)
+    end.record()
     torch.cuda.synchronize()
     o, d = args[0], args[1]
     n = o.shape[0]
     b_err = 0.0
+    same, live = same_lanes(name, args, out_k, out_p)
     if name in ("closest_tiles", "closest_pairs"):
-        live = (args[2] & ~sweep.COL_MASK) > 0  # initial reach > 0
         (key_k, tr_k), (key_p, tr_p) = out_k, out_p
-        same = (tr_k == tr_p) & ((key_k & sweep.COL_MASK) == (key_p & sweep.COL_MASK))
         t_k = _resolve_hits(tl, key_k, tr_k, o, d)[0]
         t_p = _resolve_hits(tl, key_p, tr_p, o, d)[0]
         hit_k = tr_k >= 0
     elif name == "closest_inst":
-        live = args[2] > 0.0
-        (t_k, tri_k, b1_k, b2_k), (t_p, tri_p, b1_p, b2_p) = out_k, out_p
-        same = tri_k == tri_p
+        (t_k, tri_k, b1_k, b2_k), (t_p, _, b1_p, b2_p) = out_k, out_p
         hit_k = tri_k >= 0
         both = same & live & hit_k
         if both.any():
             b_err = max(float((b1_k - b1_p).abs()[both].max()),
                         float((b2_k - b2_p).abs()[both].max()))
     else:
-        live = args[2] > 0.0
-        same = out_k == out_p
         hit_k = out_k > 0
     agree = float(same[live].float().mean()) if live.any() else 1.0
     if name.startswith("closest"):
@@ -228,9 +253,11 @@ def compare(name, args, tl=None, reps=(10, 2)):
     outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
     exact = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                 for a, b in zip(outs_k, outs_p))
-    # the wrapper call, the instanced and pair-grid wrappers' pair_schedule included
-    ms_k = cuda_ms(lambda: kernel(*args), reps[0])
-    ms_p = cuda_ms(lambda: plain(*args), reps[1])
+    if name == "occlusion_tiles":  # exact by construction (csrc/sweep_grid.cuh)
+        ok = exact
+    # the wrapper call, pair_schedule and scratch included
+    ms_k = cuda_ms(lambda: kernel(*args), reps)
+    ms_p = start.elapsed_time(end)
     tre = args[3] if name == "closest_inst" else args[4]
     bound_ms, bound_by = bound(name, args, out_k, stats)
     return dict(ok=ok, agree=agree, exact=exact, max_abs_err=err, max_rel_err=rel,
@@ -240,17 +267,39 @@ def compare(name, args, tl=None, reps=(10, 2)):
                 bound_by=bound_by, out=out_k)
 
 
-def inst_detail(name, r) -> str:
-    """K3/K4 only: registers, spills, resident blocks per SM, us per listed
-    pair and whether every output equals the plain version's bit for bit."""
-    from hikari_tpu_torch.geometry import sweep_inst
+def kernel_attributes() -> dict:
+    """{kernel: (registers, spilled bytes, resident blocks per SM)} of the
+    kernels whose library reports them (K1-K4)."""
+    from hikari_tpu_torch.geometry import sweep, sweep_inst
 
-    if not name.endswith("_inst"):
-        return ""
-    regs, spill, blocks = sweep_inst.kernel_attributes()[name]
+    return {**sweep.kernel_attributes(), **sweep_inst.kernel_attributes()}
+
+
+def detail(name, r) -> str:
+    """Microseconds per listed pair and whether every output equals the
+    plain version's bit for bit; registers, spills and resident blocks per
+    SM where the kernel's library reports them."""
+    attrs = kernel_attributes().get(name)
+    occupancy = ("" if attrs is None else
+                 f"{attrs[0]} registers, {attrs[1]} B spilled, {attrs[2]} blocks/SM, ")
     per_pair = r["ms"] * 1e3 / max(r["pairs"], 1)
-    return (f", {regs} registers, {spill} B spilled, {blocks} blocks/SM, "
-            f"{per_pair:.3f} us per listed pair, bit-equal {'yes' if r['exact'] else 'no'}")
+    return (f", {occupancy}{per_pair:.3f} us per listed pair, "
+            f"bit-equal {'yes' if r['exact'] else 'no'}")
+
+
+def pretest_line(label, what, name, args) -> str:
+    """The plain hits of every listed pair of a flat wavefront that the tile
+    kernels' pre-test would refuse, by its PyTorch mirror."""
+    from hikari_tpu_torch.geometry import sweep
+
+    o, d, bound_arg, _, tre, _, seg, coef = args
+    if name == "closest_tiles":  # the carried key's t rounded up
+        t_far = (bound_arg | sweep.COL_MASK).view(o.dtype)
+    else:
+        t_far = bound_arg
+    hits, drops = sweep.pretest_drops(o, d, t_far, tre, seg, coef)
+    return (f"[kernels] {label} {what}: the pre-test of {name} would refuse {drops} of "
+            f"{hits} plain hits in {tre.numel()} listed pairs")
 
 
 def compare_wavefronts(label, sc, cam, module, names, tl, smi, failures, also=()):
@@ -281,16 +330,16 @@ def compare_wavefronts(label, sc, cam, module, names, tl, smi, failures, also=()
             f"(lanes {r['lanes']}, live {r['live']}, pairs {r['pairs']}, swept "
             f"{r['swept']}, hits {r['hits']}), t max rel err {r['max_rel_err']:.2e}{b}, "
             f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.3f} ms{inst_detail(name, r)} [{smi}] -> "
+            f"{r['bound_ms']:.3f} ms{detail(name, r)} [{smi}] -> "
             f"{'ok' if r['ok'] else 'FAIL'}")
         if not r["ok"]:
             failures.append(f"{label} {what} {name}")
+        if name.endswith("_tiles") and not r["exact"]:  # diagnostic: is it the pre-test?
+            log(pretest_line(label, what, name, args))
         if name == closest:
             first[what] = r["out"]
         elif also and name == also[0]:
-            (key_a, tr_a), (key_b, tr_b) = first[what], r["out"]
-            live = (args[2] & ~255) > 0
-            same = (tr_a == tr_b) & ((key_a & 255) == (key_b & 255))
+            same, live = same_lanes(name, args, first[what], r["out"])
             log(f"[kernels] {label} {what}: {name} vs {closest} on the same pair list "
                 f"agree {float(same[live].float().mean()):.6f} (for information)")
 
@@ -382,24 +431,57 @@ def probe(sc, spp: int):
 
 
 def time_kernels(cases, counts, smi, label="at main-path shape"):
-    """Kernels vs plain at main-path shapes; returns their JSON records."""
+    """Kernels vs plain on the recorded sweep calls of a main path's first
+    wavefront, one per bounce; returns their JSON records: the depth-0 call's
+    numbers, and the sums over the calls as *_render (null where a call's
+    plain version was left out, see PLAIN_CALL_S)."""
     records = []
-    for name, replaces, args, tl in cases:
-        r = compare(name, args, tl, reps=(5, 1))
-        log(f"[timing] {name} {label}: agree {r['agree']:.6f} (lanes {r['lanes']}, "
-            f"pairs {r['pairs']}, swept {r['swept']}, tests {r['tests']}), kernel "
-            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']}){inst_detail(name, r)} [{smi}] -> "
-            f"{'ok' if r['ok'] else 'FAIL'}")
-        if not r["ok"]:
-            raise SystemExit(f"{name} disagrees with its plain version {label}")
+    for name, replaces, calls, tl in cases:
+        kernel, _ = kernel_and_plain(name)
+        results, kernel_ms = [], []
+        for i, args in enumerate(calls):
+            where = f"{name} {label}, call {i + 1} of {len(calls)}"
+            pairs = (args[3] if name == "closest_inst" else args[4]).numel()
+            # the plain walk's time goes with the pairs listed
+            expected_s = results[0]["plain_ms"] / results[0]["pairs"] * pairs / 1e3 if results else 0.0
+            if expected_s > PLAIN_CALL_S:
+                kernel_ms.append(cuda_ms(lambda: kernel(*args), 3))
+                log(f"[timing] {where}: pairs {pairs}, kernel {kernel_ms[-1]:.3f} ms, "
+                    f"{kernel_ms[-1] * 1e3 / max(pairs, 1):.3f} us per listed pair; plain "
+                    f"version left out ({expected_s:.0f} s expected) [{smi}]")
+                continue
+            r = compare(name, args, tl, reps=5 if i == 0 else 3)
+            results.append(r)
+            kernel_ms.append(r["ms"])
+            log(f"[timing] {where}: agree {r['agree']:.6f} (lanes {r['lanes']}, live "
+                f"{r['live']}, pairs {r['pairs']}, swept {r['swept']}, tests {r['tests']}), "
+                f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.3f} ms ({r['bound_by']}){detail(name, r)} [{smi}] -> "
+                f"{'ok' if r['ok'] else 'FAIL'}")
+            if not r["ok"]:
+                raise SystemExit(f"{where} disagrees with its plain version")
+            del r["out"]
+        first = results[0]
+        whole = len(results) == len(calls)
+        total = {k: sum(r[k] for r in results) if whole else None
+                 for k in ("plain_ms", "bound_ms")}
+        log(f"[timing] {name} {label}, {len(calls)} calls: kernel {sum(kernel_ms):.3f} ms, "
+            + (f"plain {total['plain_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms"
+               if whole else f"{len(results)} of them compared with the plain version")
+            + f" [{smi}]")
         records.append({
             "name": name, "route": "cuda",
             "source": f"hikari_tpu_torch/csrc/{SOURCES[name.split('_')[1]]}",
-            "replaces": replaces, "launches": counts[name], "max_abs_err": r["max_abs_err"],
-            "agree": r["agree"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-            "pairs_listed": r["pairs"], "pairs_swept": r["swept"],
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": first["max_abs_err"], "agree": first["agree"],
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": None,
+            "pairs_listed": first["pairs"], "pairs_swept": first["swept"],
+            "bit_equal": all(r["exact"] for r in results),
+            "min_agree": min(r["agree"] for r in results),
+            "calls_timed": len(calls), "calls_compared": len(results),
+            "ms_render": sum(kernel_ms), "plain_ms_render": total["plain_ms"],
+            "bound_ms_render": total["bound_ms"],
         })
     return records
 
@@ -442,7 +524,7 @@ def main() -> int:
     log(f"[build] nvcc built csrc/sweep_tiles.cu, csrc/sweep_inst.cu and "
         f"csrc/sweep_pairs.cu in {time.perf_counter() - t0:.1f} s "
         f"(flags: {' '.join(sweep.NVCC_FLAGS)})")
-    for name, (regs, spill, blocks) in sweep_inst.kernel_attributes().items():
+    for name, (regs, spill, blocks) in kernel_attributes().items():
         log(f"[build] {name}: {regs} registers a thread, {spill} B spilled, "
             f"{blocks} resident blocks per SM")
 
@@ -545,23 +627,23 @@ def main() -> int:
     flat_tl = scenes["default"].treelets
     records = time_kernels([
         ("closest_tiles", "hikari_tpu/geometry/wavefront.py:999",
-         flat_rec.calls["closest_tiles"][0], flat_tl),
+         flat_rec.calls["closest_tiles"], flat_tl),
         ("occlusion_tiles", "hikari_tpu/geometry/wavefront.py:1052",
-         flat_rec.calls["occlusion_tiles"][0], flat_tl),
+         flat_rec.calls["occlusion_tiles"], flat_tl),
     ], flat_counts, smi) + time_kernels([
         ("closest_inst", "hikari_tpu/geometry/instanced.py:146",
-         inst_rec.calls["closest_inst"][0], None),
+         inst_rec.calls["closest_inst"], None),
         ("occlusion_inst", "hikari_tpu/geometry/instanced.py:194",
-         inst_rec.calls["occlusion_inst"][0], None),
+         inst_rec.calls["occlusion_inst"], None),
     ], inst_counts, smi) + time_kernels([
         ("closest_pairs", "hikari_tpu/geometry/wavefront.py:773",
-         pair_rec.calls["closest_pairs"][0], flat_tl),
+         pair_rec.calls["closest_pairs"], flat_tl),
         ("occlusion_pairs", "hikari_tpu/geometry/wavefront.py:827",
-         pair_rec.calls["occlusion_pairs"][0], flat_tl),
+         pair_rec.calls["occlusion_pairs"], flat_tl),
     ], pair_counts, smi)
-    # the tile kernels on the pair-grid path's pair lists: the two
+    # the tile kernels on the pair-grid path's depth-0 pair lists: the two
     # decompositions on the same work (printed only)
-    time_kernels([(tiles, "", pair_rec.calls[pairs][0], flat_tl)
+    time_kernels([(tiles, "", pair_rec.calls[pairs][:1], flat_tl)
                   for tiles, pairs in zip(flat_names, pair_names)],
                  flat_counts, smi, label="on the pair-grid path's pair list")
     log(smi)

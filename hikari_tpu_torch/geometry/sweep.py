@@ -24,6 +24,19 @@ triangles of treelet ``tre[p]``.
 
 A hit needs ``u, v, 1 + eps - (u + v) >= -eps`` and ``t > 1e-4``, eps =
 1e-6; NaN and inf from degenerate or padding triangles fail every compare.
+
+The plain versions walk the pairs in that order. The kernels run one block
+per pair in ``pair_schedule`` order and merge into a per-lane carry in
+device memory (``csrc/sweep_grid.cuh`` argues it): the occlusion result is
+the walk's exactly; the closest result is the minimum over every listed
+pair of ``(key, rank of the pair in its tile's segment)``, the carry
+ranking first, which differs from the walk's only where two hits tie in
+the key's upper 24 bits. ``key_in`` must lie in ``[0, bits(3.0e38)]``, the
+plain version's no-hit key (``geometry/wavefront.py`` hands in 3.0e37 for a
+reach that is not finite): above it the plain version writes its no-hit
+value and the kernel keeps ``(key_in, tr_in)``. Each (ray, triangle) first
+goes through a divide-free pre-test, mirrored here by ``may_hit_plain`` for
+the tests.
 """
 
 from __future__ import annotations
@@ -44,6 +57,8 @@ COL_MASK = (1 << COL_BITS) - 1
 _EPS = 1e-6
 _T_MIN = 1e-4
 _MISS_T = 3.0e38
+_PRE_MARGIN = 1.0 / 64.0   # the kernels' pre-test: slack in u and v
+_PRE_T = 1.0 + 1.0 / 64.0  # and at the far limit of t
 _PLAIN_TILES = 16  # tiles per step of the plain versions: (16, 1024, 256) blocks
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "sweep_tiles.cu"
@@ -206,6 +221,67 @@ def occlusion_tiles_plain(o, d, tmax, occ_in, tre, tn_bits, seg, coef, stats=Non
     return occlusion_walk(o, d, tmax, occ_in, tre, tn_bits, seg, coef, _block_hit, stats)
 
 
+# --- the kernels' pre-test, mirrored -------------------------------------------------
+
+
+def _fma(a, b, c):
+    """float32 a * b + c rounded once: the product is exact in float64."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def may_hit_plain(o, d, coef, t_far):
+    """PyTorch mirror of the kernels' pre-test (``may_hit_u`` and
+    ``may_hit_vt`` in ``csrc/sweep_grid.cuh``, both stages joined), for the
+    tests and the smoke test; the sweeps never call it. (C, L, 3) rays x
+    (C, TT, 12) coefficients and the largest t that still counts, (C, L) ->
+    (C, L, TT) bool: the hit predicate multiplied through by |den|, with
+    FMAs in the kernel's order, loosened by 1/64 in u, v and the far limit
+    and by half at 1e-4."""
+    def dot_o(c0):
+        g = coef[:, None, :, c0:c0 + 4]
+        return _fma(o[:, :, None, 0], g[..., 0],
+                    _fma(o[:, :, None, 1], g[..., 1], _fma(o[:, :, None, 2], g[..., 2], g[..., 3])))
+
+    def dot_d(c0):
+        g = coef[:, None, :, c0:c0 + 3]
+        return _fma(d[:, :, None, 0], g[..., 0],
+                    _fma(d[:, :, None, 1], g[..., 1], d[:, :, None, 2] * g[..., 2]))
+
+    den = dot_d(0)
+    aden = torch.abs(den)
+    num = dot_o(0)
+    nt = torch.where(torch.signbit(den), num, -num)
+    su = _fma(nt, dot_d(4), dot_o(4) * aden)
+    sv = _fma(nt, dot_d(8), dot_o(8) * aden)
+    slack = (_EPS + _PRE_MARGIN) * aden
+    t_hi = (t_far * _PRE_T)[..., None]
+    half = torch.tensor(-0.5, dtype=o.dtype, device=o.device)
+    return ((torch.abs(_fma(half, aden, su)) <= (0.5 + _EPS + _PRE_MARGIN) * aden)
+            & (sv >= -slack) & (su + sv <= aden + slack)
+            & (nt > (0.5 * _T_MIN) * aden) & (nt < t_hi * aden))
+
+
+def pretest_drops(o, d, t_far, tre, seg, coef):
+    """(plain hits, those of them that the pre-test refuses) over every
+    listed pair: the (ray, triangle) combinations that ``_block_hit`` accepts
+    with t <= t_far (per lane: a closest key's t rounded up, or an occlusion
+    reach). The second number should be 0."""
+    n_tiles = seg.numel() - 1
+    tile = torch.repeat_interleave(torch.arange(n_tiles, device=o.device),
+                                   (seg[1:] - seg[:-1]).long())
+    o_t, d_t = o.view(n_tiles, RAY_TILE, 3), d.view(n_tiles, RAY_TILE, 3)
+    far_t = t_far.view(n_tiles, RAY_TILE)
+    hits = drops = 0
+    for idx in torch.arange(tre.numel(), device=o.device).split(_PLAIN_TILES):
+        ti, c = tile[idx], coef[tre[idx].long()]
+        t, hit = _block_hit(o_t[ti], d_t[ti], c)
+        hit = hit & (t <= far_t[ti][..., None])
+        may = may_hit_plain(o_t[ti], d_t[ti], c, far_t[ti])
+        hits += int(hit.sum())
+        drops += int((hit & ~may).sum())
+    return hits, drops
+
+
 # --- CUDA kernels -------------------------------------------------------------------
 
 
@@ -222,7 +298,8 @@ def _nvcc() -> str:
 
 @functools.cache
 def sweep_library() -> ctypes.CDLL:
-    """Build (at first use) and load csrc/sweep_tiles.cu."""
+    """Build (at first use) and load csrc/sweep_tiles.cu (which includes
+    csrc/sweep_grid.cuh)."""
     import subprocess
 
     try:
@@ -231,11 +308,23 @@ def sweep_library() -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed to build {_SOURCE}:\n{e.stderr}") from e
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hikari_closest_tiles.argtypes = [p] * 10 + [i, p]
+    lib.hikari_closest_tiles.argtypes = [p] * 13 + [i, i, p]
     lib.hikari_closest_tiles.restype = i
     lib.hikari_occlusion_tiles.argtypes = [p] * 9 + [i, p]
     lib.hikari_occlusion_tiles.restype = i
+    lib.hikari_tiles_attributes.argtypes = [p]
+    lib.hikari_tiles_attributes.restype = i
     return lib
+
+
+def kernel_attributes() -> dict:
+    """{kernel: (registers a thread, spill bytes a thread, resident blocks
+    per SM)} of the two sweep kernels, as the CUDA runtime reports them."""
+    out = (ctypes.c_int * 6)()
+    err = sweep_library().hikari_tiles_attributes(ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"hikari_tiles_attributes failed: cudaError {err}")
+    return {"closest_tiles": tuple(out[0:3]), "occlusion_tiles": tuple(out[3:6])}
 
 
 def _check(name, x, dtype, shape, device):
@@ -270,6 +359,19 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def pair_schedule(seg: torch.Tensor, n_pairs: int):
+    """The kernels' block order: (tile, order) of the pairs, ranked first by
+    their rank within the tile's segment and then by tile, so every tile's
+    nearest treelets are swept before any tile's second ones and the
+    early-out sees their results. Both int32, (n_pairs,)."""
+    dev = seg.device
+    p = torch.arange(n_pairs, dtype=torch.int64, device=dev)
+    tile = torch.searchsorted(seg[1:].long(), p, right=True)
+    rank = p - seg.long()[tile]
+    order = torch.argsort(rank * (seg.numel() - 1) + tile)
+    return tile.to(torch.int32), order.to(torch.int32)
+
+
 def closest_tiles(o, d, key_in, tr_in, tre, tn_bits, seg, coef):
     """Closest-hit treelet sweep -> (key, tr), each (n,) int32."""
     if o.device.type == "cpu":
@@ -280,10 +382,14 @@ def closest_tiles(o, d, key_in, tr_in, tre, tn_bits, seg, coef):
     key, tr = torch.empty_like(key_in), torch.empty_like(tr_in)
     if n_tiles == 0:
         return key, tr
+    n_pairs = tre.numel()
+    tile, order = pair_schedule(seg, n_pairs)
+    best = torch.empty(key_in.shape, dtype=torch.int64, device=o.device)
     err = sweep_library().hikari_closest_tiles(
         o.data_ptr(), d.data_ptr(), key_in.data_ptr(), tr_in.data_ptr(),
-        tre.data_ptr(), tn_bits.data_ptr(), seg.data_ptr(), coef.data_ptr(),
-        key.data_ptr(), tr.data_ptr(), n_tiles, _stream(o.device))
+        tre.data_ptr(), tn_bits.data_ptr(), seg.data_ptr(), tile.data_ptr(),
+        order.data_ptr(), coef.data_ptr(), best.data_ptr(), key.data_ptr(),
+        tr.data_ptr(), n_tiles, n_pairs, _stream(o.device))
     if err:
         raise RuntimeError(f"hikari_closest_tiles launch failed: cudaError {err}")
     launches["closest_tiles"] += 1
@@ -297,13 +403,16 @@ def occlusion_tiles(o, d, tmax, occ_in, tre, tn_bits, seg, coef):
     n_tiles = _check_sweep(o, d, [("tmax", tmax, torch.float32),
                                   ("occ_in", occ_in, torch.int32)],
                            tre, tn_bits, seg, coef)
-    occ = torch.empty_like(occ_in)
+    # the kernel updates the carry in place: tiles without a pair keep it
+    occ = occ_in.clone()
     if n_tiles == 0:
         return occ
+    n_pairs = tre.numel()
+    tile, order = pair_schedule(seg, n_pairs)
     err = sweep_library().hikari_occlusion_tiles(
-        o.data_ptr(), d.data_ptr(), tmax.data_ptr(), occ_in.data_ptr(),
-        tre.data_ptr(), tn_bits.data_ptr(), seg.data_ptr(), coef.data_ptr(),
-        occ.data_ptr(), n_tiles, _stream(o.device))
+        o.data_ptr(), d.data_ptr(), tmax.data_ptr(), tre.data_ptr(), tn_bits.data_ptr(),
+        tile.data_ptr(), order.data_ptr(), coef.data_ptr(), occ.data_ptr(), n_pairs,
+        _stream(o.device))
     if err:
         raise RuntimeError(f"hikari_occlusion_tiles launch failed: cudaError {err}")
     launches["occlusion_tiles"] += 1

@@ -36,7 +36,7 @@ the object-space [o, 1] and den, bu, bv with [d, 0]. A hit needs
   ``thr = max(bits(tmax))`` over the tile's unoccluded lanes.
 
 The plain versions walk the pairs in that order. The kernels run one
-block per pair, issued in ``sweep_pairs.pair_schedule`` order, and merge
+block per pair, started in ``sweep.pair_schedule`` order, and merge
 into a per-lane carry in device memory: for closest a 64-bit word
 ``bits(t) << 32 | rank * 256 + column + 1`` (the reach with low word 0)
 under ``atomicMin``, so a segment must list fewer than 2**24 pairs, which
@@ -56,8 +56,7 @@ import torch
 from .._build import build_shared_library
 from .sweep import (NVCC_FLAGS, RAY_TILE, TREELET, _check, _check_sweep, _nvcc,
                     _live_reach_bits, _reach_bits, _stream, _walk, launches,
-                    plain_cuda_runs, tests_needed)
-from .sweep_pairs import pair_schedule
+                    pair_schedule, plain_cuda_runs, tests_needed)
 
 _EPS = 1e-6
 _T_MIN = 1e-4

@@ -37,7 +37,8 @@ import torch
 
 from .._build import build_shared_library
 from .sweep import (NVCC_FLAGS, _EPS, _T_MIN, _check_sweep, _nvcc, _stream,
-                    affine, closest_walk, launches, occlusion_walk, plain_cuda_runs)
+                    affine, closest_walk, launches, occlusion_walk, pair_schedule,
+                    plain_cuda_runs)
 
 _DEN_MIN = 1e-20
 
@@ -98,19 +99,6 @@ def pairs_library() -> ctypes.CDLL:
     lib.hikari_occlusion_pairs.argtypes = [p] * 9 + [i, i, p]
     lib.hikari_occlusion_pairs.restype = i
     return lib
-
-
-def pair_schedule(seg: torch.Tensor, n_pairs: int):
-    """The kernels' block order: (tile, order) of the pairs, ranked first by
-    their rank within the tile's segment and then by tile, so every tile's
-    nearest treelets are swept before any tile's second ones and the
-    early-out sees their results. Both int32, (n_pairs,)."""
-    dev = seg.device
-    p = torch.arange(n_pairs, dtype=torch.int64, device=dev)
-    tile = torch.searchsorted(seg[1:].long(), p, right=True)
-    rank = p - seg.long()[tile]
-    order = torch.argsort(rank * (seg.numel() - 1) + tile)
-    return tile.to(torch.int32), order.to(torch.int32)
 
 
 def closest_pairs(o, d, key_in, tr_in, tre, tn_bits, seg, coef):
