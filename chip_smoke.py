@@ -8,11 +8,12 @@ exits nonzero without its result line:
 
 1. device: the card's name, torch and CUDA versions, and nvidia-smi's name
    and power limit;
-2. build: csrc/sweep_tiles.cu (flat tile sweeps K1/K2, with the shared
-   body csrc/sweep_grid.cuh), csrc/sweep_inst.cu (instanced sweeps K3/K4)
-   and csrc/sweep_pairs.cu (pair-grid sweeps K5/K6), one nvcc each, started
-   together; K1-K4's registers a thread, spilled bytes and resident blocks
-   per SM as the CUDA runtime reports them;
+2. build: csrc/sweep_tiles.cu (flat tile sweeps K1/K2) and
+   csrc/sweep_pairs.cu (pair-grid sweeps K5/K6), both instantiations of the
+   shared body csrc/sweep_grid.cuh, and csrc/sweep_inst.cu (instanced
+   sweeps K3/K4), one nvcc each, started together; K1-K6's registers a
+   thread, spilled bytes and resident blocks per SM as the CUDA runtime
+   reports them;
 3. kernels vs plain: the camera, first-bounce and first-bounce NEE
    wavefronts of a 256x256 render of each scene go through each kernel and
    its plain PyTorch version on the same CUDA tensors. Flat scenes: default
@@ -20,16 +21,20 @@ exits nonzero without its result line:
    tile kernels (K1/K2) and the pair-grid kernels (K5/K6) on the same pair
    list, with K5 against K1 printed for information; tr and column must
    agree on >= 99.9% of live lanes, t within 1e-5 relative where they
-   agree; K2's flags must equal the plain version's bit for bit. Where a
-   tile kernel's output is not bit-equal, the plain hits that its pre-test
-   would refuse are counted with the pre-test's PyTorch mirror (a
+   agree; K2's and K6's flags must equal the plain version's bit for bit.
+   Where a flat kernel's output is not bit-equal, the plain hits that its
+   pre-test would refuse are counted with the pre-test's PyTorch mirror (a
    diagnostic).
    Instanced scenes: the default scene with its spheres instanced, and the
    400-tree forest; tri must agree on >= 99.9% of live lanes, t within 1e-5
    relative and b1 / b2 within 1e-4 where it agrees.
    Occlusion flags on >= 99.9%. Every line gives the microseconds per
    listed pair and whether every output equals the plain version's bit for
-   bit;
+   bit. Per scene, the kernels' pre-test run alone on the card
+   (sweep.pretest_grid, sweep_inst.pretest_inst) must equal its PyTorch
+   mirror bit for bit on listed pairs of the camera and NEE wavefronts and
+   on grazing rays at the scene's triangles, and the mirror must refuse
+   none of those rays' plain hits;
 4. transport probes: the 64x64 probes of the default and mesh scenes
    against tools/transport_ref.json (rays within 0.5%, mean RGB within 2%);
    the default probe again under each mode of the main path: pair-grid
@@ -52,10 +57,14 @@ exits nonzero without its result line:
    path's first wavefront (one per bounce), summed per render beside the
    depth-0 call, and the tile kernels K1/K2 on the pair-grid path's
    depth-0 pair lists, so the two decompositions are compared on the same
-   work. Each kernel's bound is reckoned from the ray-triangle tests its
-   plain version needs on those inputs (see BOUND below); where a call's
-   plain walk would take longer than PLAIN_CALL_S, only the kernel is timed
-   and the record's sums of bounds and plain times are null.
+   work, with K5's and K6's time over K1's and K2's. Each kernel's bound is
+   reckoned from the ray-triangle tests its plain version needs on those
+   inputs (see BOUND below); where a call's plain walk would take longer
+   than PLAIN_CALL_S, only the kernel is timed, the record's sum of plain
+   times is null, and a closest sweep's tests are counted from the
+   kernel's final carry instead (sweep.tests_from_final, at most the
+   walk's count; printed beside it wherever the walk runs), which the
+   record names in "bound_tests".
 
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. It needs no network and one card; the
@@ -80,10 +89,14 @@ MAIN_SPP = 4
 PROBE_SPP = 4
 BAND_FRAC = 0.15    # banded closest hit: band = 0.15 x the world diagonal
 # phase 6 runs a kernel's plain version on a bounce's call only while that
-# run is expected to stay under this many seconds (the plain walks of the
-# instanced default scene's middle bounces take 30-80 s each); the call's
-# kernel is timed all the same.
-PLAIN_CALL_S = 20.0
+# run is expected to stay under this many seconds (the longest, K3's at the
+# instanced default scene's first bounce, takes ~36 s); the call's kernel is
+# timed all the same.
+PLAIN_CALL_S = 45.0
+# phase 3's pre-test check: listed pairs of each wavefront, and treelets
+# whose triangles the grazing rays aim at (four triangles each)
+PRETEST_PAIRS = 48
+PRETEST_TREELETS = 16
 
 # BOUND: the least time the card could take for a sweep, the larger of its
 # bytes (each tensor argument read once, each output written once) over
@@ -253,7 +266,7 @@ def compare(name, args, tl=None, reps=10):
     outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
     exact = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                 for a, b in zip(outs_k, outs_p))
-    if name == "occlusion_tiles":  # exact by construction (csrc/sweep_grid.cuh)
+    if name in ("occlusion_tiles", "occlusion_pairs"):  # exact (csrc/sweep_grid.cuh)
         ok = exact
     # the wrapper call, pair_schedule and scratch included
     ms_k = cuda_ms(lambda: kernel(*args), reps)
@@ -269,10 +282,11 @@ def compare(name, args, tl=None, reps=10):
 
 def kernel_attributes() -> dict:
     """{kernel: (registers, spilled bytes, resident blocks per SM)} of the
-    kernels whose library reports them (K1-K4)."""
-    from hikari_tpu_torch.geometry import sweep, sweep_inst
+    six sweep kernels."""
+    from hikari_tpu_torch.geometry import sweep, sweep_inst, sweep_pairs
 
-    return {**sweep.kernel_attributes(), **sweep_inst.kernel_attributes()}
+    return {**sweep.kernel_attributes(), **sweep_inst.kernel_attributes(),
+            **sweep_pairs.kernel_attributes()}
 
 
 def detail(name, r) -> str:
@@ -287,17 +301,24 @@ def detail(name, r) -> str:
             f"bit-equal {'yes' if r['exact'] else 'no'}")
 
 
+def flat_hit_test(name):
+    """The plain hit test of a flat sweep kernel: K1/K2's or K5/K6's."""
+    from hikari_tpu_torch.geometry import sweep, sweep_pairs
+
+    return sweep_pairs._block_hit_pairs if name.endswith("_pairs") else sweep._block_hit
+
+
 def pretest_line(label, what, name, args) -> str:
-    """The plain hits of every listed pair of a flat wavefront that the tile
+    """The plain hits of every listed pair of a flat wavefront that the grid
     kernels' pre-test would refuse, by its PyTorch mirror."""
     from hikari_tpu_torch.geometry import sweep
 
     o, d, bound_arg, _, tre, _, seg, coef = args
-    if name == "closest_tiles":  # the carried key's t rounded up
+    if name.startswith("closest"):  # the carried key's t rounded up
         t_far = (bound_arg | sweep.COL_MASK).view(o.dtype)
     else:
         t_far = bound_arg
-    hits, drops = sweep.pretest_drops(o, d, t_far, tre, seg, coef)
+    hits, drops = sweep.pretest_drops(o, d, t_far, tre, seg, coef, flat_hit_test(name))
     return (f"[kernels] {label} {what}: the pre-test of {name} would refuse {drops} of "
             f"{hits} plain hits in {tre.numel()} listed pairs")
 
@@ -334,7 +355,7 @@ def compare_wavefronts(label, sc, cam, module, names, tl, smi, failures, also=()
             f"{'ok' if r['ok'] else 'FAIL'}")
         if not r["ok"]:
             failures.append(f"{label} {what} {name}")
-        if name.endswith("_tiles") and not r["exact"]:  # diagnostic: is it the pre-test?
+        if not name.endswith("_inst") and not r["exact"]:  # diagnostic: the pre-test?
             log(pretest_line(label, what, name, args))
         if name == closest:
             first[what] = r["out"]
@@ -342,6 +363,108 @@ def compare_wavefronts(label, sc, cam, module, names, tl, smi, failures, also=()
             same, live = same_lanes(name, args, first[what], r["out"])
             log(f"[kernels] {label} {what}: {name} vs {closest} on the same pair list "
                 f"agree {float(same[live].float().mean()):.6f} (for information)")
+    return cases[:3]
+
+
+def object_triangles(rows, a):
+    """World-space [p0 | e1 | e2] (K, 9) of coefficient rows (K, 12) (the
+    affine form [n | dw], [a_u | b_u], [a_v | b_v]: the points where u, v
+    are (0, 0), (1, 0), (0, 1) on the plane) seen through the instance
+    matrix a (4, 4; [o, 1] @ a is the object-space point; identity for a
+    flat scene)."""
+    import numpy as np
+
+    rows = rows.astype(np.float64)
+    m = np.stack([rows[:, 0:3], rows[:, 4:7], rows[:, 8:11]], 1)
+    base = -rows[:, [3, 7, 11]]
+    p = [np.linalg.solve(m, (base + np.array(e, np.float64))[..., None])[..., 0]
+         for e in ((0, 0, 0), (0, 1, 0), (0, 0, 1))]
+    inv = np.linalg.inv(a.astype(np.float64))
+    w = [(np.concatenate([q, np.ones((len(q), 1))], 1) @ inv)[:, :3] for q in p]
+    return np.concatenate([w[0], w[1] - w[0], w[2] - w[0]], 1).astype(np.float32)
+
+
+def pretest_check(label, sc, cases, smi, failures):
+    """Phase 3, per scene: the kernels' pre-test alone on the card
+    (sweep.pretest_grid for a flat scene, sweep_inst.pretest_inst for an
+    instanced one) against its PyTorch mirror, mask for mask, on
+    PRETEST_PAIRS listed pairs of each wavefront in `cases` (the far limit:
+    a closest carry's t, an occlusion reach) and on sweep.grazing_rays at
+    four triangles of each of PRETEST_TREELETS treelets (the far limit 1e-5
+    behind the point aimed at); and the plain hits of those grazing rays
+    that the mirror refuses (each flat hit test, or the instanced one)."""
+    import numpy as np
+    import torch
+    from hikari_tpu_torch.geometry import sweep, sweep_inst
+
+    inst = sc.has_instances
+    dev = sc.device
+
+    def masks(o, d, t_far, coef, a):
+        if inst:
+            k = sweep_inst.pretest_inst(o, d, t_far, coef, a).bool()
+            m = sweep_inst.may_hit_plain(o[None], d[None], a[None], coef[None], t_far[None])[0]
+        else:
+            k = sweep.pretest_grid(o, d, t_far, coef).bool()
+            m = sweep.may_hit_plain(o[None], d[None], coef[None], t_far[None])[0]
+        return int((k != m).sum()), k.numel(), m
+
+    def treelet(wt):
+        """(coef (256, 12), instance matrix (4, 4) or None) of a treelet."""
+        if inst:
+            return (sc.inst.coef[int(sc.inst.ti_obj[wt])],
+                    sc.inst.inst_a[int(sc.inst.ti_inst[wt])])
+        return sc.treelets.coef[wt], None
+
+    differ = checked = 0
+    for _, name, args in cases:
+        o, d, bound_arg, tre, seg = args[0], args[1], args[2], args[4], args[6]
+        if inst:
+            tre, seg = args[3], args[5]
+        t_far = ((bound_arg | sweep.COL_MASK).view(torch.float32)
+                 if name in ("closest_tiles", "closest_pairs") else bound_arg)
+        picks = torch.linspace(0, tre.numel() - 1, PRETEST_PAIRS, device=dev).long().unique()
+        tiles = torch.searchsorted(seg[1:].long(), picks, right=True)
+        for p, tile in zip(picks.tolist(), tiles.tolist()):
+            lanes = slice(tile * 1024, tile * 1024 + 1024)
+            n, k, _ = masks(o[lanes], d[lanes], t_far[lanes], *treelet(int(tre[p])))
+            differ, checked = differ + n, checked + k
+    rng = np.random.RandomState(7)
+    lo = (sc.inst.lo if inst else sc.treelets.lo).cpu().numpy()
+    bounded = np.nonzero(lo[:, 0] < 1e37)[0]
+    hits = {}
+    for wt in rng.choice(bounded, size=min(PRETEST_TREELETS, len(bounded)), replace=False):
+        coef, a = treelet(int(wt))
+        rows = coef.cpu().numpy()
+        cols = np.nonzero(np.abs(rows[:, 0:3]).sum(1) > 0)[0]
+        cols = rng.choice(cols, size=min(4, len(cols)), replace=False)
+        a_np = np.eye(4, dtype=np.float32) if a is None else a.cpu().numpy()
+        o, d, dist = (torch.from_numpy(x).to(dev) for x in sweep.grazing_rays(
+            object_triangles(rows[cols], a_np), rng))
+        o, d, t_far = o.reshape(-1, 3), d.reshape(-1, 3), dist.reshape(-1) * (1 + 1e-5)
+        n, k, may = masks(o, d, t_far, coef, a)
+        differ, checked = differ + n, checked + k
+        if inst:
+            a1 = a[None]
+            t, _, _, hit = sweep_inst._block_tuv_inst(*sweep_inst._to_object(o[None], d[None], a1),
+                                                      coef[None])
+            tests = {"instanced": (t, hit)}
+        else:
+            tests = {name: flat_hit_test(name)(o[None], d[None], coef[None])
+                     for name in ("closest_tiles", "closest_pairs")}
+        for test, (t, hit) in tests.items():
+            hit = (hit & (t <= t_far[None, :, None]))[0]
+            h, r = hits.get(test, (0, 0))
+            hits[test] = (h + int(hit.sum()), r + int((hit & ~may).sum()))
+    refused = ", ".join(f"{r} of {h} ({'K3/K4' if t == 'instanced' else t.split('_')[1]} test)"
+                        for t, (h, r) in hits.items())
+    ok = differ == 0 and all(r == 0 for _, r in hits.values())
+    log(f"[pretest] {label}: the {'instanced' if inst else 'grid'} pre-test on the card "
+        f"differs from its mirror on {differ} of {checked} (ray, row) masks ({PRETEST_PAIRS} "
+        f"pairs of each wavefront and grazing rays at {PRETEST_TREELETS} treelets); the mirror "
+        f"refuses {refused} plain hits of the grazing rays [{smi}] -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{label} pre-test")
 
 
 def main_path(label, sc, cam, module, names, smi, **vp_kw):
@@ -430,15 +553,29 @@ def probe(sc, spp: int):
     return rays / spp, rgb / spp
 
 
+def final_carry_tests(name, args, out):
+    """A closest sweep's ray-triangle tests counted from its output's final
+    carry (sweep.tests_from_final); None for an occlusion sweep."""
+    import torch
+    from hikari_tpu_torch.geometry.sweep import COL_MASK, tests_from_final
+
+    if name == "closest_inst":
+        return tests_from_final(out[0].view(torch.int32), args[4], args[5])
+    if name.startswith("closest"):
+        return tests_from_final(out[0] | COL_MASK, args[5], args[6])
+    return None
+
+
 def time_kernels(cases, counts, smi, label="at main-path shape"):
     """Kernels vs plain on the recorded sweep calls of a main path's first
     wavefront, one per bounce; returns their JSON records: the depth-0 call's
-    numbers, and the sums over the calls as *_render (null where a call's
-    plain version was left out, see PLAIN_CALL_S)."""
+    numbers, and the sums over the calls as *_render (the plain time null
+    where a call's plain version was left out, see PLAIN_CALL_S; the bound
+    then from the final carry's test count)."""
     records = []
     for name, replaces, calls, tl in cases:
         kernel, _ = kernel_and_plain(name)
-        results, kernel_ms = [], []
+        results, kernel_ms, bounds = [], [], []
         for i, args in enumerate(calls):
             where = f"{name} {label}, call {i + 1} of {len(calls)}"
             pairs = (args[3] if name == "closest_inst" else args[4]).numel()
@@ -446,16 +583,26 @@ def time_kernels(cases, counts, smi, label="at main-path shape"):
             expected_s = results[0]["plain_ms"] / results[0]["pairs"] * pairs / 1e3 if results else 0.0
             if expected_s > PLAIN_CALL_S:
                 kernel_ms.append(cuda_ms(lambda: kernel(*args), 3))
+                out = kernel(*args)
+                tests = final_carry_tests(name, args, out)
+                b = None if tests is None else bound(name, args, out, {"tests": tests})[0]
+                bounds.append(b)
                 log(f"[timing] {where}: pairs {pairs}, kernel {kernel_ms[-1]:.3f} ms, "
                     f"{kernel_ms[-1] * 1e3 / max(pairs, 1):.3f} us per listed pair; plain "
-                    f"version left out ({expected_s:.0f} s expected) [{smi}]")
+                    f"version left out ({expected_s:.0f} s expected)"
+                    + ("" if b is None else
+                       f"; bound {b:.3f} ms from the final carry's {tests} tests")
+                    + f" [{smi}]")
                 continue
             r = compare(name, args, tl, reps=5 if i == 0 else 3)
             results.append(r)
             kernel_ms.append(r["ms"])
+            bounds.append(r["bound_ms"])
+            final = final_carry_tests(name, args, r["out"])
             log(f"[timing] {where}: agree {r['agree']:.6f} (lanes {r['lanes']}, live "
-                f"{r['live']}, pairs {r['pairs']}, swept {r['swept']}, tests {r['tests']}), "
-                f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+                f"{r['live']}, pairs {r['pairs']}, swept {r['swept']}, tests {r['tests']}"
+                + ("" if final is None else f", {final} from the final carry")
+                + f"), kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
                 f"{r['bound_ms']:.3f} ms ({r['bound_by']}){detail(name, r)} [{smi}] -> "
                 f"{'ok' if r['ok'] else 'FAIL'}")
             if not r["ok"]:
@@ -463,11 +610,15 @@ def time_kernels(cases, counts, smi, label="at main-path shape"):
             del r["out"]
         first = results[0]
         whole = len(results) == len(calls)
-        total = {k: sum(r[k] for r in results) if whole else None
-                 for k in ("plain_ms", "bound_ms")}
+        plain_total = sum(r["plain_ms"] for r in results) if whole else None
+        bound_total = None if None in bounds else sum(bounds)
+        counted = f"walk on {len(results)} of {len(calls)} calls"
+        counted = ("walk" if whole else counted if bound_total is None
+                   else f"{counted}, final carry on the rest")
         log(f"[timing] {name} {label}, {len(calls)} calls: kernel {sum(kernel_ms):.3f} ms, "
-            + (f"plain {total['plain_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms"
-               if whole else f"{len(results)} of them compared with the plain version")
+            + (f"plain {plain_total:.3f} ms" if whole
+               else f"{len(results)} of them compared with the plain version")
+            + ("" if bound_total is None else f", bound {bound_total:.3f} ms (tests: {counted})")
             + f" [{smi}]")
         records.append({
             "name": name, "route": "cuda",
@@ -480,8 +631,8 @@ def time_kernels(cases, counts, smi, label="at main-path shape"):
             "bit_equal": all(r["exact"] for r in results),
             "min_agree": min(r["agree"] for r in results),
             "calls_timed": len(calls), "calls_compared": len(results),
-            "ms_render": sum(kernel_ms), "plain_ms_render": total["plain_ms"],
-            "bound_ms_render": total["bound_ms"],
+            "ms_render": sum(kernel_ms), "plain_ms_render": plain_total,
+            "bound_ms_render": bound_total, "bound_tests": counted,
         })
     return records
 
@@ -545,8 +696,9 @@ def main() -> int:
         sc = scenes[which]
         log(f"[kernels] {which}: {sc.n_faces} triangles, "
             f"{sc.treelets.lo.shape[0]} treelets, built in {time.perf_counter() - t0:.1f} s")
-        compare_wavefronts(which, sc, scene_camera(which, 256), wavefront, flat_names,
-                           sc.treelets, smi, failures, also=pair_names)
+        cases = compare_wavefronts(which, sc, scene_camera(which, 256), wavefront, flat_names,
+                                   sc.treelets, smi, failures, also=pair_names)
+        pretest_check(which, sc, [cases[0], cases[2]], smi, failures)
     for which, build, cam in (
             ("instanced default", instanced_default_scene, scene_camera("default", 256)),
             ("forest", forest_scene, forest_camera(256, 256))):
@@ -557,7 +709,8 @@ def main() -> int:
             f"{sc.inst.coef.shape[0]} BLAS treelets, {sc.inst.lo.shape[0]} world "
             f"treelets, {sc.inst.inst_a.shape[0]} instances, built in "
             f"{time.perf_counter() - t0:.1f} s")
-        compare_wavefronts(which, sc, cam, instanced, inst_names, None, smi, failures)
+        cases = compare_wavefronts(which, sc, cam, instanced, inst_names, None, smi, failures)
+        pretest_check(which, sc, [cases[0], cases[2]], smi, failures)
     if failures:
         raise SystemExit(f"kernel vs plain disagreement: {failures}")
 
@@ -643,9 +796,14 @@ def main() -> int:
     ], pair_counts, smi)
     # the tile kernels on the pair-grid path's depth-0 pair lists: the two
     # decompositions on the same work (printed only)
-    time_kernels([(tiles, "", pair_rec.calls[pairs][:1], flat_tl)
-                  for tiles, pairs in zip(flat_names, pair_names)],
-                 flat_counts, smi, label="on the pair-grid path's pair list")
+    same_work = time_kernels([(tiles, "", pair_rec.calls[pairs][:1], flat_tl)
+                              for tiles, pairs in zip(flat_names, pair_names)],
+                             flat_counts, smi, label="on the pair-grid path's pair list")
+    by_name = {r["name"]: r for r in records}
+    for tiles, pairs in zip(same_work, pair_names):
+        log(f"[timing] {pairs} / {tiles['name']} at depth 0 of the pair-grid path: "
+            f"{by_name[pairs]['ms']:.3f} / {tiles['ms']:.3f} ms = "
+            f"{by_name[pairs]['ms'] / tiles['ms']:.3f} [{smi}]")
     log(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

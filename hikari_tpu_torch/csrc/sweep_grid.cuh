@@ -4,8 +4,10 @@
 // A source that includes this header names its hit test (a struct with a
 // static `test(ray, pn, pu, pv, t)`) and instantiates launch_closest /
 // launch_occlusion / grid_attributes with it. csrc/sweep_tiles.cu does so
-// with the tile sweeps' lean test; its head note says which TPU kernels
-// these replace and what bounds them.
+// with the tile sweeps' lean test, csrc/sweep_pairs.cu with the pair-grid
+// sweeps' clamped test; their head notes say which TPU kernels these
+// replace and what bounds them. launch_pretest runs the pre-test alone, for
+// the check against its PyTorch mirror.
 //
 // Decomposition. One block per (tile, treelet) pair, the whole pair list in
 // one launch, started rank-major (the wrapper's pair_schedule: every tile's
@@ -58,19 +60,24 @@
 //
 // The test. Almost every (ray, triangle) misses, so each first goes through
 // a pre-test: the hit predicate multiplied through by |den| (no divide),
-// 3-term FMA dot products in one fixed order, loosened by 1/64 in u, v and
-// the far limit of t and by half at T_MIN. It comes in two stages. The
-// first is the u slab alone (four dot products, ~19 instructions a ray by
-// the SASS): it tells a triangle off the footprint of a warp's 64 rays,
-// which the t range does not, and a warp none of whose rays passes it goes
-// on to the next triangle. The second adds v, u + v and the t range. Only
-// the few (ray, triangle) that pass both reach the instantiation's own
-// test, which rounds as the plain version does and alone decides. NaN and
-// inf from degenerate and padding rows fail every compare in both (explicit
-// compares, no fminf; build without --use_fast_math). The slack is not
-// proven conservative where au and t bu cancel by more than 2^17 (an origin
-// farther than ~1e5 triangle sizes), so equality with the plain version is
-// observed, not guaranteed.
+// loosened by 1/64 in u, v and the far limit of t and by half at T_MIN.
+// den and num are rounded as the hit tests round them, so t |den| / |den|
+// is their t to an ulp; the four dot products of u and v are 3-term FMAs in
+// one fixed order. (With den and num as FMAs too, a ray grazing a plane at
+// 1e-4 rad carried den's rounding error, over 1e-4, into t, and the
+// pre-test refused hits near small triangles' edges.) It comes in two
+// stages. The first is the u slab alone: it tells a triangle off the
+// footprint of a warp's 64 rays, which the t range does not, and a warp
+// none of whose rays passes it goes on to the next triangle. The second
+// adds v, u + v and the t range. Only the few (ray, triangle) that pass
+// both reach the instantiation's own test, which rounds as the plain
+// version does and alone decides. NaN and inf from degenerate and padding
+// rows fail every compare in both (explicit compares, no fminf; build
+// without --use_fast_math). The pre-test's u and v then differ from the
+// hit test's by a few ulps of their largest partial product, which the
+// slack covers while au and t bu cancel by less than ~2^15 (an origin
+// within ~1e4 triangle sizes); beyond that equality with the plain version
+// is observed, not guaranteed.
 //
 // TMA and clusters have no use here: a stage is 12 KB read once per block.
 // The tensor cores could take the dot products only as a 3xTF32 split, with
@@ -103,6 +110,16 @@ __device__ __forceinline__ Ray load_ray(const float* o, const float* d, int64_t 
     return Ray{o[3 * r], o[3 * r + 1], o[3 * r + 2], d[3 * r], d[3 * r + 1], d[3 * r + 2]};
 }
 
+// The hit tests' arithmetic: every operation rounded on its own (no FMA
+// contraction), in the order of the plain versions' sweep.affine.
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+
+// ((x g.x + y g.y) + z g.z)
+__device__ __forceinline__ float dot3(const float4& g, float x, float y, float z) {
+    return add(add(mul(x, g.x), mul(y, g.y)), mul(z, g.z));
+}
+
 // Copy treelet t_id's coefficient block into shared memory.
 __device__ __forceinline__ void stage(float4* s_coef, const float* coef, int t_id) {
     const float4* src = reinterpret_cast<const float4*>(coef) + (size_t)t_id * TREELET * 3;
@@ -110,7 +127,7 @@ __device__ __forceinline__ void stage(float4* s_coef, const float* coef, int t_i
     __syncthreads();
 }
 
-// The pre-test's dot products: FMAs in one fixed order.
+// The pre-test's dot products of u and v: FMAs in one fixed order.
 __device__ __forceinline__ float fdot_o(const float4& g, const Ray& r) {
     return __fmaf_rn(r.ox, g.x, __fmaf_rn(r.oy, g.y, __fmaf_rn(r.oz, g.z, g.w)));
 }
@@ -128,11 +145,13 @@ struct Scaled {
     float nt, aden, su;  // t |den|, |den|, u |den|
 };
 
-// First stage, the u slab: |u - 1/2| <= 1/2 + eps + PRE_MARGIN.
+// First stage, the u slab: |u - 1/2| <= 1/2 + eps + PRE_MARGIN. den and num
+// are rounded as the hit tests round them, so that nt / |den| is their t to
+// an ulp (see The test above).
 __device__ __forceinline__ bool may_hit_u(const Ray& r, const float4& pn, const float4& pu,
                                           Scaled& s) {
-    const float den = fdot_d(pn, r);
-    const float num = fdot_o(pn, r);
+    const float den = dot3(pn, r.dx, r.dy, r.dz);
+    const float num = add(dot3(pn, r.ox, r.oy, r.oz), pn.w);
     s.aden = fabsf(den);
     // -num sign(den): num with its sign flipped where den's is clear
     s.nt = __int_as_float(__float_as_int(num) ^ (~__float_as_int(den) & 0x80000000));
@@ -312,6 +331,32 @@ int launch_occlusion(const float* o, const float* d, const float* tmax, const in
     if (n_pairs > 0)
         occlusion_grid_kernel<Hit><<<n_pairs, THREADS, 0, stream>>>(
             o, d, tmax, tre, tn_bits, tile_of, order, coef, occ);
+    return (int)cudaGetLastError();
+}
+
+// The pre-test alone, both stages joined as the sweeps join them: out[r *
+// 256 + j] = 1 where ray r may hit row j of one treelet's coefficients
+// (256 x 12), with the far limit t_far[r] * PRE_T. A diagnostic: the
+// sweeps never launch it.
+static __global__ void pretest_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                                      const float* __restrict__ t_far,
+                                      const float* __restrict__ coef,
+                                      unsigned char* __restrict__ out, int64_t n) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n * TREELET) return;
+    const int64_t r = i / TREELET;
+    const float4* row = reinterpret_cast<const float4*>(coef) + 3 * (i % TREELET);
+    const Ray ray = load_ray(o, d, r);
+    Scaled s;
+    const bool u = may_hit_u(ray, row[0], row[1], s);
+    out[i] = u & may_hit_vt(ray, row[2], __fmul_rn(t_far[r], PRE_T), s);
+}
+
+inline int launch_pretest(const float* o, const float* d, const float* t_far, const float* coef,
+                          unsigned char* out, int64_t n, cudaStream_t stream) {
+    if (n > 0)
+        pretest_kernel<<<elementwise_blocks(n * TREELET), ELEMWISE_THREADS, 0, stream>>>(
+            o, d, t_far, coef, out, n);
     return (int)cudaGetLastError();
 }
 

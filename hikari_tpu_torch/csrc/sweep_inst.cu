@@ -56,9 +56,9 @@
 // therefore gives the in-order walk's result, ties included, from the same
 // per-pair hits (but see Rounding).
 //
-// Bound. The FP32 issue rate: per (ray, triangle) the pre-test below is ~34
-// float32 instructions (six 3-term dot products as FMAs, the scaled
-// compares) against broadcast shared-memory reads; the per-pair transform
+// Bound. The FP32 issue rate: per (ray, triangle) the pre-test below is ~39
+// float32 instructions (four 3-term dot products as FMAs, den and num
+// rounded singly, the scaled compares) against broadcast shared-memory reads; the per-pair transform
 // adds 28 operations per ray, 1/256 of a pair's triangle work. The TPU
 // split the transformed rays three ways into bf16 in-kernel
 // (instanced.py:119) only for its bf16 matrix unit; here the affine form is
@@ -73,17 +73,20 @@
 // plain PyTorch version. hit_inst is ~50 operations and a divide, though,
 // and almost every (ray, triangle) misses, so each is first put through
 // may_hit: the same predicate multiplied through by |den| (no divide),
-// evaluated with FMAs in one fixed order and loosened by 1/64 in u, v and
-// the far limit of t and by half at T_MIN. Only the (ray, triangle)
-// combinations that pass it, a few per ray and treelet, reach hit_inst;
-// both sweeps then decide, and the decode kernel re-evaluates, with
-// hit_inst alone. The slack is not proven conservative: where |den| is
-// small (a ray grazing the triangle's plane) or au and t bu cancel, the two
-// evaluations can differ by more than it, and may_hit may then drop a hit
-// that hit_inst would take. So the kernels equal their plain versions bit
-// for bit on the wavefronts checked (chip_smoke.py reports it per
-// wavefront), not by construction; the checks' floor of 99.9% agreement
-// covers such grazing hits.
+// loosened by 1/64 in u, v and the far limit of t and by half at T_MIN. Its
+// den and num are rounded as hit_inst's (whose fourth terms, d.w n.w and
+// o.w n.w, are +-0 and n.w for an affine instance), so t |den| / |den| is
+// hit_inst's t to an ulp, and the dot products of u and v are FMAs in one
+// fixed order. Only the (ray, triangle) combinations that pass it, a few
+// per ray and treelet, reach hit_inst; both sweeps then decide, and the
+// decode kernel re-evaluates, with hit_inst alone. may_hit's u and v differ
+// from hit_inst's by a few ulps of their largest partial product, which the
+// slack covers while au and t bu cancel by less than ~2^15 (the flat
+// pre-test's argument, csrc/sweep_grid.cuh; its PyTorch mirror is
+// sweep_inst.may_hit_plain, held against this function on the card by
+// pretest_kernel). Beyond that range the kernels' equality with their plain
+// versions is observed, not guaranteed; the checks' floor of 99.9%
+// agreement covers it.
 //
 // Build without --use_fast_math: the hit test relies on IEEE division and on
 // NaN / inf failing every comparison.
@@ -164,9 +167,9 @@ __device__ __forceinline__ bool hit_inst(const Ray4& r, const float4& pn, const 
            && (t > T_MIN);
 }
 
-// The pre-test's dot products with the object-space ray: FMAs in one fixed
-// order, taking o.w = 1 and d.w = 0 (the instance matrices invert affine
-// transforms, as the world boxes of instanced.py already assume).
+// The pre-test's dot products of u and v with the object-space ray: FMAs in
+// one fixed order, taking o.w = 1 and d.w = 0 (the instance matrices invert
+// affine transforms, as the world boxes of instanced.py already assume).
 __device__ __forceinline__ float fdot_o(const float4& g, const float4& o) {
     return __fmaf_rn(o.x, g.x, __fmaf_rn(o.y, g.y, __fmaf_rn(o.z, g.z, g.w)));
 }
@@ -176,14 +179,15 @@ __device__ __forceinline__ float fdot_d(const float4& g, const float4& d) {
 }
 
 // The pre-test: hit_inst's predicate and t < t_hi / PRE_T multiplied
-// through by |den| (no divide), evaluated with FMAs and loosened by
+// through by |den| (no divide), u and v evaluated with FMAs, loosened by
 // PRE_MARGIN in u and v, a factor 2 at T_MIN and PRE_T at the far limit.
 // Only a ray and triangle that pass it go through hit_inst.
 __device__ __forceinline__ bool may_hit(const Ray4& r, const float4& pn, const float4& pu,
                                         const float4& pv, float t_hi) {
-    const float den = fdot_d(pn, r.d);
+    // hit_inst's den and num, their fourth terms left out (exact, see above)
+    const float den = add(add(mul(r.d.x, pn.x), mul(r.d.y, pn.y)), mul(r.d.z, pn.z));
+    const float num = add(add(add(mul(r.o.x, pn.x), mul(r.o.y, pn.y)), mul(r.o.z, pn.z)), pn.w);
     const float aden = fabsf(den);
-    const float num = fdot_o(pn, r.o);
     const float nt = den < 0.0f ? num : -num;  // t |den|
     const float su = __fmaf_rn(nt, fdot_d(pu, r.d), __fmul_rn(fdot_o(pu, r.o), aden));
     const float sv = __fmaf_rn(nt, fdot_d(pv, r.d), __fmul_rn(fdot_o(pv, r.o), aden));
@@ -345,6 +349,25 @@ occlusion_inst_kernel(const float* __restrict__ o, const float* __restrict__ d,
     }
 }
 
+// may_hit alone: out[r * 256 + j] = 1 where ray r, moved into object space
+// by the instance matrix a (4 x 4), may hit row j of one treelet's
+// coefficients (256 x 12), with the far limit t_far[r] * PRE_T. A
+// diagnostic, for the check against its PyTorch mirror
+// (sweep_inst.may_hit_plain): the sweeps never launch it.
+__global__ void pretest_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                               const float* __restrict__ t_far, const float* __restrict__ coef,
+                               const float* __restrict__ inst_a, unsigned char* __restrict__ out,
+                               int64_t n) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n * TREELET) return;
+    const int64_t r = i / TREELET;
+    const float4* a4 = reinterpret_cast<const float4*>(inst_a);
+    const float4 a[4] = {a4[0], a4[1], a4[2], a4[3]};
+    const float4* row = reinterpret_cast<const float4*>(coef) + 3 * (i % TREELET);
+    out[i] = may_hit(object_ray(o, d, r, a), row[0], row[1], row[2],
+                     __fmul_rn(t_far[r], PRE_T));
+}
+
 inline unsigned elementwise_blocks(int64_t n) {
     return (unsigned)((n + ELEMWISE_THREADS - 1) / ELEMWISE_THREADS);
 }
@@ -381,6 +404,17 @@ int hikari_occlusion_inst(const float* o, const float* d, const float* tmax, con
     if (n_pairs > 0)
         occlusion_inst_kernel<<<n_pairs, THREADS, 0, stream>>>(
             o, d, tmax, tre, tn_bits, tile_of, order, ti_obj, ti_inst, coef, inst_a, occ);
+    return (int)cudaGetLastError();
+}
+
+// The pre-test alone: see pretest_kernel. coef: one treelet (256 x 12);
+// inst_a: one instance matrix (4 x 4); out: (n, 256) bytes.
+int hikari_pretest_inst(const float* o, const float* d, const float* t_far, const float* coef,
+                        const float* inst_a, unsigned char* out, int64_t n,
+                        cudaStream_t stream) {
+    if (n > 0)
+        pretest_kernel<<<elementwise_blocks(n * TREELET), ELEMWISE_THREADS, 0, stream>>>(
+            o, d, t_far, coef, inst_a, out, n);
     return (int)cudaGetLastError();
 }
 

@@ -16,7 +16,8 @@
 // counterpart here.
 //
 // What the design does about it (csrc/sweep_grid.cuh holds the body and
-// argues each point): the pair grid spreads a tile's segment over the SMs
+// argues each point; csrc/sweep_pairs.cu is the same body with the pair-grid
+// sweeps' test): the pair grid spreads a tile's segment over the SMs
 // (one 1024-thread block per tile left a serial tail and one resident block
 // per SM); 512 threads of two rays put two blocks on an SM and drop the
 // block-wide max and its barriers; a divide-free FMA pre-test in two
@@ -32,17 +33,12 @@
 
 namespace {
 
+using sweep_grid::add;
+using sweep_grid::dot3;
 using sweep_grid::EPS;
+using sweep_grid::mul;
 using sweep_grid::Ray;
 using sweep_grid::T_MIN;
-
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-
-// ((x g.x + y g.y) + z g.z)
-__device__ __forceinline__ float dot3(const float4& g, float x, float y, float z) {
-    return add(add(mul(x, g.x), mul(y, g.y)), mul(z, g.z));
-}
 
 // The tile sweeps' test (_bw_block_lean and _hit_mask_lean,
 // hikari_tpu/geometry/wavefront.py:738, 764): no den clamp; every
@@ -90,5 +86,12 @@ int hikari_occlusion_tiles(const float* o, const float* d, const float* tmax, co
 }
 
 int hikari_tiles_attributes(int* out) { return sweep_grid::grid_attributes<LeanHit>(out); }
+
+// The pre-test of the grid sweeps (K1/K2 and K5/K6) alone: see
+// sweep_grid::launch_pretest.
+int hikari_pretest_grid(const float* o, const float* d, const float* t_far, const float* coef,
+                        unsigned char* out, int64_t n, cudaStream_t stream) {
+    return sweep_grid::launch_pretest(o, d, t_far, coef, out, n, stream);
+}
 
 }  // extern "C"

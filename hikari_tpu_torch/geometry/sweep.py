@@ -59,7 +59,11 @@ _T_MIN = 1e-4
 _MISS_T = 3.0e38
 _PRE_MARGIN = 1.0 / 64.0   # the kernels' pre-test: slack in u and v
 _PRE_T = 1.0 + 1.0 / 64.0  # and at the far limit of t
-_PLAIN_TILES = 16  # tiles per step of the plain versions: (16, 1024, 256) blocks
+# tiles per step of the plain versions: (16, 1024, 256) blocks on the CPU;
+# on the card, where the walks run only to be compared with the kernels,
+# larger steps keep the host's loop from setting their pace
+_PLAIN_TILES = 16
+_PLAIN_TILES_CUDA = 128
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "sweep_tiles.cu"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -104,6 +108,10 @@ def _block_hit(o, d, coef):
     return t, (u >= -_EPS) & (v >= -_EPS) & (w >= -_EPS) & (t > _T_MIN)
 
 
+def _plain_tiles(x) -> int:
+    return _PLAIN_TILES_CUDA if x.is_cuda else _PLAIN_TILES
+
+
 def _walk(seg, tn_bits, thr, step, stats=None):
     """Walk every tile's segment by pair rank k with the early-out; step(idx,
     p) sweeps tiles idx at pairs p and returns their new thresholds. stats:
@@ -123,7 +131,7 @@ def _walk(seg, tn_bits, thr, step, stats=None):
         if idx.numel() == 0:
             break
         swept += idx.numel()
-        for chunk in idx.split(_PLAIN_TILES):
+        for chunk in idx.split(_plain_tiles(idx)):
             thr[chunk] = step(chunk, p[chunk])
         k += 1
     if stats is not None:
@@ -136,6 +144,24 @@ def tests_needed(bound_bits, tn_bits_p) -> int:
     reach bits) above its pair's entry distance tn_bits_p (C,); no other
     lane can gain from the treelet."""
     return int((bound_bits > tn_bits_p[:, None]).sum()) * TREELET
+
+
+def tests_from_final(final_bits, tn_bits, seg) -> int:
+    """Ray-triangle tests a closest-hit walk needs, counted from each lane's
+    final carry instead of the walk's running one: TREELET for every listed
+    pair p and lane of its tile whose final bound bits (n,) (a flat key |
+    COL_MASK, an instanced t's bits) lie above tn_bits[p]. The carry only
+    falls along the walk, so this is at most the walk's count
+    (``stats["tests"]``), and equal to it where no lane's carry crosses a
+    later pair's entry distance; it needs no walk, only a sweep's output."""
+    n_tiles = seg.numel() - 1
+    bits = final_bits.view(n_tiles, RAY_TILE)
+    tile = torch.repeat_interleave(torch.arange(n_tiles, device=seg.device),
+                                   (seg[1:] - seg[:-1]).long())
+    total = torch.zeros((), dtype=torch.int64, device=seg.device)
+    for idx in torch.arange(tn_bits.numel(), device=seg.device).split(4096):
+        total += (bits[tile[idx]] > tn_bits[idx, None]).sum()
+    return int(total) * TREELET
 
 
 def closest_walk(o, d, key_in, tr_in, tre, tn_bits, seg, coef, block_hit, stats=None):
@@ -225,18 +251,27 @@ def occlusion_tiles_plain(o, d, tmax, occ_in, tre, tn_bits, seg, coef, stats=Non
 
 
 def _fma(a, b, c):
-    """float32 a * b + c rounded once: the product is exact in float64."""
-    return (a.double() * b.double() + c.double()).float()
+    """float32 a * b + c rounded once, as the card's fmaf. The product is
+    exact in float64; the sum is rounded to odd there (its float64 rounding
+    error by TwoSum, and the odd one of the two neighbours where it is not
+    0), so that the rounding to float32 is the single rounding of the exact
+    value. NaN and inf pass through."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    pv = s - p
+    err = (p - (s - pv)) + (c - pv)
+    inexact = (err != 0) & torch.isfinite(err)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.nextafter(s, torch.where(err > 0, float("inf"), float("-inf")))
+    return torch.where(inexact & even, toward, s).float()
 
 
-def may_hit_plain(o, d, coef, t_far):
-    """PyTorch mirror of the kernels' pre-test (``may_hit_u`` and
-    ``may_hit_vt`` in ``csrc/sweep_grid.cuh``, both stages joined), for the
-    tests and the smoke test; the sweeps never call it. (C, L, 3) rays x
-    (C, TT, 12) coefficients and the largest t that still counts, (C, L) ->
-    (C, L, TT) bool: the hit predicate multiplied through by |den|, with
-    FMAs in the kernel's order, loosened by 1/64 in u, v and the far limit
-    and by half at 1e-4."""
+def _scaled_test(o, d, coef, t_far):
+    """The pre-test's arithmetic on (C, L, 3) rays, (C, TT, 12) coefficient
+    rows and far limits (C, L): (nt = t |den|, |den|, u |den|, v |den|, the
+    far limit times |den|), each (C, L, TT). den and num are rounded as the
+    hit tests round them (``affine``), so that t |den| is the hit tests' t
+    to an ulp; the u and v dot products are FMAs in the kernels' order."""
     def dot_o(c0):
         g = coef[:, None, :, c0:c0 + 4]
         return _fma(o[:, :, None, 0], g[..., 0],
@@ -247,39 +282,103 @@ def may_hit_plain(o, d, coef, t_far):
         return _fma(d[:, :, None, 0], g[..., 0],
                     _fma(d[:, :, None, 1], g[..., 1], d[:, :, None, 2] * g[..., 2]))
 
-    den = dot_d(0)
+    den = affine(coef[..., 0:3], d, None)
     aden = torch.abs(den)
-    num = dot_o(0)
+    num = affine(coef[..., 0:3], o, coef[..., 3])
     nt = torch.where(torch.signbit(den), num, -num)
     su = _fma(nt, dot_d(4), dot_o(4) * aden)
     sv = _fma(nt, dot_d(8), dot_o(8) * aden)
+    return nt, aden, su, sv, (t_far * _PRE_T)[..., None] * aden
+
+
+def may_hit_plain(o, d, coef, t_far):
+    """PyTorch mirror of the kernels' pre-test (``may_hit_u`` and
+    ``may_hit_vt`` in ``csrc/sweep_grid.cuh``, both stages joined), for the
+    tests and the smoke test; the sweeps never call it. (C, L, 3) rays x
+    (C, TT, 12) coefficients and the largest t that still counts, (C, L) ->
+    (C, L, TT) bool: the hit predicate multiplied through by |den|
+    (``_scaled_test``), loosened by 1/64 in u, v and the far limit and by
+    half at 1e-4."""
+    nt, aden, su, sv, far = _scaled_test(o, d, coef, t_far)
     slack = (_EPS + _PRE_MARGIN) * aden
-    t_hi = (t_far * _PRE_T)[..., None]
     half = torch.tensor(-0.5, dtype=o.dtype, device=o.device)
     return ((torch.abs(_fma(half, aden, su)) <= (0.5 + _EPS + _PRE_MARGIN) * aden)
             & (sv >= -slack) & (su + sv <= aden + slack)
-            & (nt > (0.5 * _T_MIN) * aden) & (nt < t_hi * aden))
+            & (nt > (0.5 * _T_MIN) * aden) & (nt < far))
 
 
-def pretest_drops(o, d, t_far, tre, seg, coef):
+def pretest_drops(o, d, t_far, tre, seg, coef, block_hit=_block_hit):
     """(plain hits, those of them that the pre-test refuses) over every
-    listed pair: the (ray, triangle) combinations that ``_block_hit`` accepts
-    with t <= t_far (per lane: a closest key's t rounded up, or an occlusion
-    reach). The second number should be 0."""
+    listed pair: the (ray, triangle) combinations that the hit test
+    block_hit (``_block_hit`` of K1/K2, or the pair-grid K5/K6's
+    ``sweep_pairs._block_hit_pairs``) accepts with t <= t_far (per lane: a
+    closest key's t rounded up, or an occlusion reach). The second number
+    should be 0."""
     n_tiles = seg.numel() - 1
     tile = torch.repeat_interleave(torch.arange(n_tiles, device=o.device),
                                    (seg[1:] - seg[:-1]).long())
     o_t, d_t = o.view(n_tiles, RAY_TILE, 3), d.view(n_tiles, RAY_TILE, 3)
     far_t = t_far.view(n_tiles, RAY_TILE)
     hits = drops = 0
-    for idx in torch.arange(tre.numel(), device=o.device).split(_PLAIN_TILES):
+    for idx in torch.arange(tre.numel(), device=o.device).split(_plain_tiles(o)):
         ti, c = tile[idx], coef[tre[idx].long()]
-        t, hit = _block_hit(o_t[ti], d_t[ti], c)
+        t, hit = block_hit(o_t[ti], d_t[ti], c)
         hit = hit & (t <= far_t[ti][..., None])
         may = may_hit_plain(o_t[ti], d_t[ti], c, far_t[ti])
         hits += int(hit.sum())
         drops += int((hit & ~may).sum())
     return hits, drops
+
+
+def grazing_rays(tri, rng):
+    """Rays where the pre-test is tightest, for its checks. tri: (K, 9)
+    float32 [p0 | e1 | e2] per triangle; rng: a numpy RandomState. Per
+    triangle: points on its edges and corners and 2e-6 of the barycentric
+    range to either side (where the hit test's eps = 1e-6 decides), each
+    approached once from a random direction and once at 1e-2 to 1e-6 rad
+    off the triangle's plane; and rays that meet the plane at 1e-2 to 1e-4
+    rad towards a point inside. -> origins and directions (K, L, 3) and the
+    hit distance aimed for (K, L), float32."""
+    import numpy as np
+
+    p0, e1, e2 = tri[:, None, 0:3], tri[:, None, 3:6], tri[:, None, 6:9]
+    k = tri.shape[0]
+    s = rng.rand(k, 12).astype(np.float32)
+    z = np.zeros_like(s)
+    uv = np.concatenate([np.stack([s, z], -1), np.stack([z, s], -1),
+                         np.stack([s, 1 - s], -1)], 1)          # on the three edges
+    corners = np.broadcast_to(np.array([[0, 0], [1, 0], [0, 1]], np.float32), (k, 3, 2))
+    uv = np.concatenate([uv, corners], 1)
+    inward = np.float32(1 / 3) - uv
+    uv = np.concatenate([uv + e * inward for e in (-2e-6, 0.0, 2e-6)], 1)
+    target = p0 + uv[..., 0:1] * e1 + uv[..., 1:2] * e2
+    n = np.cross(e1, e2)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    lanes = target.shape[1]
+    dirs = rng.randn(k, lanes, 3).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    # the edge points again, along the plane plus a sliver of normal
+    along = dirs - (dirs * n).sum(-1, keepdims=True) * n
+    along /= np.linalg.norm(along, axis=-1, keepdims=True)
+    angle = 10.0 ** -(2 + 4 * rng.rand(k, lanes, 1))
+    sign = np.where(rng.rand(k, lanes, 1) < 0.5, -1.0, 1.0)
+    d_edge = along + sign * angle * n
+    d_edge /= np.linalg.norm(d_edge, axis=-1, keepdims=True)
+    dirs = np.concatenate([dirs, d_edge], 1)
+    target = np.concatenate([target, target], 1)
+    dist = (rng.rand(k, 2 * lanes, 1) * 4 + 0.5).astype(np.float32)
+    o_edge = target - dirs * dist
+    # plane-grazing: towards a point inside, along an edge plus a sliver of normal
+    inside = p0 + 0.3 * e1 + 0.3 * e2
+    along = e1 / np.linalg.norm(e1, axis=-1, keepdims=True)
+    angle = (10.0 ** -(2 + 2 * rng.rand(k, 16, 1))).astype(np.float32)
+    d_graze = along + angle * n
+    d_graze /= np.linalg.norm(d_graze, axis=-1, keepdims=True)
+    dist_g = (rng.rand(k, 16, 1) * 4 + 0.5).astype(np.float32)
+    o_graze = inside - d_graze * dist_g
+    o = np.concatenate([o_edge, o_graze], 1).astype(np.float32)
+    d = np.concatenate([dirs, d_graze], 1).astype(np.float32)
+    return o, d, np.concatenate([dist, dist_g], 1)[..., 0].astype(np.float32)
 
 
 # --- CUDA kernels -------------------------------------------------------------------
@@ -314,6 +413,8 @@ def sweep_library() -> ctypes.CDLL:
     lib.hikari_occlusion_tiles.restype = i
     lib.hikari_tiles_attributes.argtypes = [p]
     lib.hikari_tiles_attributes.restype = i
+    lib.hikari_pretest_grid.argtypes = [p] * 5 + [ctypes.c_int64, p]
+    lib.hikari_pretest_grid.restype = i
     return lib
 
 
@@ -334,6 +435,27 @@ def _check(name, x, dtype, shape, device):
                          f"{x.is_contiguous()})")
     if shape is not None and tuple(x.shape) != shape:
         raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
+
+
+def pretest_grid(o, d, t_far, coef):
+    """The grid sweeps' pre-test alone on the card (both stages, as K1/K2 and
+    K5/K6 evaluate it): (n, 3) rays, far limits t_far (n,) and one treelet's
+    coefficients (256, 12) -> (n, 256) uint8, 1 where a ray may hit the row.
+    For the check against ``may_hit_plain``; the sweeps never call it. No
+    CPU version: a CPU tensor raises."""
+    if o.device.type != "cuda":
+        raise ValueError(f"pretest_grid runs the kernels' pre-test on the card, got {o.device}")
+    n = o.shape[0]
+    for name, x, shape in (("o", o, (n, 3)), ("d", d, (n, 3)), ("t_far", t_far, (n,)),
+                           ("coef", coef, (TREELET, 12))):
+        _check(name, x, torch.float32, shape, o.device)
+    out = torch.empty((n, TREELET), dtype=torch.uint8, device=o.device)
+    err = sweep_library().hikari_pretest_grid(o.data_ptr(), d.data_ptr(), t_far.data_ptr(),
+                                              coef.data_ptr(), out.data_ptr(), n,
+                                              _stream(o.device))
+    if err:
+        raise RuntimeError(f"hikari_pretest_grid launch failed: cudaError {err}")
+    return out
 
 
 def _check_sweep(o, d, lane_args, tre, tn_bits, seg, coef):

@@ -54,9 +54,9 @@ from pathlib import Path
 import torch
 
 from .._build import build_shared_library
-from .sweep import (NVCC_FLAGS, RAY_TILE, TREELET, _check, _check_sweep, _nvcc,
-                    _live_reach_bits, _reach_bits, _stream, _walk, launches,
-                    pair_schedule, plain_cuda_runs, tests_needed)
+from .sweep import (NVCC_FLAGS, RAY_TILE, TREELET, _PRE_MARGIN, _check, _check_sweep,
+                    _live_reach_bits, _nvcc, _plain_tiles, _reach_bits, _scaled_test,
+                    _stream, _walk, launches, pair_schedule, plain_cuda_runs, tests_needed)
 
 _EPS = 1e-6
 _T_MIN = 1e-4
@@ -94,6 +94,46 @@ def _block_tuv_inst(o4, d4, coef):
     hit = ((torch.abs(den) > _DEN_MIN) & (u >= -_EPS) & (v >= -_EPS)
            & (u + v <= 1.0 + _EPS) & (t > _T_MIN))
     return t, u, v, hit
+
+
+def may_hit_plain(o, d, a, coef, t_far):
+    """PyTorch mirror of the instanced kernels' pre-test (``may_hit`` in
+    ``csrc/sweep_inst.cu``), for the tests and the smoke test; the sweeps
+    never call it. (C, L, 3) world rays, (C, 4, 4) instance matrices, (C,
+    TT, 12) coefficients and the largest t that still counts, (C, L) ->
+    (C, L, TT) bool. The object-space ray is the plain version's own
+    (``_to_object``, which rounds as the kernel's transform does); then the
+    flat pre-test's arithmetic (``sweep._scaled_test``) on its first three
+    components, o.w = 1 and d.w = 0 being exact for an affine instance, and
+    this kernel's predicate, loosened by 1/64 in u, v and the far limit and
+    by half at 1e-4."""
+    o4, d4 = _to_object(o, d, a)
+    nt, aden, su, sv, far = _scaled_test(o4[..., :3], d4[..., :3], coef, t_far)
+    slack = (_EPS + _PRE_MARGIN) * aden
+    return ((su >= -slack) & (sv >= -slack) & (su + sv <= aden + slack)
+            & (nt > (0.5 * _T_MIN) * aden) & (nt < far))
+
+
+def pretest_drops_inst(o, d, t_far, tre, seg, ti_obj, ti_inst, coef, inst_a):
+    """(plain hits, those of them that the pre-test refuses) over every
+    listed pair: the (ray, triangle) combinations that the plain instanced
+    test accepts with t <= t_far (per lane: a closest carry's t, or an
+    occlusion reach). The second number should be 0."""
+    n_tiles = seg.numel() - 1
+    tile = torch.repeat_interleave(torch.arange(n_tiles, device=o.device),
+                                   (seg[1:] - seg[:-1]).long())
+    o_t, d_t = o.view(n_tiles, RAY_TILE, 3), d.view(n_tiles, RAY_TILE, 3)
+    far_t = t_far.view(n_tiles, RAY_TILE)
+    hits = drops = 0
+    for idx in torch.arange(tre.numel(), device=o.device).split(_plain_tiles(o)):
+        ti, wt = tile[idx], tre[idx].long()
+        a, c = inst_a[ti_inst[wt].long()], coef[ti_obj[wt].long()]
+        t, _, _, hit = _block_tuv_inst(*_to_object(o_t[ti], d_t[ti], a), c)
+        hit = hit & (t <= far_t[ti][..., None])
+        may = may_hit_plain(o_t[ti], d_t[ti], a, c, far_t[ti])
+        hits += int(hit.sum())
+        drops += int((hit & ~may).sum())
+    return hits, drops
 
 
 def _pair_blocks(o_t, d_t, idx, p, tre, ti_obj, ti_inst, coef, inst_a):
@@ -190,6 +230,8 @@ def inst_library() -> ctypes.CDLL:
     lib.hikari_occlusion_inst.restype = i
     lib.hikari_inst_attributes.argtypes = [p]
     lib.hikari_inst_attributes.restype = i
+    lib.hikari_pretest_inst.argtypes = [p] * 6 + [ctypes.c_int64, p]
+    lib.hikari_pretest_inst.restype = i
     return lib
 
 
@@ -201,6 +243,28 @@ def kernel_attributes() -> dict:
     if err:
         raise RuntimeError(f"hikari_inst_attributes failed: cudaError {err}")
     return {"closest_inst": tuple(out[0:3]), "occlusion_inst": tuple(out[3:6])}
+
+
+def pretest_inst(o, d, t_far, coef, a):
+    """The instanced sweeps' pre-test alone on the card (``may_hit``, after
+    the kernels' move into object space): (n, 3) world rays, far limits
+    t_far (n,), one object-space treelet's coefficients (256, 12) and its
+    instance matrix (4, 4) -> (n, 256) uint8, 1 where a ray may hit the row.
+    For the check against ``may_hit_plain``; the sweeps never call it. No
+    CPU version: a CPU tensor raises."""
+    if o.device.type != "cuda":
+        raise ValueError(f"pretest_inst runs the kernels' pre-test on the card, got {o.device}")
+    n = o.shape[0]
+    for name, x, shape in (("o", o, (n, 3)), ("d", d, (n, 3)), ("t_far", t_far, (n,)),
+                           ("coef", coef, (TREELET, 12)), ("a", a, (4, 4))):
+        _check(name, x, torch.float32, shape, o.device)
+    out = torch.empty((n, TREELET), dtype=torch.uint8, device=o.device)
+    err = inst_library().hikari_pretest_inst(o.data_ptr(), d.data_ptr(), t_far.data_ptr(),
+                                             coef.data_ptr(), a.data_ptr(), out.data_ptr(), n,
+                                             _stream(o.device))
+    if err:
+        raise RuntimeError(f"hikari_pretest_inst launch failed: cudaError {err}")
+    return out
 
 
 def _check_inst(o, d, lane_args, tre, tn_bits, seg, ti_obj, ti_inst, coef, inst_a):

@@ -25,6 +25,15 @@ before the divide where ``|den| < 1e-20``, and a hit needs ``|den| >
 1e-20``, ``u, v >= -1e-6``, ``u + v <= 1 + 1e-6`` and ``t > 1e-4``. The TPU
 divides with an approximate reciprocal and one Newton step
 (``RECIP="newton"``); the port divides in IEEE float32, as K1 does.
+
+The kernels are the body of the tile kernels (``csrc/sweep_grid.cuh``) with
+this hit test (``csrc/sweep_pairs.cu``): the closest result is the minimum
+over every listed pair of ``(key, rank of the pair in its tile's
+segment)``, which differs from the walk's only where two hits tie in the
+key's upper 24 bits, and the occlusion result is the walk's. Their
+pre-test is the tile kernels', whose mirror ``sweep.may_hit_plain`` takes
+``_block_hit_pairs`` in ``sweep.pretest_drops``; ``key_in`` must lie in
+``[0, bits(3.0e38)]`` as there.
 """
 
 from __future__ import annotations
@@ -85,7 +94,8 @@ def occlusion_pairs_plain(o, d, tmax, occ_in, tre, tn_bits, seg, coef, stats=Non
 
 @functools.cache
 def pairs_library() -> ctypes.CDLL:
-    """Build (at first use) and load csrc/sweep_pairs.cu."""
+    """Build (at first use) and load csrc/sweep_pairs.cu (which includes
+    csrc/sweep_grid.cuh)."""
     import subprocess
 
     try:
@@ -94,11 +104,23 @@ def pairs_library() -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed to build {_SOURCE}:\n{e.stderr}") from e
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hikari_closest_pairs.argtypes = [p] * 12 + [i, i, p]
+    lib.hikari_closest_pairs.argtypes = [p] * 13 + [i, i, p]
     lib.hikari_closest_pairs.restype = i
-    lib.hikari_occlusion_pairs.argtypes = [p] * 9 + [i, i, p]
+    lib.hikari_occlusion_pairs.argtypes = [p] * 9 + [i, p]
     lib.hikari_occlusion_pairs.restype = i
+    lib.hikari_pairs_attributes.argtypes = [p]
+    lib.hikari_pairs_attributes.restype = i
     return lib
+
+
+def kernel_attributes() -> dict:
+    """{kernel: (registers a thread, spill bytes a thread, resident blocks
+    per SM)} of the two pair-grid kernels, as the CUDA runtime reports them."""
+    out = (ctypes.c_int * 6)()
+    err = pairs_library().hikari_pairs_attributes(ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"hikari_pairs_attributes failed: cudaError {err}")
+    return {"closest_pairs": tuple(out[0:3]), "occlusion_pairs": tuple(out[3:6])}
 
 
 def closest_pairs(o, d, key_in, tr_in, tre, tn_bits, seg, coef):
@@ -116,9 +138,9 @@ def closest_pairs(o, d, key_in, tr_in, tre, tn_bits, seg, coef):
     best = torch.empty(key_in.shape, dtype=torch.int64, device=o.device)
     err = pairs_library().hikari_closest_pairs(
         o.data_ptr(), d.data_ptr(), key_in.data_ptr(), tr_in.data_ptr(),
-        tre.data_ptr(), tn_bits.data_ptr(), tile.data_ptr(), order.data_ptr(),
-        coef.data_ptr(), best.data_ptr(), key.data_ptr(), tr.data_ptr(),
-        n_tiles, n_pairs, _stream(o.device))
+        tre.data_ptr(), tn_bits.data_ptr(), seg.data_ptr(), tile.data_ptr(),
+        order.data_ptr(), coef.data_ptr(), best.data_ptr(), key.data_ptr(),
+        tr.data_ptr(), n_tiles, n_pairs, _stream(o.device))
     if err:
         raise RuntimeError(f"hikari_closest_pairs launch failed: cudaError {err}")
     launches["closest_pairs"] += 1
@@ -133,15 +155,15 @@ def occlusion_pairs(o, d, tmax, occ_in, tre, tn_bits, seg, coef):
                                   ("occ_in", occ_in, torch.int32)],
                            tre, tn_bits, seg, coef)
     # the kernel updates the carry in place: tiles without a pair keep it
-    occ = torch.empty_like(occ_in).copy_(occ_in)
+    occ = occ_in.clone()
     if n_tiles == 0:
         return occ
     n_pairs = tre.numel()
     tile, order = pair_schedule(seg, n_pairs)
     err = pairs_library().hikari_occlusion_pairs(
         o.data_ptr(), d.data_ptr(), tmax.data_ptr(), tre.data_ptr(), tn_bits.data_ptr(),
-        tile.data_ptr(), order.data_ptr(), coef.data_ptr(), occ.data_ptr(),
-        n_tiles, n_pairs, _stream(o.device))
+        tile.data_ptr(), order.data_ptr(), coef.data_ptr(), occ.data_ptr(), n_pairs,
+        _stream(o.device))
     if err:
         raise RuntimeError(f"hikari_occlusion_pairs launch failed: cudaError {err}")
     launches["occlusion_pairs"] += 1

@@ -162,7 +162,9 @@ def test_reverse_shadows_agree_with_forward(setup):
 
 @pytest.mark.cuda
 def test_cuda_pair_sweeps_match_plain(setup):
-    """On the card: both pair-grid kernels against their plain versions."""
+    """On the card: both pair-grid kernels against their plain versions, bit
+    for bit (the grid body of csrc/sweep_grid.cuh with PairHit, which
+    rounds as _block_hit_pairs does)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the pair-grid kernels have no CPU mode")
     s = setup
@@ -176,12 +178,11 @@ def test_cuda_pair_sweeps_match_plain(setup):
     args = (ps.os, ps.ds, *twf.closest_carry(ps), ps.tre, ps.tn_bits, ps.seg, tl.coef)
     (key_k, tr_k) = sweep_pairs.closest_pairs(*args)
     (key_p, tr_p) = sweep_pairs.closest_pairs_plain(*args)
-    live = ps.ts > 0
-    same = (tr_k == tr_p) & ((key_k & 255) == (key_p & 255))
-    assert float(same[live].float().mean()) >= 0.999
+    assert torch.equal(key_k, key_p) and torch.equal(tr_k, tr_p)
+    assert float((tr_k[ps.ts > 0] >= 0).float().mean()) > 0.3  # the wavefront does hit
     ps = twf.prepare_occlusion(tl, o, d, tmax, wl, wh, active=act)
     args = (ps.os, ps.ds, ps.ts, (ps.ts <= 0).to(torch.int32), ps.tre, ps.tn_bits,
             ps.seg, tl.coef)
-    # the concurrent early-out is exact for occlusion (sweep_pairs.cu)
+    # the concurrent early-out is exact for occlusion (csrc/sweep_grid.cuh)
     assert torch.equal(sweep_pairs.occlusion_pairs(*args),
                        sweep_pairs.occlusion_pairs_plain(*args))
