@@ -41,7 +41,15 @@ exits nonzero without its result line:
    sweep, banded closest hit, reversed shadows, gated and sorted material
    dispatch, resident loop, three depth segments; the instanced default
    scene against the flat one at 64x64, depth 5, 4 spp averaged, with the
-   same tolerances;
+   same tolerances. Media: the fog's 64x64 depth-5 probe, its one-sample
+   rays against tools/transport_ref.json within 0.5% (its mean RGB, one
+   LCG draw, printed for information), and over FOG_PROBE_SPP samples
+   against the JAX package's (hikari_tpu_torch/data/media_probe_ref.json,
+   rays within 0.5%, mean RGB within 2%), as is, under the pair-grid sweep
+   and under the resident loop; the grid cloud's 32x32 depth-12 16-sample
+   probe against the JAX package's (rays within 0.5%, mean RGB within
+   10%, bench.py's tolerance); every medium probe averages samples 0 ..
+   spp-1 of VolPath(samples_per_pixel=spp);
 5. main paths: render(VolPath(max_depth=5, samples_per_pixel=4)) at
    800x800 through the public API of the default scene (tile kernels), the
    default scene in pair-grid mode (K5/K6), the default scene with every
@@ -51,7 +59,17 @@ exits nonzero without its result line:
    after; the image must be finite and not black, the path's two kernels
    must have launched, and no other sweep, kernel or plain, may have run.
    Then each switch of the all-modes path alone on the pair grid, timed
-   only;
+   only. Then the medium paths: the fog (depth 5) with the tile sweeps
+   and with the pair grid, and the grid cloud (depth 12), each at 800x800,
+   4 spp, through render with the same checks, where only the closest
+   kernel (K1, or K5) may launch: scenes with Interface faces walk shadow
+   rays through closest hits. Before each, an instrumented render_lanes
+   of the same samples prints per bounce the closest-sweep calls and the
+   delta and ratio tracking steps, and a synchronising stage split (delta
+   tracking, ratio tracking, closest sweeps, the rest), and captures the
+   closest kernel's sweep calls: before the render, the kernel against
+   its plain version on every one of them (the path rays' and each
+   shadow-walk segment's), bit for bit, with its summed time and bound;
 6. timings: each kernel's wrapper call (pair_schedule and scratch
    included) against its plain version on every sweep call of its main
    path's first wavefront (one per bounce), summed per render beside the
@@ -87,6 +105,14 @@ B_ATOL = 1e-4       # instanced b1 / b2 where tri agrees
 MAIN_RES = 800
 MAIN_SPP = 4
 PROBE_SPP = 4
+# the fog probe's samples: one sample's mean RGB spreads ~6% from the
+# media's LCG streams alone, which the port's and the JAX package's rays
+# seed differently, and 512 samples ~0.5% (PERF.md; python3 -m
+# hikari_tpu_torch.tools.media_check), well inside the probe's 2%
+FOG_PROBE_SPP = 512
+# the medium paths' depths: the fog's bench depth, and the bench cloud
+# probe's depth for the grid cloud (the bench renders the cloud at 32)
+MEDIUM_DEPTH = {"fog": 5, "cloud_grid": 12}
 BAND_FRAC = 0.15    # banded closest hit: band = 0.15 x the world diagonal
 # phase 6 runs a kernel's plain version on a bounce's call only while that
 # run is expected to stay under this many seconds (the longest, K3's at the
@@ -470,13 +496,10 @@ def pretest_check(label, sc, cases, smi, failures):
 def main_path(label, sc, cam, module, names, smi, **vp_kw):
     """render(VolPath(max_depth=5, samples_per_pixel=4, **vp_kw)) of `sc`
     through the public API, after a warm-up render_lanes of sample batch 0
-    that also counts rays and captures the traversal's sweep calls. The
-    launch counts are reset just before the render and read just after;
-    the image must be finite and not black, the kernels `names` must have
-    launched and no other sweep (kernel or plain) may have run."""
+    that also counts rays and captures the traversal's sweep calls; see
+    timed_render for the checks."""
     import torch
     import hikari_tpu_torch as hk
-    from hikari_tpu_torch.geometry import sweep
     from hikari_tpu_torch.integrators.volpath import render_lanes
 
     dev = sc.device
@@ -489,8 +512,22 @@ def main_path(label, sc, cam, module, names, smi, **vp_kw):
             vp, sc, cam, hk.make_filter(),
             torch.arange(k, device=dev).repeat_interleave(w * h),
             (lanes % w).repeat(k), (lanes // w).repeat(k))
-    rays = float(stats["rays_traced"])
-    nonfinite = float(stats["nonfinite_lanes"])
+    counts = timed_render(label, sc, cam, vp, names, smi, float(stats["rays_traced"]),
+                          float(stats["nonfinite_lanes"]))
+    return counts, rec
+
+
+def timed_render(label, sc, cam, vp, names, smi, rays, nonfinite):
+    """render(vp, sc, cam) through the public API with the launch counts
+    reset just before and read just after; rays: the rays of its sample
+    batch, counted by an earlier render_lanes of the same samples. The
+    image must be finite and not black, the kernels `names` must have
+    launched and no other sweep (kernel or plain) may have run."""
+    import torch
+    import hikari_tpu_torch as hk
+    from hikari_tpu_torch.geometry import sweep
+
+    w, h = cam.resolution
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sweep.reset_counts()
@@ -503,7 +540,7 @@ def main_path(label, sc, cam, module, names, smi, **vp_kw):
     peak = torch.cuda.max_memory_allocated()
     finite = bool(torch.isfinite(img).all())
     mean_rgb = float(img.mean())
-    log(f"[{label}] render {w}x{h}, {MAIN_SPP} spp, depth 5: {wall:.3f} s, "
+    log(f"[{label}] render {w}x{h}, {MAIN_SPP} spp, depth {vp.max_depth}: {wall:.3f} s, "
         f"{rays / wall / 1e6:.3f} Mray/s ({rays:.0f} rays), "
         f"{wall / MAIN_SPP * 1e3:.1f} ms/sample, peak {peak / 2**30:.2f} GiB [{smi}]")
     log(f"[{label}] mean RGB {mean_rgb:.6f}, finite {finite}, nonfinite lanes "
@@ -515,7 +552,137 @@ def main_path(label, sc, cam, module, names, smi, **vp_kw):
             or any(plain_runs.values())):
         raise SystemExit(f"{label}: the render did not go through exactly the "
                          f"kernels {names}")
-    return counts, rec
+    return counts
+
+
+class MediumInstruments:
+    """Synchronising wrappers around the stages of a medium path, for one
+    instrumented render_lanes: per bounce (one _bounce_core call), the
+    closest-sweep calls (scene_closest_hit: the path rays' and every
+    shadow-walk segment's) and the tracking steps of delta_track (one call
+    a bounce) and ratio_track_tr (one call a shadow-walk segment); per
+    stage, the time between a synchronize before the call and one after."""
+
+    def __init__(self):
+        self.bounces = []
+        self.secs = dict(delta=0.0, ratio=0.0, closest=0.0)
+
+    def _timed(self, stage, fn, *args, **kw):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.secs[stage] += time.perf_counter() - t0
+        return out
+
+    def __enter__(self):
+        from hikari_tpu_torch.integrators import volpath
+        from hikari_tpu_torch.media import sample as ms
+
+        self.saved = [(volpath, "_bounce_core"), (volpath, "scene_closest_hit"),
+                      (ms, "delta_track"), (ms, "ratio_track_tr")]
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
+        orig = {n: f for _, n, f in self.saved}
+
+        def bounce(*args, **kw):
+            self.bounces.append(dict(closest=0, delta=[], ratio=[]))
+            return orig["_bounce_core"](*args, **kw)
+
+        def closest(*args, **kw):
+            self.bounces[-1]["closest"] += 1
+            return self._timed("closest", orig["scene_closest_hit"], *args, **kw)
+
+        def tracked(stage, name):
+            def wrapped(*args, **kw):
+                st = {}
+                out = self._timed(stage, orig[name], *args, stats=st, **kw)
+                lane = st["lane_steps"]
+                self.bounces[-1][stage].append(
+                    (st["steps"], int(lane.sum()), int((lane > 0).sum())))
+                return out
+            return wrapped
+
+        volpath._bounce_core = bounce
+        volpath.scene_closest_hit = closest
+        ms.delta_track = tracked("delta", "delta_track")
+        ms.ratio_track_tr = tracked("ratio", "ratio_track_tr")
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
+def medium_path(label, sc, cam, depth, names, smi):
+    """A medium main path: render(VolPath(max_depth=depth,
+    samples_per_pixel=4)) of `sc` (timed_render's checks), after an
+    instrumented render_lanes of the same samples (MediumInstruments) that
+    counts the rays, captures the closest kernel's sweep calls (the path
+    rays' and every shadow-walk segment's) and prints, per bounce, the
+    closest-sweep calls and the tracking steps (the loop's steps, the most
+    any lane ran, and the mean over the lanes that tracked), and the
+    synchronising stage split. Then the kernel goes against its plain
+    version on every captured call (time_kernels) and must equal it bit
+    for bit on each; the captured inputs are freed before the render.
+    Returns the render's launch counts."""
+    import torch
+    import hikari_tpu_torch as hk
+    from hikari_tpu_torch.geometry import wavefront
+    from hikari_tpu_torch.integrators.volpath import render_lanes
+
+    if sc.device.type != "cuda":
+        raise SystemExit(f"{label}: the scene is not on the card")
+    dev = sc.device
+    w, h = cam.resolution
+    vp = hk.VolPath(max_depth=depth, samples_per_pixel=MAIN_SPP)
+    k = vp.sample_batch
+    lanes = torch.arange(w * h, device=dev)
+    closest = names[0]
+    with Recorder(wavefront, (closest,)) as rec, MediumInstruments() as ins:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, stats = render_lanes(vp, sc, cam, hk.make_filter(),
+                                   torch.arange(k, device=dev).repeat_interleave(w * h),
+                                   (lanes % w).repeat(k), (lanes // w).repeat(k))
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    for i, b in enumerate(ins.bounces):
+        parts = [f"{b['closest']} closest-sweep calls"]
+        for stage in ("delta", "ratio"):
+            calls = b[stage]
+            if calls:
+                steps, lane_steps, live = (sum(c[j] for c in calls) for j in range(3))
+                parts.append(f"{stage} tracking {len(calls)} call(s), {steps} steps (max "
+                             f"{max(c[0] for c in calls)} a call), mean "
+                             f"{lane_steps / max(live, 1):.2f} over {live} live lanes")
+        log(f"[{label}] bounce {i}: " + "; ".join(parts))
+    n_closest = sum(b["closest"] for b in ins.bounces)
+    stages = dict(ins.secs, rest=total - sum(ins.secs.values()))
+    log(f"[{label}] stage split of one synchronised {w}x{h} {k}-sample wavefront, "
+        f"{total:.3f} s: " + ", ".join(
+            f"{name} {sec * 1e3:.1f} ms ({sec / total * 100:.1f}%)"
+            for name, sec in (("delta tracking", stages["delta"]),
+                              ("ratio tracking", stages["ratio"]),
+                              ("closest sweeps", stages["closest"]),
+                              ("the rest", stages["rest"])))
+        + f"; {n_closest} closest-sweep calls, {n_closest / max(len(ins.bounces), 1):.2f} "
+        f"a bounce [{smi}]")
+    n_calls = len(rec.calls[closest])
+    (r,) = time_kernels([(closest, "", rec.calls[closest], sc.treelets)], {closest: n_calls},
+                        smi, label=f"on the {label} path")
+    log(f"[{label}] {closest} on the {n_calls} sweep calls of one {k}-sample wavefront: "
+        f"kernel {r['ms_render']:.3f} ms, plain {r['plain_ms_render']:.3f} ms, bound "
+        f"{r['bound_ms_render']:.3f} ms ({r['bound_by']} at the first call); bit-equal with "
+        f"the plain version on {'every call' if r['bit_equal'] else 'NOT every call'} "
+        f"[{smi}]")
+    if not (r["bit_equal"] and r["calls_compared"] == n_calls):
+        raise SystemExit(f"{label}: {closest} does not equal its plain version bit for bit "
+                         f"on every sweep call of the path")
+    del rec  # the captured inputs stay out of the render's peak memory
+    return timed_render(label, sc, cam, vp, names, smi, float(stats["rays_traced"]),
+                        float(stats["nonfinite_lanes"]))
 
 
 def time_render(label, sc, cam, smi, **vp_kw):
@@ -651,6 +818,7 @@ def main() -> int:
         return 3
 
     # phase 1: device
+    t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
@@ -679,9 +847,10 @@ def main() -> int:
         log(f"[build] {name}: {regs} registers a thread, {spill} B spilled, "
             f"{blocks} resident blocks per SM")
 
-    from hikari_tpu_torch.scenes import (BUILDERS, check_transport, forest_camera,
+    from hikari_tpu_torch.scenes import (BUILDERS, check_transport,
+                                         cloud_grid_scene, fog_scene, forest_camera,
                                          forest_scene, instanced_default_scene,
-                                         scene_camera)
+                                         probe_reference, scene_camera, transport_probe)
 
     flat_names = ("closest_tiles", "occlusion_tiles")
     inst_names = ("closest_inst", "occlusion_inst")
@@ -750,6 +919,31 @@ def main() -> int:
         f"({dc * 100:.3f}%) -> {'pass' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the instanced default scene does not match the flat one")
+    # the medium probes (see FOG_PROBE_SPP)
+    scenes["fog"] = fog_scene().build(device=dev)
+    scenes["cloud grid"] = cloud_grid_scene().build(device=dev)
+    rays, mean_rgb = transport_probe(scenes["fog"], "fog")
+    ref = probe_reference("fog")
+    dr = abs(rays / ref["rays_traced"] - 1)
+    log(f"[transport] fog, the bench's 1-sample probe: rays {rays:.0f} vs "
+        f"{ref['rays_traced']:.0f} ({dr * 100:.3f}%, tolerance 0.5%), mean RGB "
+        f"{mean_rgb:.7f} vs {ref['mean_rgb']:.7f} "
+        f"({abs(mean_rgb / ref['mean_rgb'] - 1) * 100:.3f}%, for information: one "
+        f"sample's LCG draw) -> {'pass' if dr <= 0.005 else 'FAIL'}")
+    if dr > 0.005:
+        raise SystemExit("fog probe failed: rays of sample 0 against tools/transport_ref.json")
+    for mode, switches, probe_kw in (("", {}, {}),
+                                     (" under the pair-grid sweep", dict(SWEEP_MODE="pairs"), {}),
+                                     (" under the resident loop", {}, dict(resident="on"))):
+        with switched(wavefront, **switches):
+            ok, msg = check_transport(scenes["fog"], "fog", spp=FOG_PROBE_SPP, **probe_kw)
+        log(f"[transport] {msg}{mode} -> {'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"fog probe failed{mode}: {msg}")
+    ok, msg = check_transport(scenes["cloud grid"], "cloud_grid")
+    log(f"[transport] {msg} -> {'pass' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"grid-cloud probe failed: {msg}")
 
     # phase 5: the main paths at full size: flat (tile sweeps, pair grid,
     # every switch on), then instanced
@@ -775,6 +969,15 @@ def main() -> int:
                                       inst_names, smi)
     main_path("forest", scenes["forest"], forest_camera(MAIN_RES, MAIN_RES), instanced,
               inst_names, smi)
+    # the medium paths: K1 (or K5) for camera rays and every shadow-walk
+    # segment, no occlusion sweep
+    for label, which, names, switches in (
+            ("fog", "fog", ("closest_tiles",), {}),
+            ("fog pair grid", "fog", ("closest_pairs",), dict(SWEEP_MODE="pairs")),
+            ("cloud grid", "cloud_grid", ("closest_tiles",), {})):
+        with switched(wavefront, **switches):
+            medium_path(label, scenes[which.replace("_", " ")],
+                        scene_camera(which, MAIN_RES), MEDIUM_DEPTH[which], names, smi)
 
     # phase 6: kernel times at the main paths' shapes (after the counts were read)
     flat_tl = scenes["default"].treelets
@@ -804,6 +1007,7 @@ def main() -> int:
         log(f"[timing] {pairs} / {tiles['name']} at depth 0 of the pair-grid path: "
             f"{by_name[pairs]['ms']:.3f} / {tiles['ms']:.3f} ms = "
             f"{by_name[pairs]['ms'] / tiles['ms']:.3f} [{smi}]")
+    log(f"[done] every phase passed in {time.perf_counter() - t_start:.0f} s")
     log(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ The JAX package ``hikari_tpu`` is the reference; this package mirrors its
 module tree and names and is checked against it. It imports neither JAX nor
 ``hikari_tpu`` and reads no file of it: its data tables (``data/``) and
 BVH builder source (``csrc/bvh_builder.cpp``) are copies of the
-reference's. The Pallas sweep kernels of the flat, pair-grid and
+reference's. Participating media (homogeneous, density-grid and RGB-grid,
+delta and ratio tracking) are plain PyTorch. The Pallas sweep kernels of the flat, pair-grid and
 instanced paths are hand-written CUDA (``csrc/sweep_tiles.cu``,
 ``csrc/sweep_pairs.cu``, ``csrc/sweep_inst.cu``), built with nvcc at first
 use. Entry points run on the first CUDA device unless given
@@ -30,13 +31,17 @@ from .film.film import framebuffer, make_film
 from .film.filters import make_filter
 from .integrators.volpath import VolPath, render, render_lanes
 from .lights.types import PointLight
-from .materials.types import Conductor, Emissive, Glass, Gold, Matte, Mirror
+from .materials.types import Conductor, Emissive, Glass, Gold, Interface, Matte, Mirror
+from .media.types import (CloudVolume, Fog, GridMedium, HomogeneousMedium, Milk,
+                          RGBGridMedium, Smoke, medium_preset)
 from .scene.mesh import TriangleMesh, make_box, make_quad, make_sphere
 from .scene.scene import Scene, SceneData
 
 __all__ = [
     "Scene", "SceneData", "TriangleMesh", "make_box", "make_quad", "make_sphere",
-    "Matte", "Gold", "Conductor", "Glass", "Mirror", "Emissive", "PointLight",
+    "Matte", "Gold", "Conductor", "Glass", "Mirror", "Emissive", "Interface", "PointLight",
+    "HomogeneousMedium", "GridMedium", "RGBGridMedium", "CloudVolume", "Fog", "Milk",
+    "Smoke", "medium_preset",
     "make_perspective_camera", "make_filter", "VolPath", "render",
     "render_lanes", "make_film", "framebuffer",
 ]

@@ -1,26 +1,33 @@
-"""VolPath: spectral wavefront path tracer, surface-only main path.
+"""VolPath: spectral volumetric wavefront path tracer.
 
-Port of ``hikari_tpu/integrators/volpath.py`` for surface-only scenes:
-power light sampler, NEE through the occlusion sweep, emission MIS,
-Russian roulette and glass dispersion, with the reference's bounce-loop
-modes: material coherence 'none' / 'gated' / 'sorted', the resident loop
-(``resident='on'``) and depth segments (``render_lanes_segmented``). The
-path state is a dict of per-lane tensors (the reference's state dict,
-without the media channels), advanced by ``_bounce_core`` one bounce at a
-time; ``lax.fori_loop`` becomes a Python loop over depth and
-``where``-selects stay ``torch.where``. Every ``path_sample_*`` dimension
-index (0, 1, 3, 5, 6) is the JAX package's, so both draw the same samples.
+Port of ``hikari_tpu/integrators/volpath.py``: power light sampler, NEE,
+emission MIS, Russian roulette and glass dispersion, with the reference's
+bounce-loop modes: material coherence 'none' / 'gated' / 'sorted', the
+resident loop (``resident='on'``) and depth segments
+(``render_lanes_segmented``). The path state is a dict of per-lane tensors
+(the reference's state dict, with the medium channel ``med``), advanced by
+``_bounce_core`` one bounce at a time; ``lax.fori_loop`` becomes a Python
+loop over depth and ``where``-selects stay ``torch.where``. Every
+``path_sample_*`` dimension index (0, 1, 3, 5, 6) is the JAX package's, so
+both draw the same samples.
+
+Participating media (``media/``): a lane inside a medium is delta-tracked
+up to its surface hit, and may scatter (HG phase function, with NEE from
+the scatter point), be absorbed, or reach the surface. ``Interface``
+faces bound media without a BSDF: camera paths pass through them and
+switch medium, and so do shadow rays, which on such scenes walk up to
+MAX_INTERFACE_CROSSINGS closest hits (``_trace_shadow``) instead of one
+occlusion test, ratio-tracking each segment's transmittance.
 
 Instanced scenes (``SceneData.has_instances``) trace through the
 two-level traversal of ``geometry/instanced.py``; their hit records name a
 world treelet and column, decoded into the shared face row and the
 instance (``_face_decode``), whose normal transform and material override
-apply at the hit. The reference's instanced shadow-transmittance hook
-(``volpath.py:807-828``) belongs to media and is not ported with them.
+apply at the hit, in shadow walks too.
 
-Participating media, textures, alpha, Mix and layered materials and the
-other lights are not ported; scenes that need them raise
-``NotImplementedError`` instead of rendering a wrong image.
+Textures, alpha, Mix and layered materials and the other lights are not
+ported; scenes that need them raise ``NotImplementedError`` instead of
+rendering a wrong image.
 """
 
 from __future__ import annotations
@@ -44,10 +51,13 @@ from ..geometry.wavefront import _inverse_permutation, ray_sort_keys
 from ..lights import types as lt
 from ..materials import bsdf as mb
 from ..materials import types as mt
+from ..media import sample as ms
 from ..sampling import sobol as sb
 from ..scene.scene import SceneData
 from ..spectral import spectrum as sp
 from ..spectral.cie import spectral_to_xyz, xyz_to_linear_srgb
+
+MAX_INTERFACE_CROSSINGS = 10  # shadow-ray boundary chain cap
 
 
 def scene_closest_hit(scene: SceneData, o, d, t_max, active=None, presorted=False):
@@ -232,6 +242,12 @@ def _inst_xform_normal(scene: SceneData, inst, n_obj):
     return (scene.inst_nrm[inst] * n_obj[..., None, :]).sum(-1)
 
 
+def _volumetric(scene: SceneData) -> bool:
+    """The scene has media or Interface faces: paths carry a medium and
+    shadow rays walk through interfaces."""
+    return scene.has_media or mt.INTERFACE in scene.present_materials
+
+
 def _surface_data(scene: SceneData, rec, o, d):
     """Hit-point attributes from one (F, 17) face-row gather."""
     tri, inst = _face_decode(scene, rec.tri)
@@ -250,9 +266,65 @@ def _surface_data(scene: SceneData, rec, o, d):
         arealight = rows[..., 14].to(torch.int32) - 1
     else:
         arealight = torch.full_like(packed, -1)
-    return dict(p=o + rec.t[..., None] * d, ng=face_forward(ng_raw, ns), ns=ns,
-                mat_type=packed >> 24, mat_idx=packed & 0xFFFFFF,
-                arealight=arealight)
+    sd = dict(p=o + rec.t[..., None] * d, ng=face_forward(ng_raw, ns), ns=ns,
+              mat_type=packed >> 24, mat_idx=packed & 0xFFFFFF, arealight=arealight)
+    if _volumetric(scene):
+        sd.update(ng_raw=ng_raw, inside_med=rows[..., 15].to(torch.int32) - 1,
+                  outside_med=rows[..., 16].to(torch.int32) - 1)
+    return sd
+
+
+def _crossing_medium(sd, direction):
+    """Medium entered when crossing the surface along `direction`: inside
+    against the winding normal, outside along it."""
+    entering_inside = dot(direction, sd["ng_raw"]) < 0.0
+    return torch.where(entering_inside, sd["inside_med"], sd["outside_med"])
+
+
+def _trace_shadow(scene: SceneData, o_sh, wi, t_max, medium_sh, lam, active,
+                  light_group=None):
+    """Shadow transmittance (T_ray, r_l multiplier, r_u multiplier), each
+    (N, 4); T_ray 0 where blocked. Without media and interfaces one
+    occlusion sweep decides. Otherwise the ray walks up to
+    MAX_INTERFACE_CROSSINGS closest hits: Interface faces are crossed
+    (switching medium), any other face blocks, and each segment inside a
+    medium is ratio-tracked. The walk stops early once no lane runs."""
+    ones4 = torch.ones_like(lam)
+    if not _volumetric(scene):
+        occluded = scene_any_hit(scene, o_sh, wi, t_max, active=active, group=light_group)
+        return torch.where(occluded[..., None], 0.0, ones4), ones4, ones4
+    T_ray = r_l_m = r_u_m = ones4
+    running, o_cur, t_rem, med = active, o_sh, t_max, medium_sh
+    for _ in range(MAX_INTERFACE_CROSSINGS):
+        if not bool(running.any()):
+            break
+        rec = scene_closest_hit(scene, o_cur, wi, t_rem, active=running)
+        if scene.has_media:
+            T_seg, rl_seg, ru_seg = ms.ratio_track_tr(
+                scene.media, scene.rgb2spec, med, o_cur, wi,
+                torch.where(rec.hit, rec.t, t_rem), lam, running & (med >= 0))
+            T_ray, r_l_m, r_u_m = T_ray * T_seg, r_l_m * rl_seg, r_u_m * ru_seg
+        hit_something = running & rec.hit
+        tri, inst = _face_decode(scene, rec.tri)
+        rows = scene.face_rows[tri]
+        packed = (rows[..., 12].to(torch.int32) << 16) | rows[..., 13].to(torch.int32)
+        ng_raw = rows[..., 0:3]
+        if inst is not None:
+            override = scene.inst_mat_packed[inst]
+            packed = torch.where(override >= 0, override, packed)
+            ng_raw = _inst_xform_normal(scene, inst, ng_raw)
+        passthrough = (packed >> 24) == mt.INTERFACE
+        T_ray = torch.where((hit_something & ~passthrough)[..., None], 0.0, T_ray)
+        crossing = hit_something & passthrough
+        entering_inside = (wi * ng_raw).sum(-1) < 0.0
+        new_med = torch.where(entering_inside, rows[..., 15].to(torch.int32) - 1,
+                              rows[..., 16].to(torch.int32) - 1)
+        med = torch.where(crossing, new_med, med)
+        p_hit = o_cur + rec.t[..., None] * wi
+        o_cur = torch.where(crossing[..., None], p_hit + 1e-4 * wi, o_cur)
+        t_rem = torch.where(crossing, t_rem - rec.t - 1e-4, t_rem)
+        running = crossing & (t_rem > 0.0)
+    return T_ray, r_l_m, r_u_m
 
 
 # --- the bounce loop ----------------------------------------------------------------
@@ -267,20 +339,40 @@ def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays
     o, d, beta, r_u, r_l, L = st["o"], st["d"], st["beta"], st["r_u"], st["r_l"], st["L"]
     alive, specular, eta_scale = st["alive"], st["spec"], st["eta"]
     any_nonspec, prev_p, disp_term = st["anyns"], st["prev_p"], st["disp"]
-    lam, px, py, si = st["lam"], st["px"], st["py"], st["si"]
+    lam, px, py, si, med = st["lam"], st["px"], st["py"], st["si"], st["med"]
     lights = scene.lights
     coherence = vp.material_coherence
+    vol = _volumetric(scene)
 
     rays_traced = rays_traced + alive.float().sum()
     t_inf = torch.full((o.shape[0],), float("inf"), device=o.device)
     rec = scene_closest_hit(scene, o, d, t_inf, active=alive, presorted=presorted)
-    alive = alive & rec.hit
+
+    # the medium segment up to the surface: delta tracking
+    scattered = torch.zeros_like(alive)
+    p_scatter, g_scatter, d_med = o, torch.zeros_like(t_inf), d
+    if scene.has_media:
+        in_medium = alive & (med >= 0)
+        dtr = ms.delta_track(
+            scene.media, scene.rgb2spec, med, o, d, torch.where(rec.hit, rec.t, t_inf), lam,
+            beta, r_u, r_l, in_medium,
+            torch.full_like(alive, depth >= vp.max_depth - 1))
+        L = L + dtr.L_emit
+        beta, r_u, r_l = dtr.beta, dtr.r_u, dtr.r_l
+        scattered = in_medium & (dtr.status == ms.SCATTERED)
+        alive = alive & ~(in_medium & (dtr.status == ms.ABSORBED))
+        p_scatter, g_scatter = dtr.p_scatter, dtr.g
+        # a deflected medium bends the ray at null events; the phase frame
+        # takes the bent direction
+        d_med = torch.where(in_medium[..., None], dtr.d_out, d)
+    hit = alive & ~scattered & rec.hit  # lanes that reach a surface
+    alive = alive & (rec.hit | scattered)
     sd = _surface_data(scene, rec, o, d)
-    hit = alive
     wo = -d
     frame = make_frame(sd["ns"])
     wo_l = to_local(*frame, wo)
     reg = any_nonspec if vp.regularize else None
+    is_interface = sd["mat_type"] == mt.INTERFACE if vol else None
 
     # area-light emission with MIS (surface-eval.jl:147-237)
     if mt.EMISSIVE in scene.present_materials:
@@ -300,31 +392,45 @@ def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays
         contrib = beta * le / torch.clamp(denom[..., None], min=1e-12)
         L = L + torch.where((is_emitter & (denom > 0.0))[..., None], contrib, 0.0)
 
-    # NEE (surface_direct_lighting_inner!)
+    # NEE from surfaces (surface_direct_lighting_inner!) and from medium
+    # scatter points (medium_direct_lighting_inner!, the phase function as
+    # f and pdf)
     if scene.n_lights > 0 and vp.nee:
         ul = sb.path_sample_1d(zcfg, px, py, si, depth, 0)
         ul2 = torch.stack(sb.path_sample_2d(zcfg, px, py, si, depth, 1), -1)
+        p_ref = torch.where(scattered[..., None], p_scatter, sd["p"]) if vol else sd["p"]
         li_flat, pmf_sel = lt.sample_light_index(lights, ul)
         ls = lt.sample_li(lights, _bl(lights.light_type, li_flat),
-                          _bl(lights.light_idx, li_flat), sd["p"], lam, ul2)
+                          _bl(lights.light_idx, li_flat), p_ref, lam, ul2)
         wi_l = to_local(*frame, ls.wi)
         f_s, pdf_b = _eval_bsdf_dispatch(scene, sd["mat_type"], sd["mat_idx"],
                                          wo_l, wi_l, lam, reg, coherence)
         f_hat = f_s * torch.abs(wi_l[..., 2])[..., None]
-        pdf_l = ls.pdf * pmf_sel
-        contrib_ok = hit & ls.valid & (pdf_l > 0.0) & (f_hat > 0.0).any(-1)
+        nee_lanes = hit
         o_sh = spawn_ray(sd["p"], sd["ng"], ls.wi)
+        med_sh = None
+        if vol:
+            nee_lanes = (hit & ~is_interface) | scattered
+            ph = ms.hg_eval(g_scatter, -torch.where(scattered[..., None], d_med, d), ls.wi)
+            f_hat = torch.where(scattered[..., None], ph[..., None], f_hat)
+            pdf_b = torch.where(scattered, ph, pdf_b)
+            o_sh = torch.where(scattered[..., None], p_scatter, o_sh)
+            med_sh = torch.where(scattered, med, _crossing_medium(sd, ls.wi))
+        pdf_l = ls.pdf * pmf_sel
+        contrib_ok = nee_lanes & ls.valid & (pdf_l > 0.0) & (f_hat > 0.0).any(-1)
         rays_traced = rays_traced + contrib_ok.float().sum()
-        occluded = scene_any_hit(scene, o_sh, ls.wi, ls.t_max, active=contrib_ok,
-                                 group=li_flat)
-        r_l_sh = r_u * pdf_l[..., None]
-        r_u_sh = r_u * pdf_b[..., None]
+        T_ray, rl_m, ru_m = _trace_shadow(scene, o_sh, ls.wi, ls.t_max, med_sh, lam,
+                                          contrib_ok, light_group=li_flat)
+        # pbrt SampleLd: r_l' = r_u pdf_l rl_m, r_u' = r_u pdf_b ru_m
+        r_l_sh = r_u * pdf_l[..., None] * rl_m
+        r_u_sh = r_u * pdf_b[..., None] * ru_m
         denom = torch.where(ls.is_delta, r_l_sh.mean(-1), (r_l_sh + r_u_sh).mean(-1))
-        ld = beta * f_hat * ls.li / torch.clamp(denom[..., None], min=1e-12)
-        ok = contrib_ok & (denom > 0.0) & ~occluded
+        ld = beta * f_hat * T_ray * ls.li / torch.clamp(denom[..., None], min=1e-12)
+        ok = contrib_ok & (denom > 0.0) & (T_ray > 0.0).any(-1)
         L = L + torch.where(ok[..., None], ld, 0.0)
 
-    # continuation: BSDF sample (evaluate_material_inner!)
+    # continuation: BSDF sample (evaluate_material_inner!), HG sample at
+    # medium scatters, straight on through interfaces
     ub = torch.stack(sb.path_sample_2d(zcfg, px, py, si, depth, 3), -1)
     uc = sb.path_sample_1d(zcfg, px, py, si, depth, 5)
     bs = _sample_bsdf_dispatch(scene, sd["mat_type"], sd["mat_idx"], wo_l, lam,
@@ -332,6 +438,12 @@ def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays
     wi_surf = to_world(*frame, bs.wi)
     thr = bs.f * (torch.abs(bs.wi[..., 2]) / torch.clamp(bs.pdf, min=1e-12))[..., None]
     go = hit & bs.valid & (bs.pdf > 0.0) & (thr > 0.0).any(-1)
+    if vol:
+        go = go & ~is_interface
+        wi_med, pdf_med = ms.hg_sample(
+            g_scatter, -torch.where(scattered[..., None], d_med, d), ub)
+        med_go = scattered & (pdf_med > 0.0)
+        iface_go = hit & is_interface
     go3 = go[..., None]
     beta = torch.where(go3, beta * thr, beta)
     r_l = torch.where(go3, r_u / torch.clamp(bs.pdf, min=1e-12)[..., None], r_l)
@@ -344,10 +456,28 @@ def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays
         disp_term = disp_term | (go & bs.transmission & dispersive)
     specular = torch.where(go, bs.specular, specular)
     any_nonspec = any_nonspec | (go & ~bs.specular)
-    o = torch.where(go3, spawn_ray(sd["p"], sd["ng"], wi_surf), o)
+    o_new = torch.where(go3, spawn_ray(sd["p"], sd["ng"], wi_surf), o)
     d = torch.where(go3, wi_surf, d)
-    prev_p = torch.where(go3, o, prev_p)
-    alive = alive & go
+    moved = go
+    if vol:
+        # phase sampling: f / pdf = 1, r_l = r_u / pdf; never specular
+        m3 = med_go[..., None]
+        r_l = torch.where(m3, r_u / torch.clamp(pdf_med, min=1e-12)[..., None], r_l)
+        specular = specular & ~med_go
+        any_nonspec = any_nonspec | med_go
+        # medium transitions: transmission through a surface, interfaces
+        new_med_surf = torch.where(bs.transmission, _crossing_medium(sd, wi_surf), med)
+        med = torch.where(go, new_med_surf,
+                          torch.where(iface_go, _crossing_medium(sd, st["d"]), med))
+        o_new = torch.where(m3, p_scatter, o_new)
+        o_new = torch.where(iface_go[..., None], sd["p"] + 1e-4 * st["d"], o_new)
+        d = torch.where(m3, wi_med, d)
+        moved = go | med_go
+        alive = alive & (go | med_go | iface_go)
+    else:
+        alive = alive & go
+    prev_p = torch.where(moved[..., None], o_new, prev_p)
+    o = o_new
 
     # Russian roulette (russian_roulette_spectral); q = 1 below rr depth
     u_rr = sb.path_sample_1d(zcfg, px, py, si, depth, 6)
@@ -362,8 +492,8 @@ def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays
     alive = alive & survive
 
     out = dict(st)
-    out.update(o=o, d=d, beta=beta, r_l=r_l, L=L, alive=alive, spec=specular,
-               eta=eta_scale, anyns=any_nonspec, prev_p=prev_p, disp=disp_term)
+    out.update(o=o, d=d, beta=beta, r_u=r_u, r_l=r_l, L=L, alive=alive, spec=specular,
+               eta=eta_scale, anyns=any_nonspec, prev_p=prev_p, disp=disp_term, med=med)
     return out, rays_traced
 
 
@@ -386,6 +516,7 @@ def _resident_bounce_loop(vp: VolPath, scene: SceneData, st: dict, rays_traced, 
               for k, v in st.items()}
         st["d"][n:] = 1.0
         st["lane"][n:] = torch.arange(n, n_pad, device=st["lane"].device)
+        st["med"][n:] = -1
     for depth in range(vp.max_depth):
         keys = torch.clamp(ray_sort_keys(st["o"], st["d"], scene.world_lo, scene.world_hi),
                            max=0xFFFFFFFE)
@@ -434,14 +565,16 @@ def render_lanes(vp: VolPath, scene: SceneData, camera: PerspectiveCamera,
     o, d = camera.generate_rays(CameraSample(p_film=p_film, lens=ps.lens,
                                              time=ps.time, filter_weight=filter_w))
 
-    # path state (the reference's st0, volpath.py:1126-1146, with the
-    # channels of the surface-only path); camera rays count as specular
+    # path state (the reference's st0, volpath.py:1126-1146; prev_ns only
+    # serves the BVH light sampler, which is not ported); camera rays count
+    # as specular and start in the camera's medium
     lam = wl.lam
     ones = torch.ones(n, dtype=torch.bool, device=dev)
     st = dict(o=o, d=d, beta=torch.ones_like(lam), r_u=torch.ones_like(lam),
               r_l=torch.ones_like(lam), L=torch.zeros_like(lam), alive=ones, spec=ones,
               eta=torch.ones(n, device=dev), anyns=~ones, prev_p=o, disp=~ones, lam=lam,
-              px=px, py=py, si=si, lane=torch.arange(n, device=dev))
+              px=px, py=py, si=si, lane=torch.arange(n, device=dev),
+              med=torch.full((n,), scene.camera_medium, dtype=torch.int32, device=dev))
     rays_traced = torch.zeros((), device=dev)
 
     def bounce(depth, st_, rays):

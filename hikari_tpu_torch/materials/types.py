@@ -2,7 +2,8 @@
 
 Port of the main-path materials of ``hikari_tpu/materials/types.py``:
 Matte, Mirror, Glass (with Cauchy / Sellmeier dispersion), Conductor
-(measured metals such as Gold, or RGB eta/k) and Emissive. Materials are
+(measured metals such as Gold, or RGB eta/k), Emissive, and Interface, the
+invisible boundary of a participating medium (no BSDF). Materials are
 pushed into per-type banks and referenced per face by a (type tag, index)
 pair; the tags equal the JAX package's.
 """
@@ -24,6 +25,7 @@ MIRROR = 1
 GLASS = 2
 CONDUCTOR = 3
 EMISSIVE = 4
+INTERFACE = 5  # no BSDF: a medium boundary that rays pass straight through
 
 _LAM_GRID = np.arange(360.0, 831.0, dtype=np.float64)  # 471 samples
 
@@ -82,6 +84,12 @@ class Emissive:
     le: tuple = (1.0, 1.0, 1.0)
     scale: float = 1.0
     two_sided: bool = False
+
+
+@dataclass
+class Interface:
+    """Invisible medium boundary: rays pass straight through, switching
+    between the inside and outside media of the faces they cross."""
 
 
 @dataclass
@@ -192,10 +200,12 @@ def pack_materials(materials: list):
             emis_le.append(_rgb(m.le, "Emissive.le"))
             emis_scale.append(m.scale)
             emis_two.append(m.two_sided)
+        elif isinstance(m, Interface):
+            tags[i], idxs[i] = INTERFACE, 0
         else:
             raise NotImplementedError(
                 f"{type(m).__name__} is not ported to hikari_tpu_torch yet; "
-                "the port has Matte, Mirror, Glass, Conductor and Emissive")
+                "the port has Matte, Mirror, Glass, Conductor, Emissive and Interface")
         present.add(int(tags[i]))
 
     def pad3(rows, default):

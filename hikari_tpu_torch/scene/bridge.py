@@ -11,7 +11,11 @@ Keys of ``arrays``: ``face_rows``, ``mat_type``, ``mat_idx``,
 ``lights.<field>`` for every field of its ``LightBanks``, and either
 ``treelets.{lo,hi,sup_lo,sup_hi,bw,tri}`` (a flat scene) or
 ``inst.{lo,hi,bw,ti_obj,ti_inst,inst_a}``, ``inst_nrm``, ``inst_l2w`` and
-``inst_mat_packed`` (an instanced scene). Every ``bw`` is converted to
+``inst_mat_packed`` (an instanced scene). A scene with media adds
+``media.<field>`` for every tensor field of the port's ``MediumBanks``,
+``media.n_media``, ``media.has_grid``, ``media.has_deflection``,
+``camera_medium`` and ``has_media``; without them the scene has no media.
+Every ``bw`` is converted to
 float32 by the caller; the instanced BLAS blocks always use the 3-way
 split (``hikari_tpu/geometry/instanced.py:70-73``).
 """
@@ -27,6 +31,7 @@ from ..geometry.instanced import InstancedTreelets
 from ..geometry.wavefront import Treelets, coef_from_m4
 from ..lights.types import LightBanks
 from ..materials.types import MaterialBanks
+from ..media.types import RGBGRID, MediumBanks, pack_media
 from .scene import SceneData
 
 
@@ -73,11 +78,23 @@ def scene_from_numpy(arrays: dict, device) -> SceneData:
         light_kw[f.name] = (int(v) if f.name in ("area_flat_base", "n_flat")
                             else t(f"lights.{f.name}"))
     lights = LightBanks(**light_kw)
+    media_kw = dict(media=pack_media([]))
+    if "media.med_type" in arrays:
+        flags = {"n_media": int, "has_grid": bool, "has_deflection": bool}
+        banks = {f.name: (flags[f.name](arrays[f"media.{f.name}"]) if f.name in flags
+                          else t(f"media.{f.name}"))
+                 for f in fields(MediumBanks) if f.name != "has_rgb"}
+        banks["med_type"] = banks["med_type"].to(torch.int32)
+        banks["has_rgb"] = bool((banks["med_type"] == RGBGRID).any())
+        media_kw = dict(media=MediumBanks(**banks),
+                        camera_medium=int(arrays["camera_medium"]),
+                        has_media=bool(arrays["has_media"]))
     scene = SceneData(
         treelets=treelets, face_rows=t("face_rows"),
         mat_type=t("mat_type", torch.int32), mat_idx=t("mat_idx", torch.int32),
         materials=materials, lights=lights, world_lo=t("world_lo"),
         world_hi=t("world_hi"), scene_radius=float(arrays["scene_radius"]),
         present_materials=tuple(int(x) for x in arrays["present_materials"]),
-        n_lights=lights.n_flat, n_faces=int(arrays["face_rows"].shape[0]), **inst_kw)
+        n_lights=lights.n_flat, n_faces=int(arrays["face_rows"].shape[0]), **inst_kw,
+        **media_kw)
     return scene.to(device)

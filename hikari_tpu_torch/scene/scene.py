@@ -7,13 +7,17 @@ tensors on one device. A flat scene (``Scene.build``, scene.py:263-478)
 has one treelet table; a scene with ``add_instanced`` meshes takes the
 two-level build (``_build_instanced_scene``, scene.py:561-777): one BLAS
 per instanced mesh plus BLAS 0 holding every non-instanced mesh under an
-identity instance. Media, stochastic alpha and textures are not ported
-and raise ``NotImplementedError``.
+identity instance. A mesh may bound participating media (``add(...,
+inside_medium=, outside_medium=)``): each face row carries the word
+``(inside + 1) << 16 | (outside + 1)`` of its medium ids (-1 is vacuum) and
+the media are packed into ``SceneData.media`` (``media/types.py``).
+Stochastic alpha and textures are not ported and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, field, fields
 
 import numpy as np
 import torch
@@ -25,6 +29,8 @@ from ..geometry.sweep import TREELET
 from ..geometry.wavefront import Treelets, build_treelets, bvh_super_boxes
 from ..lights.types import LightBanks, pack_lights
 from ..materials.types import EMISSIVE, MaterialBanks, pack_materials
+from ..media.types import MediumBanks, pack_media
+from ..spectral.rgb2spec import RGBToSpectrumTable, srgb_table
 from .mesh import TriangleMesh, compute_vertex_normals
 
 
@@ -68,6 +74,14 @@ class SceneData:
     inst_nrm: torch.Tensor | None = None         # (I, 3, 3) object->world normals
     inst_l2w: torch.Tensor | None = None         # (I, 3, 4) object->world [linear | t]
     inst_mat_packed: torch.Tensor | None = None  # (I,) int32 override; -1 = per-face
+    # participating media: the banks (one dummy row when there is none), the
+    # medium the camera sits in (-1: vacuum), and whether any exists
+    media: MediumBanks | None = None
+    camera_medium: int = -1
+    has_media: bool = False
+    # the sRGB uplift table RGB-grid media read while tracking, on the
+    # scene's device
+    rgb2spec: RGBToSpectrumTable = field(default_factory=srgb_table)
 
     @property
     def has_instances(self) -> bool:
@@ -106,14 +120,22 @@ def _mesh_face_arrays(mesh: TriangleMesh) -> dict:
             for c, k in enumerate(names)}
 
 
-def _concat_meshes(meshes, mat_ids):
-    """Face arrays of several meshes, concatenated, and each face's material
-    slot."""
+def _concat_meshes(meshes, mat_ids, med_words):
+    """Face arrays of several meshes, concatenated, each face's material
+    slot and each face's medium word."""
     parts = [_mesh_face_arrays(m) for m in meshes]
     arrs = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
-    slot = np.concatenate([np.full(len(p["p0"]), mid, np.int32)
-                           for p, mid in zip(parts, mat_ids)])
-    return arrs, slot
+
+    def per_face(values):
+        return np.concatenate([np.full(len(p["p0"]), v, np.int32)
+                               for p, v in zip(parts, values)])
+
+    return arrs, per_face(mat_ids), per_face(med_words)
+
+
+def _medium_word(inside: int, outside: int) -> int:
+    """The face row's medium pair: (inside + 1) << 16 | (outside + 1)."""
+    return ((inside + 1) << 16) | (outside + 1)
 
 
 def _area_tris(materials, slot, p0, p1, p2, which):
@@ -124,9 +146,7 @@ def _area_tris(materials, slot, p0, p1, p2, which):
     return p0[which], p1[which], p2[which], a_le, a_two
 
 
-def _check_surface(inside_medium, outside_medium, alpha) -> None:
-    if inside_medium is not None or outside_medium is not None:
-        raise NotImplementedError("participating media are not ported yet")
+def _check_surface(alpha) -> None:
     if alpha is not None:
         raise NotImplementedError("stochastic alpha is not ported yet")
 
@@ -138,6 +158,14 @@ def _check_transforms(transforms) -> np.ndarray:
     return tr
 
 
+def _equal(a, b) -> bool:
+    """Dataclass equality; media holding different arrays are different."""
+    try:
+        return bool(a == b)
+    except ValueError:
+        return False
+
+
 class Scene:
     """Host-side scene builder: Scene() -> add / add_instanced / add_light
     -> build()."""
@@ -145,10 +173,13 @@ class Scene:
     def __init__(self):
         self._meshes: list[TriangleMesh] = []
         self._mesh_mat: list[int] = []
+        self._mesh_media: list[tuple[int, int]] = []  # (inside, outside) ids
         self._materials: list = []
+        self._media: list = []
+        self._camera_medium = -1
         self._lights: list = []
         # instanced groups: (mesh, transforms (I, 4, 4), material slot,
-        # per-instance material slots or None)
+        # per-instance material slots or None, (inside, outside) medium ids)
         self._instanced: list = []
 
     def _material_id(self, material) -> int:
@@ -159,12 +190,28 @@ class Scene:
             self._materials.append(material)
             return len(self._materials) - 1
 
+    def _medium_id(self, medium) -> int:
+        """Slot of `medium` (-1 for None); media are deduplicated."""
+        if medium is None:
+            return -1
+        for i, m in enumerate(self._media):
+            if m is medium or _equal(m, medium):
+                return i
+        self._media.append(medium)
+        return len(self._media) - 1
+
+    def _media_pair(self, inside_medium, outside_medium) -> tuple[int, int]:
+        return self._medium_id(inside_medium), self._medium_id(outside_medium)
+
     def add(self, mesh: TriangleMesh, material, inside_medium=None,
             outside_medium=None, alpha=None) -> int:
-        """push!(scene, mesh, material)."""
-        _check_surface(inside_medium, outside_medium, alpha)
+        """push!(scene, mesh, material), optionally bounding media: rays
+        crossing a face against its winding normal enter inside_medium,
+        along it outside_medium (None: vacuum)."""
+        _check_surface(alpha)
         self._meshes.append(mesh)
         self._mesh_mat.append(self._material_id(material))
+        self._mesh_media.append(self._media_pair(inside_medium, outside_medium))
         return len(self._meshes) - 1
 
     def add_instanced(self, mesh: TriangleMesh, transforms, material,
@@ -174,7 +221,7 @@ class Scene:
         with the unique mesh, not the instance count. transforms: (I, 4, 4)
         world-from-object matrices; materials: optional per-instance list
         overriding `material`. Returns a handle for set_instance_transforms."""
-        _check_surface(inside_medium, outside_medium, alpha)
+        _check_surface(alpha)
         tr = _check_transforms(transforms)
         mat_id = self._material_id(material)
         per_inst = None
@@ -182,20 +229,22 @@ class Scene:
             if len(materials) != len(tr):
                 raise ValueError(f"{len(materials)} materials for {len(tr)} instances")
             per_inst = [self._material_id(m) for m in materials]
-        self._instanced.append((mesh, tr, mat_id, per_inst))
+        self._instanced.append((mesh, tr, mat_id, per_inst,
+                                self._media_pair(inside_medium, outside_medium)))
         return len(self._instanced) - 1
 
     def set_instance_transforms(self, handle: int, transforms) -> None:
         """Re-place an instanced group; takes effect at the next build()."""
-        mesh, _, mat_id, per_inst = self._instanced[handle]
+        mesh, _, mat_id, per_inst, media = self._instanced[handle]
         tr = _check_transforms(transforms)
         if per_inst is not None and len(per_inst) != len(tr):
             raise ValueError(f"{len(tr)} transforms for {len(per_inst)} per-instance "
                              "materials")
-        self._instanced[handle] = (mesh, tr, mat_id, per_inst)
+        self._instanced[handle] = (mesh, tr, mat_id, per_inst, media)
 
     def set_camera_medium(self, medium) -> None:
-        raise NotImplementedError("participating media are not ported yet")
+        """The medium the camera sits in (None: vacuum)."""
+        self._camera_medium = self._medium_id(medium)
 
     def set_light_sampler(self, mode: str) -> None:
         if mode != "power":
@@ -212,10 +261,14 @@ class Scene:
             raise ValueError("scene has no geometry")
         device = resolve_device(device)
         scene = self._build_instanced() if self._instanced else self._build_flat()
+        scene.media = pack_media(self._media)
+        scene.camera_medium = self._camera_medium
+        scene.has_media = bool(self._media)
         return scene.to(device)
 
     def _build_flat(self) -> SceneData:
-        arrs, mat_of_face = _concat_meshes(self._meshes, self._mesh_mat)
+        arrs, mat_of_face, med_of_face = _concat_meshes(
+            self._meshes, self._mesh_mat, [_medium_word(*m) for m in self._mesh_media])
         p0, p1, p2 = (arrs[k] for k in _GEOMETRY)
         banks, tags, idxs, present = pack_materials(self._materials)
         face_type = tags[mat_of_face]
@@ -239,12 +292,10 @@ class Scene:
         lights = pack_lights(self._lights, area_tris)
 
         mat_packed = (face_type[order].astype(np.int32) << 24) | face_idx[order]
-        # no media: (inside + 1) << 16 | (outside + 1) with both -1
-        med_packed = np.zeros(len(p0), np.int32)
         face_rows = pack_face_rows(
             _face_normals(p0[order], p1[order], p2[order]),
             arrs["n0"][order], arrs["n1"][order], arrs["n2"][order], mat_packed,
-            med_packed, arealight_idx[order])
+            med_of_face[order], arealight_idx[order])
         treelets = build_treelets(
             p0[order], p1[order], p2[order],
             supers=bvh_super_boxes(fb, len(p0), prim_lo=tri_lo[order],
@@ -263,7 +314,7 @@ class Scene:
         BLAS 0 for every non-instanced mesh under an identity instance."""
         banks, tags, idxs, present = pack_materials(self._materials)
         packed_of = (tags.astype(np.int32) << 24) | idxs.astype(np.int32)
-        for _, _, mat_id, per_inst in self._instanced:
+        for _, _, mat_id, per_inst, _ in self._instanced:
             if any(tags[m] == EMISSIVE for m in [mat_id] + (per_inst or [])):
                 raise ValueError(
                     "emissive materials on instanced meshes are not supported (one "
@@ -271,9 +322,10 @@ class Scene:
 
         blas_tris, chunks, instances, inst_mat = [], [], [], []
 
-        def finish_blas(arrs, slot):
+        def finish_blas(arrs, slot, med):
             """BVH leaf order, then padding to a TREELET multiple: far-away
-            degenerate corners (never hit) and slot -1."""
+            degenerate corners (never hit), slot -1 and medium word -1 (the
+            reference's fill for int fields)."""
             tri_lo = np.minimum(np.minimum(arrs["p0"], arrs["p1"]), arrs["p2"])
             tri_hi = np.maximum(np.maximum(arrs["p0"], arrs["p1"]), arrs["p2"])
             order = build_bvh(tri_lo, tri_hi).prim_order
@@ -281,16 +333,18 @@ class Scene:
             arrs = {k: np.concatenate([a[order], np.full(
                 (pad, 3), 3.0e37 if k in _GEOMETRY else 0.0, np.float32)])
                 for k, a in arrs.items()}
-            chunks.append((arrs, np.concatenate([slot[order], np.full(pad, -1, np.int32)])))
+            chunks.append((arrs, *(np.concatenate([x[order], np.full(pad, -1, np.int32)])
+                                   for x in (slot, med))))
             blas_tris.append(tuple(arrs[k] for k in _GEOMETRY))
             return len(blas_tris) - 1
 
         if self._meshes:
-            bid = finish_blas(*_concat_meshes(self._meshes, self._mesh_mat))
+            bid = finish_blas(*_concat_meshes(
+                self._meshes, self._mesh_mat, [_medium_word(*m) for m in self._mesh_media]))
             instances.append((bid, np.eye(4, dtype=np.float32)))
             inst_mat.append(-1)
-        for mesh, tr, mat_id, per_inst in self._instanced:
-            bid = finish_blas(*_concat_meshes([mesh], [mat_id]))
+        for mesh, tr, mat_id, per_inst, media in self._instanced:
+            bid = finish_blas(*_concat_meshes([mesh], [mat_id], [_medium_word(*media)]))
             for k, m in enumerate(tr):
                 instances.append((bid, m))
                 inst_mat.append(-1 if per_inst is None else int(packed_of[per_inst[k]]))
@@ -298,13 +352,12 @@ class Scene:
 
         arrs = {k: np.concatenate([c[0][k] for c in chunks]) for k in chunks[0][0]}
         slot = np.concatenate([c[1] for c in chunks])
+        med_packed = np.concatenate([c[2] for c in chunks])
         p0, p1, p2 = (arrs[k] for k in _GEOMETRY)
         real = slot >= 0
         face_packed = np.where(real, packed_of[np.maximum(slot, 0)], -1).astype(np.int32)
         face_type = face_packed >> 24
         face_idx = face_packed & 0xFFFFFF
-        # padding rows carry -1, as the reference's do (its fill for int fields)
-        med_packed = np.where(real, 0, -1).astype(np.int32)
         present |= {int(t) for t in np.unique(face_type)}
 
         # area lights: only BLAS-0 (identity instance) emissive faces

@@ -6,10 +6,15 @@
 icosphere in the same room). Two instanced scenes exercise the two-level
 path: ``instanced_default_scene`` (the default scene with its 16 spheres
 as 16 instances of one) and ``forest_scene`` (``examples/instancing_example.py``,
-400 placements of one tree). ``transport_probe`` is the port of
-``bench.transport_probe`` and ``check_transport`` holds it against the
-stored reference ``tools/transport_ref.json`` with the tolerances of
-``bench.py:171-178``.
+400 placements of one tree). Two scenes hold participating media:
+``fog_scene`` (``bench.build_fog_scene``, a homogeneous medium in an
+Interface box inside a Cornell room) and ``cloud_grid_scene`` (the bench
+cloud's 64^3 CloudVolume grid in an Interface box over a floor).
+``transport_probe`` is the port of ``bench.transport_probe`` and
+``check_transport`` holds it against the stored reference
+``tools/transport_ref.json`` (the grid cloud's against
+``data/media_probe_ref.json``, which ``tools/gen_media_probe_ref.py``
+computes with the JAX package) with the tolerances of ``bench.py:171-178``.
 """
 
 from __future__ import annotations
@@ -24,18 +29,23 @@ from .camera.camera import make_perspective_camera
 from .film.filters import make_filter
 from .integrators.volpath import VolPath, render_lanes, render_lanes_segmented
 from .lights.types import PointLight
-from .materials.types import Emissive, Glass, Gold, Matte, Mirror
+from .materials.types import Emissive, Glass, Gold, Interface, Matte, Mirror
+from .media.types import CloudVolume, HomogeneousMedium
 from .scene.mesh import TriangleMesh, make_box, make_quad, make_sphere
 from .scene.scene import Scene
 
 TRANSPORT_REF = Path(__file__).resolve().parent.parent / "tools" / "transport_ref.json"
+MEDIA_PROBE_REF = Path(__file__).resolve().parent / "data" / "media_probe_ref.json"
 
 # camera (eye, look-at, fov) and transport probe (res, depth, spp, rgb
-# tolerance): bench.py SCENE_DEFS
+# tolerance): bench.py SCENE_DEFS; cloud_grid takes the bench cloud's
 SCENE_DEFS = {
     "default": (((0.0, 1.6, -2.8), (0.0, 0.9, 2.0), 45.0), (64, 5, 1, 0.02)),
     "mesh": (((0.0, 1.6, -2.8), (0.0, 0.9, 2.0), 45.0), (64, 5, 1, 0.02)),
+    "fog": (((0.0, 1.0, -2.6), (0.0, 1.0, 1.0), 50.0), (64, 5, 1, 0.02)),
+    "cloud_grid": (((0.0, 0.7, -3.0), (0.0, 0.9, 0.0), 50.0), (32, 12, 16, 0.10)),
 }
+PROBE_BATCH = 16  # samples a transport_probe renders in one wavefront
 
 
 def _room(s: Scene):
@@ -197,7 +207,49 @@ def mesh_scene() -> Scene:
     return s
 
 
-BUILDERS = {"default": default_scene, "mesh": mesh_scene}
+def fog_scene() -> Scene:
+    """bench.py build_fog_scene: a 2 x 2 x 2 Cornell room, a homogeneous
+    medium (sigma_a 0.05, sigma_s 0.25, g 0.3) inside an Interface box
+    that nearly fills it, an emissive ceiling quad and a point light."""
+    s = Scene()
+    white = Matte(kd=(0.73, 0.73, 0.73))
+    s.add(make_quad((-1, 0, 0), (1, 0, 0), (1, 0, 2), (-1, 0, 2)), white)
+    s.add(make_quad((-1, 2, 0), (-1, 2, 2), (1, 2, 2), (1, 2, 0)), white)
+    s.add(make_quad((-1, 0, 2), (1, 0, 2), (1, 2, 2), (-1, 2, 2)), white)
+    s.add(make_quad((-1, 0, 0), (-1, 0, 2), (-1, 2, 2), (-1, 2, 0)),
+          Matte(kd=(0.65, 0.05, 0.05)))
+    s.add(make_quad((1, 0, 0), (1, 2, 0), (1, 2, 2), (1, 0, 2)),
+          Matte(kd=(0.12, 0.45, 0.15)))
+    fog = HomogeneousMedium(sigma_a=(0.05,) * 3, sigma_s=(0.25,) * 3, g=0.3)
+    s.add(make_box((-0.95, 0.02, 0.05), (0.95, 1.95, 1.95)), Interface(), inside_medium=fog)
+    s.add(make_quad((-0.3, 1.99, 0.7), (0.3, 1.99, 0.7), (0.3, 1.99, 1.3), (-0.3, 1.99, 1.3)),
+          Emissive(le=(1.0, 0.9, 0.7), scale=20.0))
+    s.add_light(PointLight(position=(0.0, 1.5, 0.3), intensity=(2.0, 2.0, 2.0)))
+    return s
+
+
+def cloud_grid_scene() -> Scene:
+    """bench.py build_cloud_scene's geometry and medium: a floor quad and
+    the 64^3 CloudVolume (bounds (-1.6, 0.1, -1.2)-(1.6, 1.8, 1.2), sigma_s
+    60, sigma_a 0.4, g 0.877) in an Interface box. The bench lights it
+    with sunsky_environment, which the port does not have yet (ROADMAP
+    A12): an emissive quad above the box (facing down) and a point light
+    stand in for the sky and the sun."""
+    s = Scene()
+    s.add(make_quad((-8, -0.5, -8), (8, -0.5, -8), (8, -0.5, 8), (-8, -0.5, 8)),
+          Matte(kd=(0.3, 0.35, 0.4)))
+    cloud = CloudVolume(resolution=64, bounds_lo=(-1.6, 0.1, -1.2),
+                        bounds_hi=(1.6, 1.8, 1.2), sigma_s=(60.0,) * 3,
+                        sigma_a=(0.4,) * 3, g=0.877)
+    s.add(make_box((-1.6, 0.1, -1.2), (1.6, 1.8, 1.2)), Interface(), inside_medium=cloud)
+    s.add(make_quad((-2.0, 3.5, -1.5), (2.0, 3.5, -1.5), (2.0, 3.5, 1.5), (-2.0, 3.5, 1.5)),
+          Emissive(le=(0.85, 0.9, 1.0), scale=4.0))
+    s.add_light(PointLight(position=(2.5, 4.0, -2.5), intensity=(40.0, 38.0, 34.0)))
+    return s
+
+
+BUILDERS = {"default": default_scene, "mesh": mesh_scene, "fog": fog_scene,
+            "cloud_grid": cloud_grid_scene}
 
 
 def scene_camera(which: str, res_px: int):
@@ -205,34 +257,72 @@ def scene_camera(which: str, res_px: int):
     return make_perspective_camera(eye, at, (res_px, res_px), fov_deg=fov)
 
 
-def transport_probe(scene, which: str = "default", n_segments: int = 0, **vp_kw):
-    """1-spp render of a bench scene at the probe size: (rays traced,
-    mean framebuffer RGB), as bench.transport_probe computes them.
-    vp_kw: further VolPath fields (the bounce-loop modes); n_segments > 0
-    renders through render_lanes_segmented."""
+def probe_config(which: str, res=None, depth=None, spp=None):
+    """(res, depth, spp) of a probe: SCENE_DEFS's unless given."""
     _, (pres, pdepth, pspp, _) = SCENE_DEFS[which]
+    return res or pres, depth or pdepth, spp or pspp
+
+
+def transport_probe(scene, which: str = "default", n_segments: int = 0, res=None,
+                    depth=None, spp=None, **vp_kw):
+    """Render of a scene at its probe size (SCENE_DEFS, or res / depth /
+    spp): (rays traced, mean framebuffer RGB), each averaged over samples
+    0..spp-1 of VolPath(samples_per_pixel=spp), as a render draws them.
+    (bench.transport_probe keeps samples_per_pixel=1 for its 16-sample
+    cloud probe; the sampler then folds sample indices past 0 onto other
+    pixels' samples, and the probe averages few distinct samples.) Up to
+    PROBE_BATCH samples go through one render_lanes call; a lane's result
+    does not depend on the batch. vp_kw: further VolPath fields (the
+    bounce-loop modes); n_segments > 0 renders through
+    render_lanes_segmented."""
+    pres, pdepth, pspp = probe_config(which, res, depth, spp)
     camera = scene_camera(which, pres)
-    vp = VolPath(max_depth=pdepth, samples_per_pixel=1, **vp_kw)
+    vp = VolPath(max_depth=pdepth, samples_per_pixel=pspp, **vp_kw)
     lanes = torch.arange(pres * pres, device=scene.device)
     rays = mean_rgb = 0.0
-    for s in range(pspp):
-        args = (vp, scene, camera, make_filter(), s, lanes % pres, lanes // pres)
+    for s0 in range(0, pspp, PROBE_BATCH):
+        k = min(PROBE_BATCH, pspp - s0)
+        si = s0 + torch.arange(k, device=scene.device).repeat_interleave(lanes.numel())
+        args = (vp, scene, camera, make_filter(), si, (lanes % pres).repeat(k),
+                (lanes // pres).repeat(k))
         rgb, _, stats = (render_lanes_segmented(*args, n_segments) if n_segments
                          else render_lanes(*args))
         rays += float(stats["rays_traced"])
-        mean_rgb += float(rgb.mean())
+        mean_rgb += float(rgb.mean()) * k
     return rays / pspp, mean_rgb / pspp
 
 
-def check_transport(scene, which: str = "default", **probe_kw):
-    """Probe (transport_probe's keywords) against tools/transport_ref.json.
-    Returns (ok, message)."""
-    ref = json.loads(TRANSPORT_REF.read_text())["scenes"][which]
-    rays, mean_rgb = transport_probe(scene, which, **probe_kw)
-    tol = SCENE_DEFS[which][1][3]
+# scenes whose bench probe (SCENE_DEFS) is stored in tools/transport_ref.json
+TRANSPORT_REF_SCENES = ("default", "mesh", "fog")
+
+
+def probe_key(which: str, res: int, depth: int, spp: int) -> str:
+    return f"{which} {res}x{res} depth {depth} {spp} spp"
+
+
+def probe_reference(which: str, res=None, depth=None, spp=None) -> dict:
+    """The JAX package's stored probe of a scene: its bench probe from
+    tools/transport_ref.json, any other from data/media_probe_ref.json
+    (written by tools/gen_media_probe_ref.py)."""
+    cfg = probe_config(which, res, depth, spp)
+    if which in TRANSPORT_REF_SCENES and cfg == probe_config(which):
+        return json.loads(TRANSPORT_REF.read_text())["scenes"][which]
+    return json.loads(MEDIA_PROBE_REF.read_text())["probes"][probe_key(which, *cfg)]
+
+
+def check_transport(scene, which: str = "default", rgb_tol=None, **probe_kw):
+    """Probe (transport_probe's keywords) against its stored reference
+    (probe_reference): rays within 0.5%, mean RGB within rgb_tol
+    (SCENE_DEFS's unless given). Returns (ok, message)."""
+    cfg = {k: probe_kw.pop(k, None) for k in ("res", "depth", "spp")}
+    ref = probe_reference(which, **cfg)
+    rays, mean_rgb = transport_probe(scene, which, **cfg, **probe_kw)
+    tol = SCENE_DEFS[which][1][3] if rgb_tol is None else rgb_tol
     dr = abs(rays - ref["rays_traced"]) / max(ref["rays_traced"], 1.0)
     dc = abs(mean_rgb - ref["mean_rgb"]) / max(abs(ref["mean_rgb"]), 1e-6)
-    msg = (f"{which}: rays_traced {rays:.0f} vs {ref['rays_traced']:.0f} "
-           f"({dr * 100:.3f}%), mean_rgb {mean_rgb:.7f} vs {ref['mean_rgb']:.7f} "
-           f"({dc * 100:.3f}%)")
-    return (dr <= max(0.005, tol / 4) and dc <= tol), msg
+    res, depth, spp = probe_config(which, **cfg)
+    msg = (f"{which} {res}x{res} depth {depth} {spp} spp: rays_traced {rays:.2f} vs "
+           f"{ref['rays_traced']:.2f} ({dr * 100:.3f}%, tolerance 0.5%), mean_rgb "
+           f"{mean_rgb:.7f} vs {ref['mean_rgb']:.7f} ({dc * 100:.3f}%, tolerance "
+           f"{tol * 100:g}%)")
+    return (dr <= 0.005 and dc <= tol), msg

@@ -34,6 +34,9 @@ class RGBToSpectrumTable:
     scale: torch.Tensor   # (res,)
     coeffs: torch.Tensor  # (3, res, res, res, 3): [maxc, z, y, x, coeff]
 
+    def to(self, device) -> "RGBToSpectrumTable":
+        return RGBToSpectrumTable(self.res, self.scale.to(device), self.coeffs.to(device))
+
 
 @functools.cache
 def srgb_table() -> RGBToSpectrumTable:
