@@ -44,12 +44,19 @@ exits nonzero without its result line:
    same tolerances. Media: the fog's 64x64 depth-5 probe, its one-sample
    rays against tools/transport_ref.json within 0.5% (its mean RGB, one
    LCG draw, printed for information), and over FOG_PROBE_SPP samples
-   against the JAX package's (hikari_tpu_torch/data/media_probe_ref.json,
+   against the JAX package's (hikari_tpu_torch/data/probe_ref.json,
    rays within 0.5%, mean RGB within 2%), as is, under the pair-grid sweep
    and under the resident loop; the grid cloud's 32x32 depth-12 16-sample
    probe against the JAX package's (rays within 0.5%, mean RGB within
    10%, bench.py's tolerance); every medium probe averages samples 0 ..
-   spp-1 of VolPath(samples_per_pixel=spp);
+   spp-1 of VolPath(samples_per_pixel=spp). Lights: the sphere scene's 64x64
+   depth-5 probe (sun and sky, no area light) against tools/transport_ref.json
+   (rays 0.5%, mean RGB 2%); the sun-sky cloud's 32x32 depth-12 16-sample
+   probe against the JAX package's six-draw mean (rays 0.5%, mean RGB
+   10%); the default probe under the uniform and BVH light samplers and
+   the lights scene's (spot, distant, ambient and equirect environment
+   light) against the JAX package's (rays 0.5%, mean RGB 2%); every JAX
+   probe but the bench's in hikari_tpu_torch/data/probe_ref.json;
 5. main paths: render(VolPath(max_depth=5, samples_per_pixel=4)) at
    800x800 through the public API of the default scene (tile kernels), the
    default scene in pair-grid mode (K5/K6), the default scene with every
@@ -59,11 +66,18 @@ exits nonzero without its result line:
    after; the image must be finite and not black, the path's two kernels
    must have launched, and no other sweep, kernel or plain, may have run.
    Then each switch of the all-modes path alone on the pair grid, timed
-   only. Then the medium paths: the fog (depth 5) with the tile sweeps
-   and with the pair grid, and the grid cloud (depth 12), each at 800x800,
-   4 spp, through render with the same checks, where only the closest
-   kernel (K1, or K5) may launch: scenes with Interface faces walk shadow
-   rays through closest hits. Before each, an instrumented render_lanes
+   only. The lights' paths with the same checks: the sphere scene under
+   the sun and sky (K1/K2), the forest under its sun and sky (K3/K4, in
+   the instanced paths above) and the default scene under the BVH light
+   sampler (K1/K2); on each of these three, every kernel against its
+   plain version on every sweep call of the warm-up render_lanes, bit for
+   bit (hold_path; the forest's K3 on the calls whose plain walk fits
+   under PLAIN_CALL_S). Then the medium paths: the fog (depth 5) with the tile
+   sweeps and with the pair grid, the grid cloud (depth 12) and the sun-sky
+   cloud (the bench's depth 32), each at 800x800, 4 spp, through render
+   with the same checks, where only the closest kernel (K1, or K5) may
+   launch: scenes with Interface faces walk shadow rays through closest
+   hits. Before each, an instrumented render_lanes
    of the same samples prints per bounce the closest-sweep calls and the
    delta and ratio tracking steps, and a synchronising stage split (delta
    tracking, ratio tracking, closest sweeps, the rest), and captures the
@@ -110,9 +124,9 @@ PROBE_SPP = 4
 # seed differently, and 512 samples ~0.5% (PERF.md; python3 -m
 # hikari_tpu_torch.tools.media_check), well inside the probe's 2%
 FOG_PROBE_SPP = 512
-# the medium paths' depths: the fog's bench depth, and the bench cloud
-# probe's depth for the grid cloud (the bench renders the cloud at 32)
-MEDIUM_DEPTH = {"fog": 5, "cloud_grid": 12}
+# the medium paths' depths: the bench's for the fog and the sun-sky cloud,
+# the bench cloud probe's for the grid cloud
+MEDIUM_DEPTH = {"fog": 5, "cloud_grid": 12, "cloud": 32}
 BAND_FRAC = 0.15    # banded closest hit: band = 0.15 x the world diagonal
 # phase 6 runs a kernel's plain version on a bounce's call only while that
 # run is expected to stay under this many seconds (the longest, K3's at the
@@ -669,17 +683,7 @@ def medium_path(label, sc, cam, depth, names, smi):
                               ("the rest", stages["rest"])))
         + f"; {n_closest} closest-sweep calls, {n_closest / max(len(ins.bounces), 1):.2f} "
         f"a bounce [{smi}]")
-    n_calls = len(rec.calls[closest])
-    (r,) = time_kernels([(closest, "", rec.calls[closest], sc.treelets)], {closest: n_calls},
-                        smi, label=f"on the {label} path")
-    log(f"[{label}] {closest} on the {n_calls} sweep calls of one {k}-sample wavefront: "
-        f"kernel {r['ms_render']:.3f} ms, plain {r['plain_ms_render']:.3f} ms, bound "
-        f"{r['bound_ms_render']:.3f} ms ({r['bound_by']} at the first call); bit-equal with "
-        f"the plain version on {'every call' if r['bit_equal'] else 'NOT every call'} "
-        f"[{smi}]")
-    if not (r["bit_equal"] and r["calls_compared"] == n_calls):
-        raise SystemExit(f"{label}: {closest} does not equal its plain version bit for bit "
-                         f"on every sweep call of the path")
+    hold_path(label, rec, [(closest, sc.treelets)], smi)
     del rec  # the captured inputs stay out of the render's peak memory
     return timed_render(label, sc, cam, vp, names, smi, float(stats["rays_traced"]),
                         float(stats["nonfinite_lanes"]))
@@ -804,6 +808,32 @@ def time_kernels(cases, counts, smi, label="at main-path shape"):
     return records
 
 
+def hold_path(label, rec, cases, smi, partial=()):
+    """Each kernel of a path against its plain version on every sweep call
+    that the path's recorder captured (time_kernels), with its summed time
+    and bound: every call must be compared and bit-equal, but for the
+    kernels named in `partial`, whose calls past PLAIN_CALL_S are timed
+    only (at least the first is compared)."""
+    records = time_kernels([(name, "", rec.calls[name], tl) for name, tl in cases],
+                           {name: len(rec.calls[name]) for name, _ in cases}, smi,
+                           label=f"on the {label} path")
+    for r in records:
+        n_calls = r["calls_timed"]
+        plain = r["plain_ms_render"]
+        bound = r["bound_ms_render"]
+        log(f"[{label}] {r['name']} on the {n_calls} sweep calls of the path's warm-up "
+            f"wavefront: kernel {r['ms_render']:.3f} ms, plain "
+            + ("left out on some calls" if plain is None else f"{plain:.3f} ms")
+            + ", bound " + ("not measured" if bound is None else f"{bound:.3f} ms")
+            + f" ({r['bound_by']} at the first call); bit-equal with the plain version on "
+            f"{r['calls_compared']} of {n_calls} calls compared: "
+            f"{'yes' if r['bit_equal'] else 'NO'} [{smi}]")
+        needed = 1 if r["name"] in partial else n_calls
+        if not (r["bit_equal"] and r["calls_compared"] >= needed):
+            raise SystemExit(f"{label}: {r['name']} does not equal its plain version bit for "
+                             f"bit on every sweep call compared, or too few were compared")
+
+
 def main() -> int:
     if not (ROOT / "hikari_tpu_torch").is_dir():
         print("chip_smoke.py: hikari_tpu_torch/ not found next to this script",
@@ -847,10 +877,11 @@ def main() -> int:
         log(f"[build] {name}: {regs} registers a thread, {spill} B spilled, "
             f"{blocks} resident blocks per SM")
 
-    from hikari_tpu_torch.scenes import (BUILDERS, check_transport,
-                                         cloud_grid_scene, fog_scene, forest_camera,
-                                         forest_scene, instanced_default_scene,
-                                         probe_reference, scene_camera, transport_probe)
+    from hikari_tpu_torch.scenes import (BUILDERS, check_transport, cloud_grid_scene,
+                                         cloud_scene, default_scene, fog_scene, forest_camera,
+                                         forest_scene, instanced_default_scene, lights_scene,
+                                         probe_reference, scene_camera, sphere_scene,
+                                         transport_probe)
 
     flat_names = ("closest_tiles", "occlusion_tiles")
     inst_names = ("closest_inst", "occlusion_inst")
@@ -944,6 +975,23 @@ def main() -> int:
     log(f"[transport] {msg} -> {'pass' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"grid-cloud probe failed: {msg}")
+    # the lights: sun and sky (sphere, sun-sky cloud), the uniform and BVH
+    # samplers on the default scene, and the spot / distant / ambient /
+    # environment lights scene
+    scenes["sphere"] = sphere_scene().build(device=dev)
+    scenes["cloud"] = cloud_scene().build(device=dev)
+    scenes["lights"] = lights_scene().build(device=dev)
+    for sampler in ("uniform", "bvh"):
+        s = default_scene()
+        s.set_light_sampler(sampler)
+        scenes[f"default {sampler}"] = s.build(device=dev)
+    for which, key in (("sphere", "sphere"), ("cloud", "cloud"), ("default", "default uniform"),
+                       ("default", "default bvh"), ("lights", "lights")):
+        ok, msg = check_transport(scenes[key], which)
+        log(f"[transport] {msg} -> {'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{key} probe failed: {msg}")
+    del scenes["default uniform"], scenes["lights"]
 
     # phase 5: the main paths at full size: flat (tile sweeps, pair grid,
     # every switch on), then instanced
@@ -967,14 +1015,28 @@ def main() -> int:
     inst_counts, inst_rec = main_path("instanced", scenes["instanced default"],
                                       scene_camera("default", MAIN_RES), instanced,
                                       inst_names, smi)
-    main_path("forest", scenes["forest"], forest_camera(MAIN_RES, MAIN_RES), instanced,
-              inst_names, smi)
+    # the lights' paths, each kernel held against its plain version on
+    # every sweep call of the path: the sun and sky's shadow rays run to
+    # twice the scene's radius (on the forest through 401 treelets of
+    # unbounded world boxes); the BVH sampler descends its light tree per
+    # lane. The forest's K3 walks grow past PLAIN_CALL_S after the first.
+    for label, which, cam, module, names, partial in (
+            ("forest", "forest", forest_camera(MAIN_RES, MAIN_RES), instanced, inst_names,
+             ("closest_inst",)),
+            ("sphere", "sphere", scene_camera("sphere", MAIN_RES), wavefront, flat_names, ()),
+            ("bvh sampler", "default bvh", main_cam, wavefront, flat_names, ())):
+        sc = scenes[which]
+        _, rec = main_path(label, sc, cam, module, names, smi)
+        hold_path(label, rec, [(n, None if sc.has_instances else sc.treelets) for n in names],
+                  smi, partial=partial)
+        del rec  # the captured inputs stay out of the next path's peak memory
     # the medium paths: K1 (or K5) for camera rays and every shadow-walk
     # segment, no occlusion sweep
     for label, which, names, switches in (
             ("fog", "fog", ("closest_tiles",), {}),
             ("fog pair grid", "fog", ("closest_pairs",), dict(SWEEP_MODE="pairs")),
-            ("cloud grid", "cloud_grid", ("closest_tiles",), {})):
+            ("cloud grid", "cloud_grid", ("closest_tiles",), {}),
+            ("sun-sky cloud", "cloud", ("closest_tiles",), {})):
         with switched(wavefront, **switches):
             medium_path(label, scenes[which.replace("_", " ")],
                         scene_camera(which, MAIN_RES), MEDIUM_DEPTH[which], names, smi)

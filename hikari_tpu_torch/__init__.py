@@ -6,7 +6,9 @@ module tree and names and is checked against it. It imports neither JAX nor
 ``hikari_tpu`` and reads no file of it: its data tables (``data/``) and
 BVH builder source (``csrc/bvh_builder.cpp``) are copies of the
 reference's. Participating media (homogeneous, density-grid and RGB-grid,
-delta and ratio tracking) are plain PyTorch. The Pallas sweep kernels of the flat, pair-grid and
+delta and ratio tracking), every light (point, spot, distant, sun,
+ambient, area, environment and the Hosek-Wilkie sun and sky) and the
+power, uniform and BVH light samplers are plain PyTorch. The Pallas sweep kernels of the flat, pair-grid and
 instanced paths are hand-written CUDA (``csrc/sweep_tiles.cu``,
 ``csrc/sweep_pairs.cu``, ``csrc/sweep_inst.cu``), built with nvcc at first
 use. Entry points run on the first CUDA device unless given
@@ -30,7 +32,9 @@ from .camera.camera import make_perspective_camera
 from .film.film import framebuffer, make_film
 from .film.filters import make_filter
 from .integrators.volpath import VolPath, render, render_lanes
-from .lights.types import PointLight
+from .lights.sunsky import sunsky_environment
+from .lights.types import (AmbientLight, DistantLight, EnvironmentLight, PointLight,
+                           SpotLight, SunLight, equirect_to_equal_area)
 from .materials.types import Conductor, Emissive, Glass, Gold, Interface, Matte, Mirror
 from .media.types import (CloudVolume, Fog, GridMedium, HomogeneousMedium, Milk,
                           RGBGridMedium, Smoke, medium_preset)
@@ -40,6 +44,8 @@ from .scene.scene import Scene, SceneData
 __all__ = [
     "Scene", "SceneData", "TriangleMesh", "make_box", "make_quad", "make_sphere",
     "Matte", "Gold", "Conductor", "Glass", "Mirror", "Emissive", "Interface", "PointLight",
+    "SpotLight", "DistantLight", "SunLight", "AmbientLight", "EnvironmentLight",
+    "sunsky_environment", "equirect_to_equal_area",
     "HomogeneousMedium", "GridMedium", "RGBGridMedium", "CloudVolume", "Fog", "Milk",
     "Smoke", "medium_preset",
     "make_perspective_camera", "make_filter", "VolPath", "render",

@@ -278,6 +278,8 @@ def tile_treelet_mask(o, d, t_max, tl: Treelets, n_tiles: int,
 
     lo, hi = tl.lo[None], tl.hi[None]
     T = tl.lo.shape[0]
+    if ns == 0:  # no live lane (every path escaped): no pairs
+        return o.new_zeros((0, T), dtype=torch.bool), o.new_zeros((0, T))
     step = max(sub, (_CULL_ELEMS // (3 * T)) // sub * sub)
     masks, tnears = [], []
     for c0 in range(0, ns, step):

@@ -1,7 +1,9 @@
 """VolPath: spectral volumetric wavefront path tracer.
 
-Port of ``hikari_tpu/integrators/volpath.py``: power light sampler, NEE,
-emission MIS, Russian roulette and glass dispersion, with the reference's
+Port of ``hikari_tpu/integrators/volpath.py``: NEE through the power,
+uniform or BVH light sampler, emission MIS against area and environment
+lights, escaped rays' environment and ambient radiance, Russian roulette
+and glass dispersion, with the reference's
 bounce-loop modes: material coherence 'none' / 'gated' / 'sorted', the
 resident loop (``resident='on'``) and depth segments
 (``render_lanes_segmented``). The path state is a dict of per-lane tensors
@@ -25,9 +27,9 @@ world treelet and column, decoded into the shared face row and the
 instance (``_face_decode``), whose normal transform and material override
 apply at the hit, in shadow walks too.
 
-Textures, alpha, Mix and layered materials and the other lights are not
-ported; scenes that need them raise ``NotImplementedError`` instead of
-rendering a wrong image.
+Textures, alpha, Mix and layered materials are not ported; scenes that
+need them raise ``NotImplementedError`` instead of rendering a wrong
+image.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from ..geometry.instanced import any_hit_instanced, closest_hit_instanced
 from ..geometry.sweep import RAY_TILE, TREELET
 from ..geometry.wavefront import _inverse_permutation, ray_sort_keys
 from ..lights import types as lt
+from ..lights.bvh_sampler import bvh_pmf, bvh_sample_light
 from ..materials import bsdf as mb
 from ..materials import types as mt
 from ..media import sample as ms
@@ -330,6 +333,15 @@ def _trace_shadow(scene: SceneData, o_sh, wi, t_max, medium_sh, lam, active,
 # --- the bounce loop ----------------------------------------------------------------
 
 
+def _mis_denominator(vp: VolPath, specular, r_u, r_l_hat):
+    """The spectral MIS denominator of emission reached by a path: the
+    light's rescaled pdf r_l_hat counts unless the last bounce was specular
+    or NEE is off."""
+    if not vp.nee:
+        return r_u.mean(-1)
+    return torch.where(specular, r_u.mean(-1), (r_u + r_l_hat).mean(-1))
+
+
 def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays_traced,
                  presorted: bool = False):
     """One bounce over an arbitrary lane subset: the state dict `st` of
@@ -338,7 +350,8 @@ def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays
     so permuted lanes draw their own ZSobol samples."""
     o, d, beta, r_u, r_l, L = st["o"], st["d"], st["beta"], st["r_u"], st["r_l"], st["L"]
     alive, specular, eta_scale = st["alive"], st["spec"], st["eta"]
-    any_nonspec, prev_p, disp_term = st["anyns"], st["prev_p"], st["disp"]
+    any_nonspec, disp_term = st["anyns"], st["disp"]
+    prev_p, prev_ns = st["prev_p"], st["prev_ns"]
     lam, px, py, si, med = st["lam"], st["px"], st["py"], st["si"], st["med"]
     lights = scene.lights
     coherence = vp.material_coherence
@@ -365,8 +378,30 @@ def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays
         # a deflected medium bends the ray at null events; the phase frame
         # takes the bent direction
         d_med = torch.where(in_medium[..., None], dtr.d_out, d)
-    hit = alive & ~scattered & rec.hit  # lanes that reach a surface
+    reach = alive & ~scattered  # lanes that reach a surface or escape
+    hit = reach & rec.hit
+    escaped = reach & ~rec.hit
     alive = alive & (rec.hit | scattered)
+    bvh = scene.light_sampler == "bvh"
+
+    # escaped rays: environment radiance with MIS against sampling the
+    # environment light (the flat list's last), and ambient radiance
+    # (intersection.jl:622-677); media bend the ray at null events, so the
+    # lookup takes the bent direction
+    if lights.has_env:
+        le_env, pdf_env = lt.env_radiance(lights, scene.rgb2spec, d_med, lam)
+        if bvh:
+            pmf_env = bvh_pmf(scene.light_bvh, prev_p, prev_ns,
+                              torch.full_like(med, lights.n_flat - 1))
+        else:
+            pmf_env = lights.pmf[lights.n_flat - 1]
+        denom = _mis_denominator(vp, specular, r_u, r_l * (pdf_env * pmf_env)[..., None])
+        contrib = beta * le_env / torch.clamp(denom[..., None], min=1e-12)
+        L = L + torch.where((escaped & (denom > 0.0))[..., None], contrib, 0.0)
+    if lights.has_ambient:
+        le_amb = lt.illuminant(scene.rgb2spec, lights.ambient_l.sum(0), lam)
+        contrib = beta * le_amb / torch.clamp(r_u.mean(-1)[..., None], min=1e-12)
+        L = L + torch.where(escaped[..., None], contrib, 0.0)
     sd = _surface_data(scene, rec, o, d)
     wo = -d
     frame = make_frame(sd["ns"])
@@ -381,14 +416,11 @@ def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays
                                  lam, dot(sd["ng"], wo))
         area_flat = torch.clamp(lights.area_flat_base + sd["arealight"], 0,
                                 lights.pmf.shape[0] - 1)
+        pmf_area = (bvh_pmf(scene.light_bvh, prev_p, prev_ns, area_flat) if bvh
+                    else _bl(lights.pmf, area_flat))
         pdf_light = lt.area_light_pdf(
-            lights, torch.clamp(sd["arealight"], min=0), prev_p, sd["p"],
-            sd["ng"]) * _bl(lights.pmf, area_flat)
-        if vp.nee:
-            denom = torch.where(specular, r_u.mean(-1),
-                                (r_u + r_l * pdf_light[..., None]).mean(-1))
-        else:
-            denom = r_u.mean(-1)
+            lights, torch.clamp(sd["arealight"], min=0), prev_p, sd["p"], sd["ng"]) * pmf_area
+        denom = _mis_denominator(vp, specular, r_u, r_l * pdf_light[..., None])
         contrib = beta * le / torch.clamp(denom[..., None], min=1e-12)
         L = L + torch.where((is_emitter & (denom > 0.0))[..., None], contrib, 0.0)
 
@@ -399,9 +431,13 @@ def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays
         ul = sb.path_sample_1d(zcfg, px, py, si, depth, 0)
         ul2 = torch.stack(sb.path_sample_2d(zcfg, px, py, si, depth, 1), -1)
         p_ref = torch.where(scattered[..., None], p_scatter, sd["p"]) if vol else sd["p"]
-        li_flat, pmf_sel = lt.sample_light_index(lights, ul)
-        ls = lt.sample_li(lights, _bl(lights.light_type, li_flat),
-                          _bl(lights.light_idx, li_flat), p_ref, lam, ul2)
+        if bvh:  # medium lanes have no normal
+            ns_ref = torch.where(scattered[..., None], 0.0, sd["ns"]) if vol else sd["ns"]
+            li_flat, pmf_sel = bvh_sample_light(scene.light_bvh, p_ref, ns_ref, ul)
+        else:
+            li_flat, pmf_sel = lt.sample_light_index(lights, ul)
+        ls = lt.sample_li(lights, scene.rgb2spec, _bl(lights.light_type, li_flat),
+                          _bl(lights.light_idx, li_flat), p_ref, lam, ul2, scene.scene_radius)
         wi_l = to_local(*frame, ls.wi)
         f_s, pdf_b = _eval_bsdf_dispatch(scene, sd["mat_type"], sd["mat_idx"],
                                          wo_l, wi_l, lam, reg, coherence)
@@ -477,6 +513,9 @@ def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays
     else:
         alive = alive & go
     prev_p = torch.where(moved[..., None], o_new, prev_p)
+    prev_ns = torch.where(go[..., None], sd["ns"], prev_ns)
+    if vol:
+        prev_ns = torch.where(med_go[..., None], 0.0, prev_ns)
     o = o_new
 
     # Russian roulette (russian_roulette_spectral); q = 1 below rr depth
@@ -493,7 +532,8 @@ def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays
 
     out = dict(st)
     out.update(o=o, d=d, beta=beta, r_u=r_u, r_l=r_l, L=L, alive=alive, spec=specular,
-               eta=eta_scale, anyns=any_nonspec, prev_p=prev_p, disp=disp_term, med=med)
+               eta=eta_scale, anyns=any_nonspec, prev_p=prev_p, prev_ns=prev_ns,
+               disp=disp_term, med=med)
     return out, rays_traced
 
 
@@ -565,14 +605,16 @@ def render_lanes(vp: VolPath, scene: SceneData, camera: PerspectiveCamera,
     o, d = camera.generate_rays(CameraSample(p_film=p_film, lens=ps.lens,
                                              time=ps.time, filter_weight=filter_w))
 
-    # path state (the reference's st0, volpath.py:1126-1146; prev_ns only
-    # serves the BVH light sampler, which is not ported); camera rays count
-    # as specular and start in the camera's medium
+    # path state (the reference's st0, volpath.py:1126-1146; prev_p and
+    # prev_ns, the last scattering vertex and its shading normal, replay the
+    # light pmfs of emission MIS); camera rays count as specular and start
+    # in the camera's medium
     lam = wl.lam
     ones = torch.ones(n, dtype=torch.bool, device=dev)
     st = dict(o=o, d=d, beta=torch.ones_like(lam), r_u=torch.ones_like(lam),
               r_l=torch.ones_like(lam), L=torch.zeros_like(lam), alive=ones, spec=ones,
-              eta=torch.ones(n, device=dev), anyns=~ones, prev_p=o, disp=~ones, lam=lam,
+              eta=torch.ones(n, device=dev), anyns=~ones, prev_p=o,
+              prev_ns=torch.zeros_like(o), disp=~ones, lam=lam,
               px=px, py=py, si=si, lane=torch.arange(n, device=dev),
               med=torch.full((n,), scene.camera_medium, dtype=torch.int32, device=dev))
     rays_traced = torch.zeros((), device=dev)

@@ -8,7 +8,10 @@ leaf order and triangle indices.
 Keys of ``arrays``: ``face_rows``, ``mat_type``, ``mat_idx``,
 ``world_lo``, ``world_hi``, ``scene_radius``, ``present_materials``,
 ``materials.<field>`` for every field of the port's ``MaterialBanks``,
-``lights.<field>`` for every field of its ``LightBanks``, and either
+``lights.<field>`` for every field of its ``LightBanks`` (the environment's
+distribution as ``lights.env_dist.<field>``), ``light_bvh.<field>`` for
+every field of the JAX package's ``LightBVH``, ``light_sampler``, and
+either
 ``treelets.{lo,hi,sup_lo,sup_hi,bw,tri}`` (a flat scene) or
 ``inst.{lo,hi,bw,ti_obj,ti_inst,inst_a}``, ``inst_nrm``, ``inst_l2w`` and
 ``inst_mat_packed`` (an instanced scene). A scene with media adds
@@ -29,7 +32,9 @@ import torch
 
 from ..geometry.instanced import InstancedTreelets
 from ..geometry.wavefront import Treelets, coef_from_m4
+from ..lights.bvh_sampler import LightBVH
 from ..lights.types import LightBanks
+from ..sampling.distributions import Distribution2D
 from ..materials.types import MaterialBanks
 from ..media.types import RGBGRID, MediumBanks, pack_media
 from .scene import SceneData
@@ -74,9 +79,15 @@ def scene_from_numpy(arrays: dict, device) -> SceneData:
                                  for f in fields(MaterialBanks)})
     light_kw = {}
     for f in fields(LightBanks):
-        v = arrays[f"lights.{f.name}"]
-        light_kw[f.name] = (int(v) if f.name in ("area_flat_base", "n_flat")
-                            else t(f"lights.{f.name}"))
+        if f.name == "env_dist":
+            light_kw[f.name] = Distribution2D(**{g.name: t(f"lights.env_dist.{g.name}")
+                                                 for g in fields(Distribution2D)})
+        elif f.name in ("area_flat_base", "n_flat"):
+            light_kw[f.name] = int(arrays[f"lights.{f.name}"])
+        elif f.name == "has_env":
+            light_kw[f.name] = bool(arrays[f"lights.{f.name}"])
+        else:
+            light_kw[f.name] = t(f"lights.{f.name}")
     lights = LightBanks(**light_kw)
     media_kw = dict(media=pack_media([]))
     if "media.med_type" in arrays:
@@ -92,9 +103,28 @@ def scene_from_numpy(arrays: dict, device) -> SceneData:
     scene = SceneData(
         treelets=treelets, face_rows=t("face_rows"),
         mat_type=t("mat_type", torch.int32), mat_idx=t("mat_idx", torch.int32),
-        materials=materials, lights=lights, world_lo=t("world_lo"),
+        materials=materials, lights=lights, light_bvh=_light_bvh(arrays),
+        world_lo=t("world_lo"),
         world_hi=t("world_hi"), scene_radius=float(arrays["scene_radius"]),
         present_materials=tuple(int(x) for x in arrays["present_materials"]),
         n_lights=lights.n_flat, n_faces=int(arrays["face_rows"].shape[0]), **inst_kw,
-        **media_kw)
+        light_sampler=str(arrays["light_sampler"]), **media_kw)
     return scene.to(device)
+
+
+def _light_bvh(arrays: dict) -> LightBVH:
+    """The JAX package's LightBVH (``light_bvh.<field>``): its trails are
+    uint32, its static counts numbers; the infinite lights' ids and the
+    tree's depth follow from the per-light arrays."""
+    kw = {f.name: torch.from_numpy(np.array(arrays[f"light_bvh.{f.name}"]))
+          for f in fields(LightBVH) if f.name not in ("inf_ids", "n_infinite", "n_total",
+                                                      "depth")}
+    kw["light_trail"] = kw["light_trail"].to(torch.int64)
+    in_bvh = np.asarray(arrays["light_bvh.light_in_bvh"], bool)
+    inf_ids = np.nonzero(~in_bvh)[0].astype(np.int32)
+    depth = np.asarray(arrays["light_bvh.light_depth"])[in_bvh]
+    return LightBVH(**kw, inf_ids=torch.from_numpy(inf_ids if len(inf_ids)
+                                                   else np.zeros(1, np.int32)),
+                    n_infinite=int(arrays["light_bvh.n_infinite"]),
+                    n_total=int(arrays["light_bvh.n_total"]),
+                    depth=int(depth.max()) if len(depth) else 0)

@@ -27,6 +27,7 @@ from ..geometry.bvh import build_bvh
 from ..geometry.instanced import InstancedTreelets, build_instanced_treelets
 from ..geometry.sweep import TREELET
 from ..geometry.wavefront import Treelets, build_treelets, bvh_super_boxes
+from ..lights.bvh_sampler import LightBVH, build_light_bvh
 from ..lights.types import LightBanks, pack_lights
 from ..materials.types import EMISSIVE, MaterialBanks, pack_materials
 from ..media.types import MediumBanks, pack_media
@@ -63,6 +64,7 @@ class SceneData:
     mat_idx: torch.Tensor      # (F,) int32 index into that type's bank
     materials: MaterialBanks
     lights: LightBanks
+    light_bvh: LightBVH        # the BVH light sampler's tree over `lights`
     world_lo: torch.Tensor     # (3,)
     world_hi: torch.Tensor     # (3,)
     scene_radius: float
@@ -82,6 +84,7 @@ class SceneData:
     # the sRGB uplift table RGB-grid media read while tracking, on the
     # scene's device
     rgb2spec: RGBToSpectrumTable = field(default_factory=srgb_table)
+    light_sampler: str = "power"  # 'power' | 'uniform' | 'bvh'
 
     @property
     def has_instances(self) -> bool:
@@ -146,6 +149,22 @@ def _area_tris(materials, slot, p0, p1, p2, which):
     return p0[which], p1[which], p2[which], a_le, a_two
 
 
+def _instanced_bounds(blas_boxes, instances):
+    """World box (float64) of an instanced scene's real triangles: each
+    instance's BLAS box, its 8 corners moved by the instance's matrix."""
+    corners = np.array([[x, y, z] for x in (0, 1) for y in (0, 1) for z in (0, 1)])
+    lo = np.full(3, np.inf)
+    hi = np.full(3, -np.inf)
+    for bid, m in instances:
+        b_lo, b_hi = (np.asarray(b, np.float64) for b in blas_boxes[bid])
+        pts = np.where(corners, b_hi, b_lo)
+        m = np.asarray(m, np.float64)
+        pts = pts @ m[:3, :3].T + m[:3, 3]
+        lo = np.minimum(lo, pts.min(axis=0))
+        hi = np.maximum(hi, pts.max(axis=0))
+    return lo, hi
+
+
 def _check_surface(alpha) -> None:
     if alpha is not None:
         raise NotImplementedError("stochastic alpha is not ported yet")
@@ -178,6 +197,7 @@ class Scene:
         self._media: list = []
         self._camera_medium = -1
         self._lights: list = []
+        self._light_sampler = "power"
         # instanced groups: (mesh, transforms (I, 4, 4), material slot,
         # per-instance material slots or None, (inside, outside) medium ids)
         self._instanced: list = []
@@ -247,8 +267,11 @@ class Scene:
         self._camera_medium = self._medium_id(medium)
 
     def set_light_sampler(self, mode: str) -> None:
-        if mode != "power":
-            raise NotImplementedError(f"light sampler {mode!r} is not ported yet")
+        """'power' (default), 'uniform', or 'bvh' (the adaptive BVH light
+        sampler, bvh-light-sampler.jl)."""
+        if mode not in ("power", "uniform", "bvh"):
+            raise ValueError(f"light sampler {mode!r}: expected 'power', 'uniform' or 'bvh'")
+        self._light_sampler = mode
 
     def add_light(self, light) -> None:
         self._lights.append(light)
@@ -264,7 +287,16 @@ class Scene:
         scene.media = pack_media(self._media)
         scene.camera_medium = self._camera_medium
         scene.has_media = bool(self._media)
+        scene.light_sampler = self._light_sampler
         return scene.to(device)
+
+    def _pack_lights(self, area_tris, radius: float):
+        """(banks, light BVH, scene radius): the bvh sampler keeps the power
+        table beside its tree, as the reference does (scene.py:402-410)."""
+        radius = max(radius, 1e-3)
+        sampler = "power" if self._light_sampler == "bvh" else self._light_sampler
+        lights = pack_lights(self._lights, area_tris, scene_radius=radius, sampler=sampler)
+        return lights, build_light_bvh(lights), radius
 
     def _build_flat(self) -> SceneData:
         arrs, mat_of_face, med_of_face = _concat_meshes(
@@ -288,8 +320,8 @@ class Scene:
         order = fb.prim_order
         world_lo = tri_lo.min(axis=0)
         world_hi = tri_hi.max(axis=0)
-        radius = 0.5 * float(np.linalg.norm(world_hi - world_lo))
-        lights = pack_lights(self._lights, area_tris)
+        lights, light_bvh, radius = self._pack_lights(
+            area_tris, 0.5 * float(np.linalg.norm(world_hi - world_lo)))
 
         mat_packed = (face_type[order].astype(np.int32) << 24) | face_idx[order]
         face_rows = pack_face_rows(
@@ -304,9 +336,9 @@ class Scene:
             treelets=treelets, face_rows=torch.from_numpy(face_rows),
             mat_type=torch.from_numpy(face_type[order].astype(np.int32)),
             mat_idx=torch.from_numpy(face_idx[order].astype(np.int32)),
-            materials=banks, lights=lights,
+            materials=banks, lights=lights, light_bvh=light_bvh,
             world_lo=torch.from_numpy(world_lo), world_hi=torch.from_numpy(world_hi),
-            scene_radius=max(radius, 1e-3), present_materials=tuple(sorted(present)),
+            scene_radius=radius, present_materials=tuple(sorted(present)),
             n_lights=lights.n_flat, n_faces=int(len(p0)))
 
     def _build_instanced(self) -> SceneData:
@@ -320,7 +352,7 @@ class Scene:
                     "emissive materials on instanced meshes are not supported (one "
                     "area light per emissive face); add that mesh flattened instead")
 
-        blas_tris, chunks, instances, inst_mat = [], [], [], []
+        blas_tris, blas_boxes, chunks, instances, inst_mat = [], [], [], [], []
 
         def finish_blas(arrs, slot, med):
             """BVH leaf order, then padding to a TREELET multiple: far-away
@@ -329,6 +361,7 @@ class Scene:
             tri_lo = np.minimum(np.minimum(arrs["p0"], arrs["p1"]), arrs["p2"])
             tri_hi = np.maximum(np.maximum(arrs["p0"], arrs["p1"]), arrs["p2"])
             order = build_bvh(tri_lo, tri_hi).prim_order
+            blas_boxes.append((tri_lo.min(axis=0), tri_hi.max(axis=0)))
             pad = (-len(order)) % TREELET
             arrs = {k: np.concatenate([a[order], np.full(
                 (pad, 3), 3.0e37 if k in _GEOMETRY else 0.0, np.float32)])
@@ -369,12 +402,15 @@ class Scene:
             arealight_idx[which] = np.arange(len(which), dtype=np.int32)
             area_tris = _area_tris(self._materials, slot, p0, p1, p2, which)
 
+        # the traversal's world box is the reference's, unbounded where a
+        # padded treelet is (ROADMAP C); the lights' radius is the real one
         lo, hi = inst_tl.lo.numpy(), inst_tl.hi.numpy()
         finite = lo[:, 0] < 1.0e37
         world_lo = lo[finite].min(axis=0)
         world_hi = hi[finite].max(axis=0)
-        radius = 0.5 * float(np.linalg.norm(world_hi - world_lo))
-        lights = pack_lights(self._lights, area_tris)
+        real_lo, real_hi = _instanced_bounds(blas_boxes, instances)
+        lights, light_bvh, radius = self._pack_lights(
+            area_tris, 0.5 * float(np.linalg.norm(real_hi - real_lo)))
 
         mats44 = np.stack([m for _, m in instances]).astype(np.float64)
         inv_lin = np.linalg.inv(mats44[:, :3, :3])
@@ -383,10 +419,10 @@ class Scene:
         return SceneData(
             treelets=None, face_rows=torch.from_numpy(face_rows),
             mat_type=torch.from_numpy(face_type), mat_idx=torch.from_numpy(face_idx),
-            materials=banks, lights=lights,
+            materials=banks, lights=lights, light_bvh=light_bvh,
             world_lo=torch.from_numpy(world_lo.astype(np.float32)),
             world_hi=torch.from_numpy(world_hi.astype(np.float32)),
-            scene_radius=max(radius, 1e-3), present_materials=tuple(sorted(present)),
+            scene_radius=radius, present_materials=tuple(sorted(present)),
             n_lights=lights.n_flat, n_faces=int(len(p0)), inst=inst_tl,
             inst_nrm=torch.from_numpy(np.ascontiguousarray(
                 np.transpose(inv_lin, (0, 2, 1)), np.float32)),

@@ -1,20 +1,26 @@
 """The benchmark scenes of ``bench.py`` and its transport probe, for the port.
 
 ``bench.py`` imports JAX, so its scene builders are ported here:
-``default_scene`` (``build_scene``, the main path's 61,450 triangles) and
+``default_scene`` (``build_scene``, the main path's 61,450 triangles),
 ``mesh_scene`` (``build_mesh_scene``, a 327,680-triangle displaced
-icosphere in the same room). Two instanced scenes exercise the two-level
-path: ``instanced_default_scene`` (the default scene with its 16 spheres
-as 16 instances of one) and ``forest_scene`` (``examples/instancing_example.py``,
-400 placements of one tree). Two scenes hold participating media:
+icosphere in the same room) and ``sphere_scene`` (``build_sphere_scene``,
+glass and gold spheres under the Hosek-Wilkie sun and sky). Two instanced
+scenes exercise the two-level path: ``instanced_default_scene`` (the
+default scene with its 16 spheres as 16 instances of one) and
+``forest_scene`` (``examples/instancing_example.py``, 400 placements of one
+tree under the sun and sky). Three scenes hold participating media:
 ``fog_scene`` (``bench.build_fog_scene``, a homogeneous medium in an
-Interface box inside a Cornell room) and ``cloud_grid_scene`` (the bench
-cloud's 64^3 CloudVolume grid in an Interface box over a floor).
+Interface box inside a Cornell room), ``cloud_scene``
+(``bench.build_cloud_scene``, a 64^3 CloudVolume grid in an Interface box
+over a floor under the sun and sky) and ``cloud_grid_scene`` (the same
+cloud under an emissive quad and a point light). ``lights_scene`` holds a
+spot, a distant, an ambient and an environment light.
 ``transport_probe`` is the port of ``bench.transport_probe`` and
-``check_transport`` holds it against the stored reference
-``tools/transport_ref.json`` (the grid cloud's against
-``data/media_probe_ref.json``, which ``tools/gen_media_probe_ref.py``
-computes with the JAX package) with the tolerances of ``bench.py:171-178``.
+``check_transport`` holds it against the stored reference: the bench's
+surface and fog probes in ``tools/transport_ref.json``, with the
+tolerances of ``bench.py:171-178``; every other probe (the clouds', the
+light samplers', the lights scene's) in ``data/probe_ref.json``, computed
+with the JAX package by ``tools/gen_probe_ref.py``.
 """
 
 from __future__ import annotations
@@ -28,14 +34,16 @@ import torch
 from .camera.camera import make_perspective_camera
 from .film.filters import make_filter
 from .integrators.volpath import VolPath, render_lanes, render_lanes_segmented
-from .lights.types import PointLight
+from .lights.sunsky import sunsky_environment
+from .lights.types import (AmbientLight, DistantLight, EnvironmentLight, PointLight,
+                           SpotLight, equirect_to_equal_area)
 from .materials.types import Emissive, Glass, Gold, Interface, Matte, Mirror
 from .media.types import CloudVolume, HomogeneousMedium
 from .scene.mesh import TriangleMesh, make_box, make_quad, make_sphere
 from .scene.scene import Scene
 
 TRANSPORT_REF = Path(__file__).resolve().parent.parent / "tools" / "transport_ref.json"
-MEDIA_PROBE_REF = Path(__file__).resolve().parent / "data" / "media_probe_ref.json"
+PROBE_REF = Path(__file__).resolve().parent / "data" / "probe_ref.json"
 
 # camera (eye, look-at, fov) and transport probe (res, depth, spp, rgb
 # tolerance): bench.py SCENE_DEFS; cloud_grid takes the bench cloud's
@@ -43,7 +51,10 @@ SCENE_DEFS = {
     "default": (((0.0, 1.6, -2.8), (0.0, 0.9, 2.0), 45.0), (64, 5, 1, 0.02)),
     "mesh": (((0.0, 1.6, -2.8), (0.0, 0.9, 2.0), 45.0), (64, 5, 1, 0.02)),
     "fog": (((0.0, 1.0, -2.6), (0.0, 1.0, 1.0), 50.0), (64, 5, 1, 0.02)),
+    "sphere": (((0.0, 1.0, -3.2), (0.0, 0.5, 0.0), 45.0), (64, 5, 1, 0.02)),
+    "cloud": (((0.0, 0.7, -3.0), (0.0, 0.9, 0.0), 50.0), (32, 12, 16, 0.10)),
     "cloud_grid": (((0.0, 0.7, -3.0), (0.0, 0.9, 0.0), 50.0), (32, 12, 16, 0.10)),
+    "lights": (((0.0, 1.5, -3.5), (0.0, 0.6, 1.0), 50.0), (64, 5, 1, 0.02)),
 }
 PROBE_BATCH = 16  # samples a transport_probe renders in one wavefront
 
@@ -117,10 +128,9 @@ def tree_mesh() -> TriangleMesh:
 
 def forest_scene() -> Scene:
     """examples/instancing_example.py: a ground quad and 400 placements of
-    tree_mesh() from RandomState(7) (random yaw, scale 0.6-1.4). The example
-    lights it with sunsky_environment, which the port does not have yet
-    (ROADMAP A12); a PointLight((0, 20, 8), intensity 600) stands in. 800
-    instanced world treelets plus BLAS 0's one."""
+    tree_mesh() from RandomState(7) (random yaw, scale 0.6-1.4) under
+    sunsky_environment(direction=(0.5, 0.4, 0.4)). 800 instanced world
+    treelets plus BLAS 0's one."""
     n = 400
     s = Scene()
     s.add(make_quad((-20, 0, -20), (20, 0, -20), (20, 0, 20), (-20, 0, 20)),
@@ -137,7 +147,8 @@ def forest_scene() -> Scene:
     tr[:, 0, 3] = rng.uniform(-15, 15, n)
     tr[:, 2, 3] = rng.uniform(-2, 30, n)
     s.add_instanced(tree_mesh(), tr, Matte(kd=(0.15, 0.45, 0.12)))
-    s.add_light(PointLight(position=(0.0, 20.0, 8.0), intensity=(600.0, 600.0, 600.0)))
+    for light in sunsky_environment(direction=(0.5, 0.4, 0.4)):
+        s.add_light(light)
     return s
 
 
@@ -228,28 +239,91 @@ def fog_scene() -> Scene:
     return s
 
 
-def cloud_grid_scene() -> Scene:
-    """bench.py build_cloud_scene's geometry and medium: a floor quad and
-    the 64^3 CloudVolume (bounds (-1.6, 0.1, -1.2)-(1.6, 1.8, 1.2), sigma_s
-    60, sigma_a 0.4, g 0.877) in an Interface box. The bench lights it
-    with sunsky_environment, which the port does not have yet (ROADMAP
-    A12): an emissive quad above the box (facing down) and a point light
-    stand in for the sky and the sun."""
+def _cloud_over_floor() -> Scene:
+    """bench.py build_cloud_scene's geometry: a floor quad and the 64^3
+    CloudVolume (bounds (-1.6, 0.1, -1.2)-(1.6, 1.8, 1.2), sigma_s 60,
+    sigma_a 0.4, g 0.877) in an Interface box; no light."""
     s = Scene()
     s.add(make_quad((-8, -0.5, -8), (8, -0.5, -8), (8, -0.5, 8), (-8, -0.5, 8)),
           Matte(kd=(0.3, 0.35, 0.4)))
-    cloud = CloudVolume(resolution=64, bounds_lo=(-1.6, 0.1, -1.2),
-                        bounds_hi=(1.6, 1.8, 1.2), sigma_s=(60.0,) * 3,
-                        sigma_a=(0.4,) * 3, g=0.877)
+    cloud = CloudVolume(resolution=64, bounds_lo=(-1.6, 0.1, -1.2), bounds_hi=(1.6, 1.8, 1.2),
+                        sigma_s=(60.0,) * 3, sigma_a=(0.4,) * 3, g=0.877)
     s.add(make_box((-1.6, 0.1, -1.2), (1.6, 1.8, 1.2)), Interface(), inside_medium=cloud)
+    return s
+
+
+def cloud_grid_scene() -> Scene:
+    """cloud_scene's floor and cloud lit by an emissive quad above the box
+    (facing down) and a point light in place of the sky and the sun (the
+    grid-cloud probes stored in data/probe_ref.json were drawn with
+    these lights)."""
+    s = _cloud_over_floor()
     s.add(make_quad((-2.0, 3.5, -1.5), (2.0, 3.5, -1.5), (2.0, 3.5, 1.5), (-2.0, 3.5, 1.5)),
           Emissive(le=(0.85, 0.9, 1.0), scale=4.0))
     s.add_light(PointLight(position=(2.5, 4.0, -2.5), intensity=(40.0, 38.0, 34.0)))
     return s
 
 
+def sphere_scene(sphere_res=(24, 48)) -> Scene:
+    """bench.py build_sphere_scene: a glass and a gold sphere on a Matte
+    plane under sunsky_environment(direction=(0.4, 0.35, 0.6)); no area
+    light, so the environment light is the whole flat light list's tail.
+    sphere_res (n_theta, n_phi) = (24, 48) is the bench's."""
+    s = Scene()
+    s.add(make_quad((-6, 0, -6), (6, 0, -6), (6, 0, 6), (-6, 0, 6)),
+          Matte(kd=(0.55, 0.55, 0.55)))
+    s.add(make_sphere((-0.7, 0.55, 0.2), 0.55, *sphere_res), Glass(eta=1.5))
+    s.add(make_sphere((0.7, 0.5, -0.2), 0.5, *sphere_res), Gold(roughness=0.1))
+    for light in sunsky_environment(direction=(0.4, 0.35, 0.6)):
+        s.add_light(light)
+    return s
+
+
+def cloud_scene() -> Scene:
+    """bench.py build_cloud_scene: cloud_grid_scene's floor and 64^3
+    CloudVolume in its Interface box under sunsky_environment(direction=
+    (0.5, 0.45, 0.3)); escaped paths leave the volume into the sky."""
+    s = _cloud_over_floor()
+    for light in sunsky_environment(direction=(0.5, 0.45, 0.3)):
+        s.add_light(light)
+    return s
+
+
+def latlong_sky(height: int = 32, width: int = 64) -> np.ndarray:
+    """A procedural lat-long (equirectangular) sky, y up: a blue gradient
+    over a grey ground and a warm patch at one azimuth."""
+    theta = (np.arange(height) + 0.5) / height * np.pi
+    phi = (np.arange(width) + 0.5) / width * 2.0 * np.pi - np.pi
+    up = np.cos(theta)[:, None, None]
+    sky = np.asarray([0.35, 0.55, 0.9]) * (0.4 + 0.6 * up) + np.asarray([0.3, 0.3, 0.3]) * (1 - up)
+    img = np.where(up > 0.0, sky, np.asarray([0.12, 0.11, 0.1]))
+    patch = np.exp(-((phi[None, :] - 1.0) ** 2) / 0.1 - ((theta[:, None] - 1.0) ** 2) / 0.05)
+    img = img + patch[..., None] * np.asarray([4.0, 3.0, 1.5])
+    return img.astype(np.float32)
+
+
+def lights_scene() -> Scene:
+    """A floor, a back wall, a gold sphere and a box under a spot, a
+    distant, an ambient and an environment light (latlong_sky() resampled
+    by equirect_to_equal_area to 64 x 64): every light type but point and
+    area."""
+    s = Scene()
+    s.add(make_quad((-4, 0, -4), (4, 0, -4), (4, 0, 4), (-4, 0, 4)), Matte(kd=(0.6, 0.6, 0.6)))
+    s.add(make_quad((-4, 0, 3), (4, 0, 3), (4, 3, 3), (-4, 3, 3)), Matte(kd=(0.5, 0.3, 0.2)))
+    s.add(make_sphere((-0.6, 0.5, 0.8), 0.5, 16, 32), Gold(roughness=0.2))
+    s.add(make_box((0.3, 0.0, 0.2), (1.1, 0.8, 1.0)), Matte(kd=(0.2, 0.4, 0.7)))
+    s.add_light(SpotLight(position=(0.0, 2.5, -1.0), direction=(0.0, -1.0, 0.6),
+                          intensity=(12.0, 11.0, 9.0), cone_angle_deg=35.0,
+                          falloff_start_deg=20.0))
+    s.add_light(DistantLight(direction=(-0.4, -1.0, 0.5), radiance=(1.2, 1.1, 1.0)))
+    s.add_light(AmbientLight(radiance=(0.05, 0.05, 0.06)))
+    s.add_light(EnvironmentLight(image=equirect_to_equal_area(latlong_sky(), 64), scale=0.8))
+    return s
+
+
 BUILDERS = {"default": default_scene, "mesh": mesh_scene, "fog": fog_scene,
-            "cloud_grid": cloud_grid_scene}
+            "sphere": sphere_scene, "cloud": cloud_scene, "cloud_grid": cloud_grid_scene,
+            "lights": lights_scene}
 
 
 def scene_camera(which: str, res_px: int):
@@ -293,34 +367,41 @@ def transport_probe(scene, which: str = "default", n_segments: int = 0, res=None
 
 
 # scenes whose bench probe (SCENE_DEFS) is stored in tools/transport_ref.json
-TRANSPORT_REF_SCENES = ("default", "mesh", "fog")
+# and drawn deterministically given the sampler (the fog's 1-sample rays
+# too): the bench's sun-sky cloud probe is one LCG draw of 16 samples, so
+# its reference is the JAX package's six-draw mean in data/probe_ref.json
+TRANSPORT_REF_SCENES = ("default", "mesh", "fog", "sphere")
 
 
-def probe_key(which: str, res: int, depth: int, spp: int) -> str:
-    return f"{which} {res}x{res} depth {depth} {spp} spp"
+def probe_key(which: str, res: int, depth: int, spp: int, sampler: str = "power") -> str:
+    key = f"{which} {res}x{res} depth {depth} {spp} spp"
+    return key if sampler == "power" else f"{key}, {sampler} sampler"
 
 
-def probe_reference(which: str, res=None, depth=None, spp=None) -> dict:
-    """The JAX package's stored probe of a scene: its bench probe from
-    tools/transport_ref.json, any other from data/media_probe_ref.json
-    (written by tools/gen_media_probe_ref.py)."""
+def probe_reference(which: str, res=None, depth=None, spp=None, sampler="power") -> dict:
+    """The JAX package's stored probe of a scene under a light sampler: its
+    bench probe from tools/transport_ref.json, any other from
+    data/probe_ref.json (written by tools/gen_probe_ref.py)."""
     cfg = probe_config(which, res, depth, spp)
-    if which in TRANSPORT_REF_SCENES and cfg == probe_config(which):
+    if sampler == "power" and which in TRANSPORT_REF_SCENES and cfg == probe_config(which):
         return json.loads(TRANSPORT_REF.read_text())["scenes"][which]
-    return json.loads(MEDIA_PROBE_REF.read_text())["probes"][probe_key(which, *cfg)]
+    return json.loads(PROBE_REF.read_text())["probes"][probe_key(which, *cfg, sampler)]
 
 
 def check_transport(scene, which: str = "default", rgb_tol=None, **probe_kw):
-    """Probe (transport_probe's keywords) against its stored reference
-    (probe_reference): rays within 0.5%, mean RGB within rgb_tol
-    (SCENE_DEFS's unless given). Returns (ok, message)."""
+    """Probe (transport_probe's keywords) of a scene under its light
+    sampler against its stored reference (probe_reference): rays within
+    0.5%, mean RGB within rgb_tol (SCENE_DEFS's unless given). Returns
+    (ok, message)."""
     cfg = {k: probe_kw.pop(k, None) for k in ("res", "depth", "spp")}
-    ref = probe_reference(which, **cfg)
+    ref = probe_reference(which, **cfg, sampler=scene.light_sampler)
     rays, mean_rgb = transport_probe(scene, which, **cfg, **probe_kw)
     tol = SCENE_DEFS[which][1][3] if rgb_tol is None else rgb_tol
     dr = abs(rays - ref["rays_traced"]) / max(ref["rays_traced"], 1.0)
     dc = abs(mean_rgb - ref["mean_rgb"]) / max(abs(ref["mean_rgb"]), 1e-6)
     res, depth, spp = probe_config(which, **cfg)
+    if scene.light_sampler != "power":
+        which = f"{which} ({scene.light_sampler} sampler)"
     msg = (f"{which} {res}x{res} depth {depth} {spp} spp: rays_traced {rays:.2f} vs "
            f"{ref['rays_traced']:.2f} ({dr * 100:.3f}%, tolerance 0.5%), mean_rgb "
            f"{mean_rgb:.7f} vs {ref['mean_rgb']:.7f} ({dc * 100:.3f}%, tolerance "

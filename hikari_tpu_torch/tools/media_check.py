@@ -14,9 +14,9 @@ draw independently. Two measurements:
   fog's 64x64 probe over 1 and 512 samples and the grid cloud's 32x32
   depth-12 16-sample probe (``chip_smoke.py``'s); on the CPU: the
   16x16 probes of ``tests/test_torch_media_render.py`` and the fog's
-  1-sample 64x64 probe. Where ``data/media_probe_ref.json`` holds the
+  1-sample 64x64 probe. Where ``data/probe_ref.json`` holds the
   JAX package's draws of the same probe with the same salts
-  (``tools/gen_media_probe_ref.py``), the two means are compared: their
+  (``tools/gen_probe_ref.py``), the two means are compared: their
   difference in standard errors of the difference.
 * ``[renders]`` (with ``--device cuda``): the fog (depth 5) and grid cloud
   (depth 12) main paths, ``render`` at 800x800 and 4 samples, each

@@ -21,6 +21,7 @@ FORBIDDEN = {"jax", "jaxlib", "hikari_tpu"}
 # outside the repository, which the copy's replaces.
 COPIES = {
     "data/cie_xyz.npz": "data/cie_xyz.npz",
+    "data/hosek_wilkie.npz": "data/hosek_wilkie.npz",
     "data/illuminant_d65.npz": "data/illuminant_d65.npz",
     "data/metal_spectra.npz": "data/metal_spectra.npz",
     "data/sobol_matrices_32.npy": "data/sobol_matrices_32.npy",

@@ -38,7 +38,7 @@ import hikari_tpu_torch as hk
 from hikari_tpu_torch.geometry import instanced as tinst
 from hikari_tpu_torch.geometry import sweep_inst
 from hikari_tpu_torch.geometry import wavefront as twf
-from hikari_tpu_torch.lights.types import LightBanks
+from test_torch_scene import jax_light_arrays
 from hikari_tpu_torch.materials.types import MaterialBanks
 from hikari_tpu_torch.scene.bridge import coef_from_bw, scene_from_numpy
 
@@ -107,8 +107,7 @@ def jax_instanced_arrays(js) -> dict:
     out["inst.bw"] = np.asarray(js.inst.bw).astype(np.float32)
     for f in fields(MaterialBanks):
         out[f"materials.{f.name}"] = np.asarray(getattr(js.materials, f.name))
-    for f in fields(LightBanks):
-        out[f"lights.{f.name}"] = np.asarray(getattr(js.lights, f.name))
+    out.update(jax_light_arrays(js))
     return out
 
 

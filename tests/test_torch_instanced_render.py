@@ -3,8 +3,9 @@
 The 3x3 instanced sphere grid of tests/test_torch_instanced.py (one
 instance rotated and non-uniformly scaled, per-instance materials with
 Gold, an emissive quad in BLAS 0): VolPath render_lanes against the JAX
-render, and against the same grid built flattened in the port alone; and
-the instanced default scene against the flat one. Kept apart from the
+render, and against the same grid built flattened in the port alone; the instanced default
+scene against the flat one; and an instanced scene under a sun and sky
+against the JAX package's flat build of it. Kept apart from the
 table and traversal tests so that pytest-xdist's file-level scheduling
 runs the JAX instanced render's compile beside them.
 
@@ -24,7 +25,12 @@ from hikari_tpu.camera.camera import make_perspective_camera as j_camera
 from hikari_tpu.film.filters import make_filter as j_filter
 from hikari_tpu.integrators.volpath import VolPath as JVolPath
 from hikari_tpu.integrators.volpath import render_lanes as j_render_lanes
+import hikari_tpu as jhk
+from hikari_tpu.lights.sunsky import sunsky_environment as j_sunsky
+from hikari_tpu.scene.mesh import TriangleMesh as JTriangleMesh
+from hikari_tpu.scene.scene import Scene as JScene
 import hikari_tpu_torch as hk
+from test_torch_lights_render import _assert_invariants, _both, _jax_renderer
 from test_torch_instanced import AT, EYE, FOV, PORT_API, RES, _build_grid, grid  # noqa: F401
 
 
@@ -116,3 +122,47 @@ def test_instanced_default_scene_matches_flat_default():
         out.append((rays / 4, rgb / 4))
     (fr, fc), (ir, ic) = out
     assert abs(ir - fr) <= 0.005 * fr and abs(ic - fc) <= 0.02 * fc, out
+
+
+def _placements():
+    tr = np.tile(np.eye(4, dtype=np.float32), (5, 1, 1))
+    for k in range(5):
+        s = 0.6 + 0.15 * k
+        tr[k, :3, :3] = np.diag([s, s * 1.2, s])
+        tr[k, :3, 3] = (-2.0 + k, 0.5 * s * 1.2, 0.5 * (k % 2))
+    return tr
+
+
+def test_instanced_sky_matches_jax_flat():
+    """Five placements of one 8 x 16 sphere (a padded BLAS) on a floor,
+    under the sun and sky: the port's instanced build against the JAX
+    package's flat build of the same triangles (the JAX package's own
+    instanced build has an infinite scene radius, ROADMAP C, so its
+    distant and environment lights are no reference). The radius is the
+    flat one's; rays within 0.5% and mean RGB within 2% at depth 3."""
+    tr = _placements()
+    unit = hk.make_sphere((0.0, 0.0, 0.0), 0.5, 8, 16)
+    sky = dict(direction=(0.3, 0.5, 0.4), resolution=32)
+
+    s = hk.Scene()
+    s.add(hk.make_quad((-4, 0, -4), (4, 0, -4), (4, 0, 4), (-4, 0, 4)), hk.Matte(kd=(0.5,) * 3))
+    s.add_instanced(unit, tr, hk.Matte(kd=(0.3, 0.5, 0.7)))
+    for light in hk.sunsky_environment(**sky):
+        s.add_light(light)
+    ts = s.build(device="cpu")
+
+    j = JScene()
+    j.add(jhk.make_quad((-4, 0, -4), (4, 0, -4), (4, 0, 4), (-4, 0, 4)), jhk.Matte(kd=(0.5,) * 3))
+    v = np.asarray(unit.vertices, np.float32)
+    for m in tr:
+        j.add(JTriangleMesh(vertices=v @ m[:3, :3].T + m[:3, 3], faces=unit.faces),
+              jhk.Matte(kd=(0.3, 0.5, 0.7)))
+    for light in j_sunsky(**sky):
+        j.add_light(light)
+    js = j.build()
+
+    assert ts.has_instances and bool((ts.inst.hi > 1e37).any())
+    assert ts.scene_radius == pytest.approx(float(js.scene_radius), rel=1e-6)
+    cam = ((0.0, 2.0, -5.0), (0.0, 0.4, 0.0), 50.0)
+    jrgb, jrays, trgb, trays = _both(_jax_renderer(js, cam, 3), ts, cam, 3)
+    _assert_invariants(jrgb, jrays, trgb, trays)

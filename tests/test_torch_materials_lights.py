@@ -23,6 +23,7 @@ from hikari_tpu.spectral.rgb2spec import srgb_table
 from hikari_tpu_torch.lights import types as tlt
 from hikari_tpu_torch.materials import bsdf as tb
 from hikari_tpu_torch.materials import types as tmt
+from hikari_tpu_torch.spectral.rgb2spec import srgb_table as t_srgb_table
 
 RTOL, ATOL, FLAGS, WORST = 1e-5, 1e-6, 0.999, 1e-4
 N = 4096
@@ -145,7 +146,8 @@ def lights():
     pts = [((0.0, 3.0, -0.5), (8.0, 8.0, 8.0)), ((1.0, 2.0, 1.0), (2.0, 4.0, 1.0))]
     jb_ = jlt.pack_lights([jlt.PointLight(position=p, intensity=i) for p, i in pts],
                           area, scene_radius=5.0)
-    tb_ = tlt.pack_lights([tlt.PointLight(position=p, intensity=i) for p, i in pts], area)
+    tb_ = tlt.pack_lights([tlt.PointLight(position=p, intensity=i) for p, i in pts], area,
+                          scene_radius=5.0)
     return jb_, tb_, rng
 
 
@@ -171,7 +173,8 @@ def test_sample_li_and_area_pdf(lights):
     u2 = rng.rand(N, 2).astype(np.float32)
     js = jlt.sample_li(jbk, srgb_table(), jnp.asarray(ltype), jnp.asarray(lidx),
                        jnp.asarray(p), jnp.asarray(lam), jnp.asarray(u2), jnp.float32(5.0))
-    ts = tlt.sample_li(tbk, *(torch.from_numpy(a) for a in (ltype, lidx, p, lam, u2)))
+    ts = tlt.sample_li(tbk, t_srgb_table(), *(torch.from_numpy(a)
+                                               for a in (ltype, lidx, p, lam, u2)), 5.0)
     for f in ("wi", "li", "pdf", "t_max"):
         _close(getattr(ts, f).numpy(), getattr(js, f), f"sample_li.{f}")
     for f in ("is_delta", "valid"):

@@ -12,7 +12,7 @@ by reseeding them with `python -m hikari_tpu_torch.tools.media_check
 0.78% for the grid cloud at 16x16, depth 4, over 64, so the 5% bounds
 are 2.5 and 4.5 standard errors of the difference). The JAX
 side of each comparison is stored in
-hikari_tpu_torch/data/media_probe_ref.json by tools/gen_media_probe_ref.py
+hikari_tpu_torch/data/probe_ref.json by tools/gen_probe_ref.py
 (the JAX renders take minutes on the CPU); the slow tier recomputes one
 of them.
 
@@ -55,9 +55,9 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 def _tool():
-    """tools/gen_media_probe_ref.py (the JAX side of the medium probes)."""
+    """tools/gen_probe_ref.py (the JAX side of the stored probes)."""
     spec = importlib.util.spec_from_file_location(
-        "gen_media_probe_ref", ROOT / "tools" / "gen_media_probe_ref.py")
+        "gen_probe_ref", ROOT / "tools" / "gen_probe_ref.py")
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     return tool
@@ -117,7 +117,8 @@ def _shared_stream_renders(which, res, depth, spp, monkeypatch, q=256.0):
 
 @pytest.mark.parametrize("which, res, depth, spp", [
     ("fog", 8, 5, 2),
-    pytest.param("cloud_grid", 16, 12, 2, marks=pytest.mark.slow)])
+    pytest.param("cloud_grid", 16, 12, 2, marks=pytest.mark.slow),
+    pytest.param("cloud", 16, 12, 2, marks=pytest.mark.slow)])
 def test_render_equals_jax_on_shared_streams(which, res, depth, spp, monkeypatch):
     (j, jrays), (t, trays) = _shared_stream_renders(which, res, depth, spp, monkeypatch)
     assert abs(trays - jrays) <= 1e-3 * jrays, (trays, jrays)

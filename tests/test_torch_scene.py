@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from hikari_tpu.geometry import wavefront as jwf
+from hikari_tpu.lights.bvh_sampler import LightBVH as JLightBVH
 from hikari_tpu.lights.types import PointLight as JPointLight
 from hikari_tpu.materials import types as jmt
 from hikari_tpu.scene.mesh import make_quad as j_quad
@@ -25,6 +26,7 @@ from hikari_tpu.scene.scene import Scene as JScene
 from hikari_tpu_torch.geometry import wavefront as twf
 from hikari_tpu_torch.lights.types import LightBanks
 from hikari_tpu_torch.materials.types import MaterialBanks
+from hikari_tpu_torch.sampling.distributions import Distribution2D
 from hikari_tpu_torch.scene.bridge import coef_from_bw, scene_from_numpy
 from hikari_tpu_torch.scenes import default_scene
 
@@ -78,8 +80,24 @@ def jax_scene_arrays(js) -> dict:
         out[f"treelets.{k}"] = np.asarray(getattr(tl, k))
     for f in fields(MaterialBanks):
         out[f"materials.{f.name}"] = np.asarray(getattr(js.materials, f.name))
+    out.update(jax_light_arrays(js))
+    return out
+
+
+def jax_light_arrays(js) -> dict:
+    """The light banks, the environment's distribution, the BVH light
+    sampler's tree and the sampler of a JAX SceneData, flattened to
+    numpy."""
+    out = {"light_sampler": js.light_sampler}
     for f in fields(LightBanks):
-        out[f"lights.{f.name}"] = np.asarray(getattr(js.lights, f.name))
+        v = getattr(js.lights, f.name)
+        if f.name == "env_dist":
+            out.update({f"lights.env_dist.{g.name}": np.asarray(getattr(v, g.name))
+                        for g in fields(Distribution2D)})
+        else:
+            out[f"lights.{f.name}"] = np.asarray(v)
+    for f in fields(JLightBVH):
+        out[f"light_bvh.{f.name}"] = np.asarray(getattr(js.light_bvh, f.name))
     return out
 
 

@@ -1,0 +1,263 @@
+#!/usr/bin/env python
+"""Compute the JAX package's probes of the port's scenes, on the CPU.
+
+    python tools/gen_probe_ref.py [--only KEY ...] [--reseeds N]
+
+Writes hikari_tpu_torch/data/probe_ref.json, the stored side of every port
+probe that tools/transport_ref.json does not hold (hikari_tpu_torch/scenes.py
+probe_reference; chip_smoke.py phase 4; tests/test_torch_media_render.py,
+tests/test_torch_lights_render.py). Each probe is
+hikari_tpu_torch.scenes.transport_probe's computation on a scene of the
+port's SCENE_DEFS under a light sampler: VolPath(max_depth=depth,
+samples_per_pixel=spp) rendered for samples 0 .. spp-1, rays traced and
+mean framebuffer RGB averaged over the samples.
+
+Scenes without a medium render deterministically given the sampler, so
+one draw is stored and the port matches it to rounding. Media draw from
+per-lane LCG streams seeded from the bits of each ray, and the two
+packages' rays differ in their last bits (XLA contracts a * b + c into
+FMAs, PyTorch does not), so their streams are independent: a medium probe
+is a comparison of averages, and its sample count is chosen so that the
+tolerance is several standard errors of the difference. Each medium probe
+is rendered N times (--reseeds, default 6) with every lane's LCG seed
+XORed with the k-th salt of hikari_tpu_torch.tools.media_check.salt (k = 0
+is the probe as is; media_check reseeds the port with the same salts).
+The stored "rays_traced" and "mean_rgb" are the means over the draws,
+beside the draws themselves and the relative spread of one draw
+("draw_rel_std"); the per-sample spread is draw 0's.
+
+The scenes are built through the JAX API: the fog and the sun-sky cloud by
+bench.build_fog_scene / build_cloud_scene, and the grid cloud, the default
+scene under a light sampler and the lights scene by the jax_*_scene
+builders below (the same scenes as the port's scenes.py builds). Draw 0's
+port value on the CPU is printed beside it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import sys
+import time
+
+import jax
+
+jax.config.update("jax_platforms", "cpu")
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, ROOT)
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+# (scene, light sampler, res, depth, spp, samples per JAX call)
+PROBES = [
+    ("fog", "power", 64, 5, 512, 16),         # chip_smoke.py phase 4, against 2%
+    ("cloud_grid", "power", 32, 12, 16, 16),  # the bench cloud probe's configuration, 10%
+    ("cloud", "power", 32, 12, 16, 16),       # the bench cloud probe, 10%
+    ("fog", "power", 16, 5, 256, 64),         # tests/test_torch_media_render.py, 5%
+    ("cloud_grid", "power", 16, 4, 64, 64),   # tests/test_torch_media_render.py, 5%
+    ("default", "uniform", 64, 5, 1, 1),      # chip_smoke.py phase 4, tests (slow)
+    ("default", "bvh", 64, 5, 1, 1),          # chip_smoke.py phase 4, tests (slow)
+    ("lights", "power", 64, 5, 1, 1),         # chip_smoke.py phase 4, tests (slow)
+    ("lights", "bvh", 32, 5, 4, 4),           # tests/test_torch_lights_render.py
+]
+MEDIUM_SCENES = ("fog", "cloud", "cloud_grid")
+OUT = os.path.join(ROOT, "hikari_tpu_torch", "data", "probe_ref.json")
+
+
+def jax_cloud_grid_scene():
+    """hikari_tpu_torch.scenes.cloud_grid_scene through the JAX API."""
+    from hikari_tpu.lights.types import PointLight
+    from hikari_tpu.materials.types import Emissive, Interface, Matte
+    from hikari_tpu.media.types import CloudVolume
+    from hikari_tpu.scene.mesh import make_box, make_quad
+    from hikari_tpu.scene.scene import Scene
+
+    s = Scene()
+    s.add(make_quad((-8, -0.5, -8), (8, -0.5, -8), (8, -0.5, 8), (-8, -0.5, 8)),
+          Matte(kd=(0.3, 0.35, 0.4)))
+    cloud = CloudVolume(resolution=64, bounds_lo=(-1.6, 0.1, -1.2),
+                        bounds_hi=(1.6, 1.8, 1.2), sigma_s=(60.0,) * 3,
+                        sigma_a=(0.4,) * 3, g=0.877)
+    s.add(make_box((-1.6, 0.1, -1.2), (1.6, 1.8, 1.2)), Interface(), inside_medium=cloud)
+    s.add(make_quad((-2.0, 3.5, -1.5), (2.0, 3.5, -1.5), (2.0, 3.5, 1.5), (-2.0, 3.5, 1.5)),
+          Emissive(le=(0.85, 0.9, 1.0), scale=4.0))
+    s.add_light(PointLight(position=(2.5, 4.0, -2.5), intensity=(40.0, 38.0, 34.0)))
+    return s.build()
+
+
+def jax_default_scene(sampler: str):
+    """bench.py build_scene through the JAX API, under a light sampler."""
+    from hikari_tpu.lights.types import PointLight
+    from hikari_tpu.materials.types import Emissive, Glass, Gold, Matte, Mirror
+    from hikari_tpu.scene.mesh import make_quad, make_sphere
+    from hikari_tpu.scene.scene import Scene
+
+    s = Scene()
+    s.set_light_sampler(sampler)
+    white = Matte(kd=(0.73, 0.73, 0.73))
+    s.add(make_quad((-3, 0, -1), (3, 0, -1), (3, 0, 5), (-3, 0, 5)), white)
+    s.add(make_quad((-3, 0, 5), (3, 0, 5), (3, 4, 5), (-3, 4, 5)), white)
+    s.add(make_quad((-3, 0, -1), (-3, 0, 5), (-3, 4, 5), (-3, 4, -1)),
+          Matte(kd=(0.65, 0.05, 0.05)))
+    s.add(make_quad((3, 0, -1), (3, 4, -1), (3, 4, 5), (3, 0, 5)),
+          Matte(kd=(0.12, 0.45, 0.15)))
+    mats = [Gold(roughness=0.15), Glass(eta=1.5), Mirror(), Matte(kd=(0.3, 0.4, 0.8)),
+            Matte(kd=(0.8, 0.6, 0.2))]
+    for k, (ix, iz) in enumerate((ix, iz) for ix in range(4) for iz in range(4)):
+        s.add(make_sphere((-1.8 + 1.2 * ix, 0.45, 0.2 + 1.2 * iz), 0.42, 32, 64),
+              mats[k % len(mats)])
+    s.add(make_quad((-1.0, 3.99, 1.0), (1.0, 3.99, 1.0), (1.0, 3.99, 3.0), (-1.0, 3.99, 3.0)),
+          Emissive(le=(1.0, 0.95, 0.85), scale=25.0))
+    s.add_light(PointLight(position=(0.0, 3.0, -0.5), intensity=(8.0, 8.0, 8.0)))
+    return s.build()
+
+
+def jax_lights_scene(sampler: str):
+    """hikari_tpu_torch.scenes.lights_scene through the JAX API."""
+    from hikari_tpu.lights.types import (AmbientLight, DistantLight, EnvironmentLight,
+                                         SpotLight, equirect_to_equal_area)
+    from hikari_tpu.materials.types import Gold, Matte
+    from hikari_tpu.scene.mesh import make_box, make_quad, make_sphere
+    from hikari_tpu.scene.scene import Scene
+    from hikari_tpu_torch.scenes import latlong_sky
+
+    s = Scene()
+    s.set_light_sampler(sampler)
+    s.add(make_quad((-4, 0, -4), (4, 0, -4), (4, 0, 4), (-4, 0, 4)), Matte(kd=(0.6, 0.6, 0.6)))
+    s.add(make_quad((-4, 0, 3), (4, 0, 3), (4, 3, 3), (-4, 3, 3)), Matte(kd=(0.5, 0.3, 0.2)))
+    s.add(make_sphere((-0.6, 0.5, 0.8), 0.5, 16, 32), Gold(roughness=0.2))
+    s.add(make_box((0.3, 0.0, 0.2), (1.1, 0.8, 1.0)), Matte(kd=(0.2, 0.4, 0.7)))
+    s.add_light(SpotLight(position=(0.0, 2.5, -1.0), direction=(0.0, -1.0, 0.6),
+                          intensity=(12.0, 11.0, 9.0), cone_angle_deg=35.0,
+                          falloff_start_deg=20.0))
+    s.add_light(DistantLight(direction=(-0.4, -1.0, 0.5), radiance=(1.2, 1.1, 1.0)))
+    s.add_light(AmbientLight(radiance=(0.05, 0.05, 0.06)))
+    s.add_light(EnvironmentLight(image=equirect_to_equal_area(latlong_sky(), 64), scale=0.8))
+    return s.build()
+
+
+def jax_scene(which: str, sampler: str = "power"):
+    """The JAX package's build of a scene of the port's SCENE_DEFS."""
+    import bench
+
+    if which == "default":
+        return jax_default_scene(sampler)
+    if which == "lights":
+        return jax_lights_scene(sampler)
+    assert sampler == "power", (which, sampler)
+    if which == "fog":
+        return bench.build_fog_scene()
+    if which == "cloud":
+        return bench.build_cloud_scene()
+    return jax_cloud_grid_scene()
+
+
+def jax_reseeded(k: int):
+    """The JAX package's LCG seeds XORed with media_check.reseeded's k-th
+    salt, while JAX traces (each jax_probe call traces anew)."""
+    from hikari_tpu.media import sample as jms
+    from hikari_tpu.sampling import u64
+    from hikari_tpu_torch.tools.media_check import salt
+
+    @contextlib.contextmanager
+    def patched():
+        orig = jms.lcg_init
+        jms.lcg_init = lambda o, d, t_max: u64.xor(orig(o, d, t_max),
+                                                    u64.from_int(salt(k), like=o[..., 0]))
+        try:
+            yield
+        finally:
+            jms.lcg_init = orig
+
+    return patched()
+
+
+def jax_probe(js, which: str, res: int, depth: int, spp: int, batch: int):
+    """(rays traced per sample, mean RGB, per-sample mean RGB (spp,)) of the
+    JAX package, `batch` samples per compiled call."""
+    from hikari_tpu.camera.camera import make_perspective_camera
+    from hikari_tpu.film.filters import make_filter
+    from hikari_tpu.integrators.volpath import VolPath, render_lanes
+    from hikari_tpu_torch.scenes import SCENE_DEFS
+
+    assert spp % batch == 0, (spp, batch)
+    (eye, at, fov), _ = SCENE_DEFS[which]
+    camera = make_perspective_camera(eye, at, (res, res), fov_deg=fov)
+    vp = VolPath(max_depth=depth, samples_per_pixel=spp)
+    lanes = jnp.arange(res * res, dtype=jnp.uint32)
+    px, py = jnp.tile(lanes % res, batch), jnp.tile(lanes // res, batch)
+
+    @jax.jit
+    def run(s0):
+        si = s0 + jnp.repeat(jnp.arange(batch, dtype=jnp.uint32), res * res)
+        rgb, _, stats = render_lanes(vp, js, camera, make_filter(), si, px, py)
+        return stats["rays_traced"], rgb.reshape(batch, -1).mean(1)
+
+    rays, means = 0.0, []
+    for s0 in range(0, spp, batch):
+        r, m = run(jnp.uint32(s0))
+        rays += float(r)
+        means.append(np.asarray(m, np.float64))
+    means = np.concatenate(means)
+    return rays / spp, float(means.mean()), means
+
+
+def main():
+    from hikari_tpu_torch.scenes import BUILDERS, probe_key, transport_probe
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", nargs="*", help="probe keys to recompute (default: all)")
+    ap.add_argument("--reseeds", type=int, default=6, help="LCG draws of each medium probe")
+    args = ap.parse_args()
+    refs = {"probes": {}}
+    if os.path.exists(OUT):
+        with open(OUT) as f:
+            refs = json.load(f)
+    scenes, ports = {}, {}
+    for which, sampler, res, depth, spp, batch in PROBES:
+        key = probe_key(which, res, depth, spp, sampler)
+        if args.only and key not in args.only:
+            continue
+        if (which, sampler) not in scenes:
+            scenes[which, sampler] = jax_scene(which, sampler)
+            s = BUILDERS[which]()
+            s.set_light_sampler(sampler)
+            ports[which, sampler] = s.build(device="cpu")
+        draws = []
+        for k in range(args.reseeds if which in MEDIUM_SCENES else 1):
+            t0 = time.perf_counter()
+            with jax_reseeded(k):
+                rays, mean_rgb, means = jax_probe(scenes[which, sampler], which, res, depth,
+                                                  spp, batch)
+            secs = time.perf_counter() - t0
+            draws.append((rays, mean_rgb))
+            port = ""
+            if k == 0:
+                spread = float(means.std(ddof=1) / means.mean()) if spp > 1 else None
+                p = transport_probe(ports[which, sampler], which, res=res, depth=depth, spp=spp)
+                port = f"; port on the CPU {p[0]:.4f} rays, {p[1]:.7f}"
+            print(f"{key}, draw {k}: JAX {rays:.4f} rays, mean RGB {mean_rgb:.7f} ({secs:.0f} "
+                  f"s){port}", flush=True)
+        j = np.array(draws)
+        rel = j.std(0, ddof=1) / j.mean(0) if len(j) > 1 else [None, None]
+        refs["probes"][key] = {
+            "scene": which, "sampler": sampler, "res": res, "depth": depth, "spp": spp,
+            "rays_traced": float(j[:, 0].mean()), "mean_rgb": float(j[:, 1].mean()),
+            "draws": {"rays_traced": j[:, 0].tolist(), "mean_rgb": j[:, 1].tolist()},
+            "draw_rel_std": {"rays_traced": None if rel[0] is None else float(rel[0]),
+                             "mean_rgb": None if rel[1] is None else float(rel[1])},
+            "sample_mean_rel_std": spread, "backend": jax.default_backend(),
+        }
+        print(f"{key}, {len(j)} draw(s): mean rays {j[:, 0].mean():.4f}, mean RGB "
+              f"{j[:, 1].mean():.7f}, rel std of a draw {rel[0]}, {rel[1]}", flush=True)
+        with open(OUT, "w") as f:
+            json.dump(refs, f, indent=1)
+            f.write("\n")
+
+
+if __name__ == "__main__":
+    main()
