@@ -55,8 +55,14 @@ exits nonzero without its result line:
    probe against the JAX package's six-draw mean (rays 0.5%, mean RGB
    10%); the default probe under the uniform and BVH light samplers and
    the lights scene's (spot, distant, ambient and equirect environment
-   light) against the JAX package's (rays 0.5%, mean RGB 2%); every JAX
-   probe but the bench's in hikari_tpu_torch/data/probe_ref.json;
+   light) against the JAX package's (rays 0.5%, mean RGB 2%). Sparse
+   volumes and filters: the sparse cloud's 32x32 depth-12 16-sample probe
+   (a 96^3 cloud written to a NanoVDB file and read back as a
+   BrickGridMedium, under the sun and sky) against the JAX package's
+   six-draw mean (rays 0.5%, mean RGB 10%), and the default probe under
+   the Mitchell and Lanczos filters against the JAX package's (rays 0.5%,
+   mean RGB 1e-4); every JAX probe but the bench's in
+   hikari_tpu_torch/data/probe_ref.json;
 5. main paths: render(VolPath(max_depth=5, samples_per_pixel=4)) at
    800x800 through the public API of the default scene (tile kernels), the
    default scene in pair-grid mode (K5/K6), the default scene with every
@@ -74,7 +80,7 @@ exits nonzero without its result line:
    bit (hold_path; the forest's K3 on the calls whose plain walk fits
    under PLAIN_CALL_S). Then the medium paths: the fog (depth 5) with the tile
    sweeps and with the pair grid, the grid cloud (depth 12) and the sun-sky
-   cloud (the bench's depth 32), each at 800x800, 4 spp, through render
+   cloud (depth 16, half the bench's 32), each at 800x800, 4 spp, through render
    with the same checks, where only the closest kernel (K1, or K5) may
    launch: scenes with Interface faces walk shadow rays through closest
    hits. Before each, an instrumented render_lanes
@@ -83,7 +89,17 @@ exits nonzero without its result line:
    tracking, ratio tracking, closest sweeps, the rest), and captures the
    closest kernel's sweep calls: before the render, the kernel against
    its plain version on every one of them (the path rays' and each
-   shadow-walk segment's), bit for bit, with its summed time and bound;
+   shadow-walk segment's), bit for bit, with its summed time and bound.
+   Then the sparse cloud at the example's depth 24 the same way, with the
+   brick pool's and page table's bytes beside its peak memory; its dense
+   twin (the same file read as a dense grid) the same way, whose mean RGB
+   must be within TWIN_RGB_TOL of the sparse render's (the spread of two
+   sparse draws, under sampler seeds 0 and 1, printed beside it), and the
+   difference of their ms/sample; a 4096^3 index space of two bricks (a
+   512^3 page table) tracked on the card (sparse_index_check). Last, the
+   default scene under the Mitchell filter (K1/K2 held on every sweep
+   call, as the lights' paths) and the same samples in a crop window,
+   whose film must equal the full film's window;
 6. timings: each kernel's wrapper call (pair_schedule and scratch
    included) against its plain version on every sweep call of its main
    path's first wavefront (one per bounce), summed per render beside the
@@ -124,15 +140,27 @@ PROBE_SPP = 4
 # seed differently, and 512 samples ~0.5% (PERF.md; python3 -m
 # hikari_tpu_torch.tools.media_check), well inside the probe's 2%
 FOG_PROBE_SPP = 512
-# the medium paths' depths: the bench's for the fog and the sun-sky cloud,
-# the bench cloud probe's for the grid cloud
-MEDIUM_DEPTH = {"fog": 5, "cloud_grid": 12, "cloud": 32}
+# the medium paths' depths: the bench's for the fog, the bench cloud
+# probe's for the grid cloud, the example's for the sparse cloud; the
+# sun-sky cloud at half the bench's 32, so that the script stays well
+# inside its time limit (its loops follow the machine's host)
+MEDIUM_DEPTH = {"fog": 5, "cloud_grid": 12, "cloud": 16, "sparse_cloud": 24}
+# the sparse cloud's dense twin against it, mean RGB over one 800x800
+# 4-sample render each (2.56M paths; a 16-sample 32x32 draw spreads 2.4%,
+# so a draw of these ~0.2%)
+TWIN_RGB_TOL = 0.03
+# the filter probes: equal to the JAX package's, as the light probes are
+FILTER_RGB_TOL = 1e-4
+CROP = ((0.25, 0.25), (0.75, 0.75))
+SPARSE_INDEX_RES = 4096  # index voxels per axis of sparse_index_check
 BAND_FRAC = 0.15    # banded closest hit: band = 0.15 x the world diagonal
-# phase 6 runs a kernel's plain version on a bounce's call only while that
-# run is expected to stay under this many seconds (the longest, K3's at the
-# instanced default scene's first bounce, takes ~36 s); the call's kernel is
-# timed all the same.
-PLAIN_CALL_S = 45.0
+# a path's plain walk runs on a sweep call only while it is expected to
+# stay under this many seconds (the first call of each kernel always runs:
+# the forest's K3 and K4 take 44 s and 27 s there); the call's kernel is
+# timed all the same. Left out at this limit: K3's calls past 20 s, the
+# instanced default scene's second and third bounces and the forest's
+# third, 26-35 s each.
+PLAIN_CALL_S = 20.0
 # phase 3's pre-test check: listed pairs of each wavefront, and treelets
 # whose triangles the grazing rays aim at (four triangles each)
 PRETEST_PAIRS = 48
@@ -507,11 +535,12 @@ def pretest_check(label, sc, cases, smi, failures):
         failures.append(f"{label} pre-test")
 
 
-def main_path(label, sc, cam, module, names, smi, **vp_kw):
+def main_path(label, sc, cam, module, names, smi, ftype=None, **vp_kw):
     """render(VolPath(max_depth=5, samples_per_pixel=4, **vp_kw)) of `sc`
-    through the public API, after a warm-up render_lanes of sample batch 0
-    that also counts rays and captures the traversal's sweep calls; see
-    timed_render for the checks."""
+    through the public API (through filter ftype, make_filter's default when
+    None), after a warm-up render_lanes of sample batch 0 that also counts
+    rays and captures the traversal's sweep calls; see timed_render for the
+    checks. Returns (launch counts, recorder, timed_render's result)."""
     import torch
     import hikari_tpu_torch as hk
     from hikari_tpu_torch.integrators.volpath import render_lanes
@@ -519,34 +548,36 @@ def main_path(label, sc, cam, module, names, smi, **vp_kw):
     dev = sc.device
     w, h = cam.resolution
     vp = hk.VolPath(max_depth=5, samples_per_pixel=MAIN_SPP, **vp_kw)
+    filt = hk.make_filter() if ftype is None else hk.make_filter(ftype)
     k = vp.sample_batch
     lanes = torch.arange(w * h, device=dev)
     with Recorder(module, names) as rec:
         _, _, stats = render_lanes(
-            vp, sc, cam, hk.make_filter(),
-            torch.arange(k, device=dev).repeat_interleave(w * h),
+            vp, sc, cam, filt, torch.arange(k, device=dev).repeat_interleave(w * h),
             (lanes % w).repeat(k), (lanes // w).repeat(k))
-    counts = timed_render(label, sc, cam, vp, names, smi, float(stats["rays_traced"]),
-                          float(stats["nonfinite_lanes"]))
-    return counts, rec
+    counts, result = timed_render(label, sc, cam, vp, names, smi, float(stats["rays_traced"]),
+                                  float(stats["nonfinite_lanes"]), filt=filt)
+    return counts, rec, result
 
 
-def timed_render(label, sc, cam, vp, names, smi, rays, nonfinite):
-    """render(vp, sc, cam) through the public API with the launch counts
-    reset just before and read just after; rays: the rays of its sample
-    batch, counted by an earlier render_lanes of the same samples. The
-    image must be finite and not black, the kernels `names` must have
-    launched and no other sweep (kernel or plain) may have run."""
+def timed_render(label, sc, cam, vp, names, smi, rays, nonfinite, filt=None, film=None):
+    """render(vp, sc, cam, film, filt) through the public API with the
+    launch counts reset just before and read just after; rays: the rays of
+    its sample batch, counted by an earlier render_lanes of the same
+    samples (None: not counted). The image must be finite and not black,
+    the kernels `names` must have launched and no other sweep (kernel or
+    plain) may have run. Returns (launch counts, dict of the film, its
+    seconds, ms per sample and mean RGB)."""
     import torch
     import hikari_tpu_torch as hk
     from hikari_tpu_torch.geometry import sweep
 
-    w, h = cam.resolution
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sweep.reset_counts()
     t0 = time.perf_counter()
-    img = hk.framebuffer(hk.render(vp, sc, cam))
+    film = hk.render(vp, sc, cam, film, filt)
+    img = hk.framebuffer(film)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(sweep.launches)
@@ -554,19 +585,26 @@ def timed_render(label, sc, cam, vp, names, smi, rays, nonfinite):
     peak = torch.cuda.max_memory_allocated()
     finite = bool(torch.isfinite(img).all())
     mean_rgb = float(img.mean())
-    log(f"[{label}] render {w}x{h}, {MAIN_SPP} spp, depth {vp.max_depth}: {wall:.3f} s, "
-        f"{rays / wall / 1e6:.3f} Mray/s ({rays:.0f} rays), "
-        f"{wall / MAIN_SPP * 1e3:.1f} ms/sample, peak {peak / 2**30:.2f} GiB [{smi}]")
-    log(f"[{label}] mean RGB {mean_rgb:.6f}, finite {finite}, nonfinite lanes "
-        f"{nonfinite:.0f}, launches {counts}, plain sweeps on CUDA {plain_runs}")
-    if not finite or nonfinite != 0.0 or mean_rgb <= 0.0:
+    # not black: the film's weighted sum (a negative-lobed filter's pixel
+    # whose samples weigh < 0 in all divides by framebuffer's 1e-8 floor)
+    mean_sum = float(film.rgb_sum.mean())
+    rate = "rays not counted" if rays is None else (
+        f"{rays / wall / 1e6:.3f} Mray/s ({rays:.0f} rays)")
+    log(f"[{label}] render {film.width}x{film.height}, {MAIN_SPP} spp, depth "
+        f"{vp.max_depth}: {wall:.3f} s, {rate}, {wall / MAIN_SPP * 1e3:.1f} ms/sample, peak "
+        f"{peak / 2**30:.2f} GiB [{smi}]")
+    log(f"[{label}] mean RGB {mean_rgb:.6f} (weighted sum {mean_sum:.6f}), finite {finite}, "
+        f"nonfinite lanes {nonfinite:.0f}, launches {counts}, plain sweeps on CUDA "
+        f"{plain_runs}")
+    if not finite or nonfinite != 0.0 or mean_sum <= 0.0:
         raise SystemExit(f"{label}: output is not a finite, non-black image")
     if (min(counts[n] for n in names) <= 0
             or any(v for n, v in counts.items() if n not in names)
             or any(plain_runs.values())):
         raise SystemExit(f"{label}: the render did not go through exactly the "
                          f"kernels {names}")
-    return counts
+    return counts, dict(film=film, secs=wall, ms_sample=wall / MAIN_SPP * 1e3,
+                        mean_rgb=mean_rgb, peak=peak)
 
 
 class MediumInstruments:
@@ -640,7 +678,7 @@ def medium_path(label, sc, cam, depth, names, smi):
     synchronising stage split. Then the kernel goes against its plain
     version on every captured call (time_kernels) and must equal it bit
     for bit on each; the captured inputs are freed before the render.
-    Returns the render's launch counts."""
+    Returns timed_render's result."""
     import torch
     import hikari_tpu_torch as hk
     from hikari_tpu_torch.geometry import wavefront
@@ -686,7 +724,7 @@ def medium_path(label, sc, cam, depth, names, smi):
     hold_path(label, rec, [(closest, sc.treelets)], smi)
     del rec  # the captured inputs stay out of the render's peak memory
     return timed_render(label, sc, cam, vp, names, smi, float(stats["rays_traced"]),
-                        float(stats["nonfinite_lanes"]))
+                        float(stats["nonfinite_lanes"]))[1]
 
 
 def time_render(label, sc, cam, smi, **vp_kw):
@@ -834,6 +872,143 @@ def hold_path(label, rec, cases, smi, partial=()):
                              f"bit on every sweep call compared, or too few were compared")
 
 
+def sparse_paths(sparse, cam, smi):
+    """The sparse cloud's medium path (medium_path, the example's depth)
+    with the brick pool's and page table's bytes beside its peak memory;
+    the same samples again on the dense twin (the same file read as a
+    dense grid: the same transport, so the ms/sample difference is what the
+    brick reads cost); and the sparse cloud once more under another sampler
+    seed, whose spread from the first sets the scale of the twin's
+    agreement in mean RGB (within TWIN_RGB_TOL)."""
+    import hikari_tpu_torch as hk
+    from hikari_tpu_torch.scenes import sparse_cloud_scene
+
+    depth = MEDIUM_DEPTH["sparse_cloud"]
+    names = ("closest_tiles",)
+    media = sparse.media
+    pool, table = (media.brick_vals.numel() * 4, media.brick_table.numel() * 4)
+    a = medium_path("sparse cloud", sparse, cam, depth, names, smi)
+    log(f"[sparse cloud] brick pool {pool / 2**20:.3f} MiB ({pool // 2048} bricks), page "
+        f"table {table / 2**10:.1f} KiB ({tuple(media.grid_res[0].tolist())} index voxels), "
+        f"beside a peak of {a['peak'] / 2**30:.2f} GiB [{smi}]")
+    del a["film"]
+    dense = sparse_cloud_scene(dense=True).build(device=sparse.device)
+    b = medium_path("sparse cloud dense twin", dense, cam, depth, names, smi)
+    del b["film"], dense
+    _, c = timed_render("sparse cloud seed 1", sparse, cam,
+                        hk.VolPath(max_depth=depth, samples_per_pixel=MAIN_SPP, seed=1),
+                        names, smi, None, 0.0)
+    spread = abs(c["mean_rgb"] / a["mean_rgb"] - 1)
+    diff = abs(b["mean_rgb"] / a["mean_rgb"] - 1)
+    ok = diff <= TWIN_RGB_TOL
+    log(f"[sparse cloud] sparse {a['ms_sample']:.1f} ms/sample, dense twin "
+        f"{b['ms_sample']:.1f} ms/sample: the brick reads cost "
+        f"{a['ms_sample'] - b['ms_sample']:.1f} ms/sample ({a['ms_sample'] / b['ms_sample']:.3f}x); "
+        f"mean RGB sparse {a['mean_rgb']:.6f}, dense {b['mean_rgb']:.6f} ({diff * 100:.3f}%, "
+        f"tolerance {TWIN_RGB_TOL * 100:g}%), sparse under seed 1 {c['mean_rgb']:.6f} "
+        f"({spread * 100:.3f}%: the spread of two draws) [{smi}] -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the dense twin does not render as the sparse cloud")
+
+
+def sparse_index_check(dev, smi):
+    """A 4096^3 index space of two opaque corner bricks (a 512^3 int32 page
+    table, 512 MiB) on the card: delta tracking passes the empty middle
+    (>= 0.99) and is stopped by a corner brick (< 0.2), and the device
+    memory grows by under 1 GiB where the dense extent would be 256 GiB."""
+    import numpy as np
+    import torch
+    from hikari_tpu_torch.media import sample as ms
+    from hikari_tpu_torch.media.types import BrickGridMedium, pack_media
+    from hikari_tpu_torch.spectral.rgb2spec import srgb_table
+
+    nb = SPARSE_INDEX_RES // 8
+    table = np.full((nb, nb, nb), -1, np.int32)
+    table[0, 0, 0] = 0
+    table[-1, -1, -1] = 1
+    t0 = time.perf_counter()
+    banks = pack_media([BrickGridMedium(table=table, bricks=np.full((2, 512), 8.0, np.float32),
+                                        bounds_lo=(0, 0, 0), bounds_hi=(1, 1, 1),
+                                        sigma_a=(2000.0,) * 3, sigma_s=(0.0,) * 3)])
+    del table
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    banks = banks.to(dev)
+    lut = srgb_table().to(dev)
+    n = 65536
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    through = {}
+    for name, cx, spread in (("middle", 0.5, 0.1),
+                             ("corner brick", 0.0, 4.0 / SPARSE_INDEX_RES)):
+        o = torch.zeros(n, 3)
+        o[:, :2] = cx + torch.rand(n, 2, generator=gen) * spread
+        o[:, 2] = -0.1 - torch.rand(n, generator=gen) * 0.01
+        ones = torch.ones(n, 4, device=dev)
+        res = ms.delta_track(
+            banks, lut, torch.zeros(n, dtype=torch.int32, device=dev), o.to(dev),
+            torch.tensor([0.0, 0.0, 1.0], device=dev).expand(n, 3).contiguous(),
+            torch.full((n,), 1.3, device=dev),
+            torch.tensor([500.0, 550.0, 600.0, 650.0], device=dev).expand(n, 4).contiguous(),
+            ones, ones, ones, torch.ones(n, dtype=torch.bool, device=dev),
+            torch.zeros(n, dtype=torch.bool, device=dev))
+        through[name] = float((res.status != ms.ABSORBED).float().mean())
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - base
+    ok = (through["middle"] >= 0.99 and through["corner brick"] < 0.2 and growth < 2**30
+          and banks.brick_vals.numel() == 1024)
+    log(f"[sparse index] {SPARSE_INDEX_RES}^3 index voxels ({nb}^3 page table, "
+        f"{banks.brick_table.numel() * 4 / 2**20:.0f} MiB; 2 bricks, "
+        f"{banks.brick_vals.numel() * 4} B; packed on the host in {host_s:.1f} s): "
+        f"{n} delta-tracked rays pass the empty middle at {through['middle']:.4f} and a "
+        f"corner brick at {through['corner brick']:.4f}; device memory grew by "
+        f"{growth / 2**20:.1f} MiB (the dense extent: "
+        f"{SPARSE_INDEX_RES ** 3 * 4 / 2**30:g} GiB) [{smi}] -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"the {SPARSE_INDEX_RES}^3 sparse index space check failed")
+
+
+def filter_paths(sc, cam, smi):
+    """The default scene under the Mitchell filter (negative lobes, the
+    tabulated 2D distribution) at full size, each kernel held against its
+    plain version on every sweep call of the warm-up wavefront; then the
+    same samples in the crop window ((0.25, 0.25), (0.75, 0.75)), whose
+    film must equal the full film's window (lanes carry full-image pixels)
+    within rtol 1e-5 / atol 1e-6."""
+    import torch
+    import hikari_tpu_torch as hk
+    from hikari_tpu_torch.geometry import wavefront
+
+    names = ("closest_tiles", "occlusion_tiles")
+    _, rec, full = main_path("mitchell", sc, cam, wavefront, names, smi, ftype=hk.MITCHELL)
+    hold_path("mitchell", rec, [(n, sc.treelets) for n in names], smi)
+    del rec
+    w, h = cam.resolution
+    film = hk.make_film(w, h, device=sc.device, crop_bounds=CROP)
+    _, crop = timed_render("mitchell crop", sc, cam,
+                           hk.VolPath(max_depth=5, samples_per_pixel=MAIN_SPP), names, smi,
+                           None, 0.0, filt=hk.make_filter(hk.MITCHELL), film=film)
+    x0, y0 = film.crop_x0, film.crop_y0
+    err = {}
+    for name in ("rgb_sum", "weight_sum"):
+        got = getattr(crop["film"], name)
+        want = getattr(full["film"], name)[y0:y0 + film.height, x0:x0 + film.width]
+        err[name] = float(((got - want).abs() / (1e-6 + 1e-5 * want.abs())).max())
+    ok = max(err.values()) <= 1.0
+    log(f"[mitchell crop] window {film.width}x{film.height} at ({x0}, {y0}) of {w}x{h}: "
+        f"{crop['ms_sample']:.1f} ms/sample against the full {full['ms_sample']:.1f} "
+        f"({crop['ms_sample'] / full['ms_sample']:.3f}x); the film sums against the full "
+        f"film's window, worst error over (1e-6 + 1e-5 |full|): rgb_sum "
+        f"{err['rgb_sum']:.3f}, weight_sum {err['weight_sum']:.3f} [{smi}] -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the crop window's film differs from the full render's window")
+    del full, crop
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (ROOT / "hikari_tpu_torch").is_dir():
         print("chip_smoke.py: hikari_tpu_torch/ not found next to this script",
@@ -877,11 +1052,12 @@ def main() -> int:
         log(f"[build] {name}: {regs} registers a thread, {spill} B spilled, "
             f"{blocks} resident blocks per SM")
 
+    from hikari_tpu_torch.film.filters import LANCZOS, MITCHELL
     from hikari_tpu_torch.scenes import (BUILDERS, check_transport, cloud_grid_scene,
                                          cloud_scene, default_scene, fog_scene, forest_camera,
                                          forest_scene, instanced_default_scene, lights_scene,
-                                         probe_reference, scene_camera, sphere_scene,
-                                         transport_probe)
+                                         probe_reference, scene_camera, sparse_cloud_scene,
+                                         sphere_scene, transport_probe)
 
     flat_names = ("closest_tiles", "occlusion_tiles")
     inst_names = ("closest_inst", "occlusion_inst")
@@ -992,15 +1168,31 @@ def main() -> int:
         if not ok:
             raise SystemExit(f"{key} probe failed: {msg}")
     del scenes["default uniform"], scenes["lights"]
+    # the sparse cloud (a NanoVDB file read back as bricks) against the JAX
+    # package's six-draw mean; the default scene under the tabulated filters
+    t0 = time.perf_counter()
+    scenes["sparse cloud"] = sparse_cloud_scene().build(device=dev)
+    log(f"[transport] sparse cloud: generated, written, read back sparse and built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ok, msg = check_transport(scenes["sparse cloud"], "sparse_cloud")
+    log(f"[transport] {msg} -> {'pass' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"sparse cloud probe failed: {msg}")
+    for ftype in (MITCHELL, LANCZOS):
+        ok, msg = check_transport(scenes["default"], "default", ftype=ftype,
+                                  rgb_tol=FILTER_RGB_TOL)
+        log(f"[transport] {msg} -> {'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"filter probe failed: {msg}")
 
     # phase 5: the main paths at full size: flat (tile sweeps, pair grid,
     # every switch on), then instanced
     main_cam = scene_camera("default", MAIN_RES)
-    flat_counts, flat_rec = main_path("main", scenes["default"], main_cam, wavefront,
-                                      flat_names, smi)
+    flat_counts, flat_rec, _ = main_path("main", scenes["default"], main_cam, wavefront,
+                                         flat_names, smi)
     with switched(wavefront, SWEEP_MODE="pairs"):
-        pair_counts, pair_rec = main_path("pair grid", scenes["default"], main_cam,
-                                          wavefront, pair_names, smi)
+        pair_counts, pair_rec, _ = main_path("pair grid", scenes["default"], main_cam,
+                                             wavefront, pair_names, smi)
     with switched(wavefront, SWEEP_MODE="pairs", BAND_FRAC=BAND_FRAC, SHADOW_REV=True):
         main_path("all modes", scenes["default"], main_cam, wavefront, pair_names, smi,
                   material_coherence="sorted", resident="on")
@@ -1012,9 +1204,9 @@ def main() -> int:
             ("resident loop", {}, dict(resident="on"))):
         with switched(wavefront, SWEEP_MODE="pairs", **switches):
             time_render(f"pair grid + {label}", scenes["default"], main_cam, smi, **vp_kw)
-    inst_counts, inst_rec = main_path("instanced", scenes["instanced default"],
-                                      scene_camera("default", MAIN_RES), instanced,
-                                      inst_names, smi)
+    inst_counts, inst_rec, _ = main_path("instanced", scenes["instanced default"],
+                                         scene_camera("default", MAIN_RES), instanced,
+                                         inst_names, smi)
     # the lights' paths, each kernel held against its plain version on
     # every sweep call of the path: the sun and sky's shadow rays run to
     # twice the scene's radius (on the forest through 401 treelets of
@@ -1026,7 +1218,7 @@ def main() -> int:
             ("sphere", "sphere", scene_camera("sphere", MAIN_RES), wavefront, flat_names, ()),
             ("bvh sampler", "default bvh", main_cam, wavefront, flat_names, ())):
         sc = scenes[which]
-        _, rec = main_path(label, sc, cam, module, names, smi)
+        _, rec, _ = main_path(label, sc, cam, module, names, smi)
         hold_path(label, rec, [(n, None if sc.has_instances else sc.treelets) for n in names],
                   smi, partial=partial)
         del rec  # the captured inputs stay out of the next path's peak memory
@@ -1040,6 +1232,13 @@ def main() -> int:
         with switched(wavefront, **switches):
             medium_path(label, scenes[which.replace("_", " ")],
                         scene_camera(which, MAIN_RES), MEDIUM_DEPTH[which], names, smi)
+    # the sparse cloud at the example's depth, its dense twin, a 4096^3
+    # index space; the default scene under the Mitchell filter and its crop
+    sparse_paths(scenes["sparse cloud"], scene_camera("sparse_cloud", MAIN_RES), smi)
+    del scenes["sparse cloud"]
+    torch.cuda.empty_cache()
+    sparse_index_check(dev, smi)
+    filter_paths(scenes["default"], main_cam, smi)
 
     # phase 6: kernel times at the main paths' shapes (after the counts were read)
     flat_tl = scenes["default"].treelets

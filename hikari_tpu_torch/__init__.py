@@ -5,8 +5,9 @@ The JAX package ``hikari_tpu`` is the reference; this package mirrors its
 module tree and names and is checked against it. It imports neither JAX nor
 ``hikari_tpu`` and reads no file of it: its data tables (``data/``) and
 BVH builder source (``csrc/bvh_builder.cpp``) are copies of the
-reference's. Participating media (homogeneous, density-grid and RGB-grid,
-delta and ratio tracking), every light (point, spot, distant, sun,
+reference's. Participating media (homogeneous, density-grid, RGB-grid and
+sparse brick grids read from NanoVDB files, delta and ratio tracking),
+every light (point, spot, distant, sun,
 ambient, area, environment and the Hosek-Wilkie sun and sky) and the
 power, uniform and BVH light samplers are plain PyTorch. The Pallas sweep kernels of the flat, pair-grid and
 instanced paths are hand-written CUDA (``csrc/sweep_tiles.cu``,
@@ -28,26 +29,43 @@ use. Entry points run on the first CUDA device unless given
 
 __version__ = "0.1.0"
 
-from .camera.camera import make_perspective_camera
-from .film.film import framebuffer, make_film
-from .film.filters import make_filter
-from .integrators.volpath import VolPath, render, render_lanes
+from .camera.camera import PerspectiveCamera, make_matrix_camera, make_perspective_camera
+from .core.transform import (Transform, from_matrix, identity, look_at, perspective, rotate,
+                             rotate_x, rotate_y, rotate_z, scale, translate)
+from .film.film import Film, framebuffer, make_film
+from .film.filters import BOX, GAUSSIAN, LANCZOS, MITCHELL, TRIANGLE, make_filter
+from .integrators.volpath import (VolPath, render, render_lanes, scene_any_hit,
+                                  scene_closest_hit)
 from .lights.sunsky import sunsky_environment
 from .lights.types import (AmbientLight, DistantLight, EnvironmentLight, PointLight,
                            SpotLight, SunLight, equirect_to_equal_area)
-from .materials.types import Conductor, Emissive, Glass, Gold, Interface, Matte, Mirror
-from .media.types import (CloudVolume, Fog, GridMedium, HomogeneousMedium, Milk,
-                          RGBGridMedium, Smoke, medium_preset)
-from .scene.mesh import TriangleMesh, make_box, make_quad, make_sphere
+from .materials.types import (BK7, SF11, Aluminum, Brass, Conductor, Copper, Diamond,
+                              Dielectric, Diffuse, Emissive, FusedSilica, Glass, Gold,
+                              Interface, Matte, Metal, Mirror, Sapphire, Silver)
+from .media.nanovdb import load_nanovdb, load_nanovdb_sparse, nanovdb_medium, save_nanovdb
+from .media.noise import fbm3d, generate_cloud_density, perlin3d, worley3d
+from .media.types import (BrickGridMedium, CloudVolume, Fog, GridMedium, HomogeneousMedium,
+                          Milk, RGBGridMedium, Smoke, medium_preset)
+from .scene.mesh import (TriangleMesh, compute_vertex_normals, load_obj, make_box,
+                         make_quad, make_sphere)
 from .scene.scene import Scene, SceneData
 
 __all__ = [
     "Scene", "SceneData", "TriangleMesh", "make_box", "make_quad", "make_sphere",
-    "Matte", "Gold", "Conductor", "Glass", "Mirror", "Emissive", "Interface", "PointLight",
+    "load_obj", "compute_vertex_normals",
+    "Transform", "identity", "translate", "scale", "rotate", "rotate_x", "rotate_y",
+    "rotate_z", "look_at", "perspective", "from_matrix",
+    "Matte", "Diffuse", "Gold", "Silver", "Copper", "Aluminum", "Brass", "Conductor",
+    "Metal", "Glass", "Dielectric", "BK7", "SF11", "Sapphire", "FusedSilica", "Diamond",
+    "Mirror", "Emissive", "Interface", "PointLight",
     "SpotLight", "DistantLight", "SunLight", "AmbientLight", "EnvironmentLight",
     "sunsky_environment", "equirect_to_equal_area",
-    "HomogeneousMedium", "GridMedium", "RGBGridMedium", "CloudVolume", "Fog", "Milk",
-    "Smoke", "medium_preset",
-    "make_perspective_camera", "make_filter", "VolPath", "render",
-    "render_lanes", "make_film", "framebuffer",
+    "HomogeneousMedium", "GridMedium", "RGBGridMedium", "BrickGridMedium", "CloudVolume",
+    "Fog", "Milk", "Smoke", "medium_preset",
+    "save_nanovdb", "load_nanovdb", "load_nanovdb_sparse", "nanovdb_medium",
+    "perlin3d", "fbm3d", "worley3d", "generate_cloud_density",
+    "PerspectiveCamera", "make_perspective_camera", "make_matrix_camera",
+    "make_filter", "BOX", "TRIANGLE", "GAUSSIAN", "MITCHELL", "LANCZOS",
+    "VolPath", "render", "render_lanes", "scene_closest_hit", "scene_any_hit",
+    "Film", "make_film", "framebuffer",
 ]

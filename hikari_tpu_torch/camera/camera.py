@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..core.transform import Transform, deg2rad, from_matrix, look_at, perspective
@@ -69,3 +70,21 @@ def make_perspective_camera(eye, target, resolution, up=(0.0, 1.0, 0.0),
         camera_to_world=cam_to_world, raster_to_camera=raster_to_camera,
         lens_radius=float(lens_radius), focal_distance=float(focal_distance),
         resolution=(w, h))
+
+
+def make_matrix_camera(view, projection, resolution) -> PerspectiveCamera:
+    """Camera from explicit view / projection matrices (matrix.jl:13-115),
+    e.g. handed over from an interactive viewer: camera-to-world is the
+    inverse view, raster-to-camera the inverse projection after raster to
+    NDC; no lens."""
+    w, h = resolution
+    view = torch.from_numpy(np.array(view, dtype=np.float32))
+    projection = torch.from_numpy(np.array(projection, dtype=np.float32))
+    screen_from_ndc = torch.tensor([[2.0 / w, 0.0, 0.0, -1.0],
+                                    [0.0, -2.0 / h, 0.0, 1.0],
+                                    [0.0, 0.0, 1.0, 0.0],
+                                    [0.0, 0.0, 0.0, 1.0]], dtype=torch.float32)
+    return PerspectiveCamera(
+        camera_to_world=from_matrix(torch.linalg.inv(view)),
+        raster_to_camera=from_matrix(torch.linalg.inv(projection) @ screen_from_ndc),
+        lens_radius=0.0, focal_distance=1e6, resolution=(w, h))

@@ -1,8 +1,9 @@
 """Affine transforms as paired 4x4 float32 matrices (m, m_inv).
 
-Port of the parts of ``hikari_tpu/core/transform.py`` the camera needs:
-``look_at`` and ``perspective``. Matrices are small CPU tensors; callers
-move them to the device of the data they transform.
+Port of ``hikari_tpu/core/transform.py``: identity, translate, scale,
+rotations about an axis or x / y / z, look_at and perspective. Matrices
+are single (4, 4) CPU tensors; callers move them to the device of the data
+they transform.
 """
 
 from __future__ import annotations
@@ -27,6 +28,10 @@ class Transform:
         """self o other (apply other first)."""
         return Transform(self.m @ other.m, other.m_inv @ self.m_inv)
 
+    def __matmul__(self, other: "Transform") -> "Transform":
+        """`a @ b` composes like the reference's `a * b` (apply b first)."""
+        return self.compose(other)
+
     def apply_point(self, p: torch.Tensor) -> torch.Tensor:
         m = self.m.to(p.device)
         r = (m[:3, :3] * p[..., None, :]).sum(-1) + m[:3, 3]
@@ -36,6 +41,11 @@ class Transform:
     def apply_vector(self, v: torch.Tensor) -> torch.Tensor:
         m = self.m.to(v.device)
         return (m[:3, :3] * v[..., None, :]).sum(-1)
+
+
+def identity() -> Transform:
+    e = torch.eye(4)
+    return Transform(e, e)
 
 
 def from_matrix(m: torch.Tensor) -> Transform:
@@ -48,6 +58,40 @@ def scale(s) -> Transform:
     one = torch.ones(1)
     return Transform(torch.diag(torch.cat([s, one])),
                      torch.diag(torch.cat([1.0 / s, one])))
+
+
+def translate(delta) -> Transform:
+    delta = torch.as_tensor(delta, dtype=torch.float32)
+    m, mi = torch.eye(4), torch.eye(4)
+    m[:3, 3] = delta
+    mi[:3, 3] = -delta
+    return Transform(m, mi)
+
+
+def rotate(theta, axis) -> Transform:
+    """Rotation of `theta` radians about `axis`."""
+    x, y, z = normalize(torch.as_tensor(axis, dtype=torch.float32))
+    theta = torch.as_tensor(theta, dtype=torch.float32)
+    s, c = torch.sin(theta), torch.cos(theta)
+    r = torch.stack([
+        torch.stack([c + x * x * (1 - c), x * y * (1 - c) - z * s, x * z * (1 - c) + y * s]),
+        torch.stack([y * x * (1 - c) + z * s, c + y * y * (1 - c), y * z * (1 - c) - x * s]),
+        torch.stack([z * x * (1 - c) - y * s, z * y * (1 - c) + x * s, c + z * z * (1 - c)])])
+    m = torch.eye(4)
+    m[:3, :3] = r
+    return Transform(m, m.T.contiguous())
+
+
+def rotate_x(theta) -> Transform:
+    return rotate(theta, (1.0, 0.0, 0.0))
+
+
+def rotate_y(theta) -> Transform:
+    return rotate(theta, (0.0, 1.0, 0.0))
+
+
+def rotate_z(theta) -> Transform:
+    return rotate(theta, (0.0, 0.0, 1.0))
 
 
 def look_at(eye, target, up) -> Transform:

@@ -674,13 +674,15 @@ def render_lanes_segmented(vp: VolPath, scene: SceneData, camera: PerspectiveCam
 def render_sample(vp: VolPath, scene: SceneData, camera: PerspectiveCamera,
                   film: Film, filt: FilterSampler, sample_idx: int) -> Film:
     """Trace sample_batch consecutive samples (from sample_idx) of every
-    pixel as one wavefront and accumulate them into the film."""
+    pixel of the film's window as one wavefront and accumulate them into
+    the film. Lanes carry full-image pixels, so a window's pixels draw the
+    samples of the same pixels of the full render."""
     w, h = film.width, film.height
     n = w * h
     k = max(1, int(vp.sample_batch))
     lanes = torch.arange(n, device=scene.device)
-    px = (lanes % w).repeat(k)
-    py = (lanes // w).repeat(k)
+    px = (film.crop_x0 + lanes % w).repeat(k)
+    py = (film.crop_y0 + lanes // w).repeat(k)
     si = sample_idx + torch.arange(k, device=scene.device).repeat_interleave(n)
     rgb, filter_w, _ = render_lanes(vp, scene, camera, filt, si, px, py)
     rgbw = (rgb * filter_w[:, None]).reshape(k, h, w, 3).sum(0)

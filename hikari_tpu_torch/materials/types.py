@@ -2,10 +2,11 @@
 
 Port of the main-path materials of ``hikari_tpu/materials/types.py``:
 Matte, Mirror, Glass (with Cauchy / Sellmeier dispersion), Conductor
-(measured metals such as Gold, or RGB eta/k), Emissive, and Interface, the
-invisible boundary of a participating medium (no BSDF). Materials are
-pushed into per-type banks and referenced per face by a (type tag, index)
-pair; the tags equal the JAX package's.
+(measured metals: Gold, Silver, Copper, Aluminum, Brass; or RGB eta/k), the
+Sellmeier glass presets (BK7, SF11, Sapphire, FusedSilica, Diamond),
+Emissive, and Interface, the invisible boundary of a participating medium
+(no BSDF). Materials are pushed into per-type banks and referenced per
+face by a (type tag, index) pair; the tags equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -73,8 +74,59 @@ class Conductor:
     remap_roughness: bool = True
 
 
+def BK7(**kw):
+    """N-BK7 borosilicate crown (SCHOTT catalog Sellmeier)."""
+    return Glass(eta=1.5168, sellmeier=(
+        1.03961212, 0.231792344, 1.01046945,
+        0.00600069867, 0.0200179144, 103.560653), **kw)
+
+
+def SF11(**kw):
+    """N-SF11 dense flint (SCHOTT catalog Sellmeier; strong dispersion)."""
+    return Glass(eta=1.7847, sellmeier=(
+        1.73759695, 0.313747346, 1.89878101,
+        0.013188707, 0.0623068142, 155.23629), **kw)
+
+
+def Sapphire(**kw):
+    """Sapphire, ordinary ray (Malitson & Dodge Sellmeier)."""
+    return Glass(eta=1.7682, sellmeier=(
+        1.4313493, 0.65054713, 5.3414021,
+        0.0052799261, 0.0142382647, 325.017834), **kw)
+
+
+def FusedSilica(**kw):
+    """Fused silica (Malitson 1965 Sellmeier)."""
+    return Glass(eta=1.4585, sellmeier=(
+        0.6961663, 0.4079426, 0.8974794,
+        0.0046791483, 0.0135120631, 97.9340025), **kw)
+
+
+def Diamond(**kw):
+    """Diamond (Peter 1923 two-term Sellmeier; n_d 2.4175)."""
+    return Glass(eta=2.4175, sellmeier=(
+        0.3306, 4.3356, 0.0,
+        0.030625, 0.011236, 1.0), **kw)
+
+
 def Gold(roughness=0.0, **kw):
     return Conductor(metal="AU", roughness=roughness, **kw)
+
+
+def Silver(roughness=0.0, **kw):
+    return Conductor(metal="AG", roughness=roughness, **kw)
+
+
+def Copper(roughness=0.0, **kw):
+    return Conductor(metal="CU", roughness=roughness, **kw)
+
+
+def Aluminum(roughness=0.0, **kw):
+    return Conductor(metal="AL", roughness=roughness, **kw)
+
+
+def Brass(roughness=0.0, **kw):
+    return Conductor(metal="CUZN", roughness=roughness, **kw)
 
 
 @dataclass
@@ -90,6 +142,12 @@ class Emissive:
 class Interface:
     """Invisible medium boundary: rays pass straight through, switching
     between the inside and outside media of the faces they cross."""
+
+
+# the reference's user-facing names (uber-material.jl:433-451)
+Diffuse = Matte
+Dielectric = Glass
+Metal = Conductor
 
 
 @dataclass

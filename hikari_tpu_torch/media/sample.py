@@ -1,11 +1,12 @@
 """Medium sampling: delta tracking, ratio tracking and the HG phase function.
 
-Port of ``hikari_tpu/media/sample.py`` without the sparse-brick reads
-(ROADMAP A9). Free flights are sampled against a per-cell majorant (a
-stateless DDA over the medium's MAJORANT_RES^3 cells); each event is an
-absorption, a real scatter or a null scatter, with pbrt-v4's rescaled path
-probabilities (r_u, r_l). Every lane draws from its own 64-bit LCG seeded
-from the bits of its ray, so a lane's result depends on its own state only.
+Port of ``hikari_tpu/media/sample.py``. Free flights are sampled against
+a per-cell majorant (a stateless DDA over the medium's MAJORANT_RES^3
+cells: dense grids' voxel maxima, sparse brick grids' brick maxima); each
+event is an absorption, a real scatter or a null scatter, with pbrt-v4's
+rescaled path probabilities (r_u, r_l). Every lane draws from its own
+64-bit LCG seeded from the bits of its ray, so a lane's result depends on
+its own state only.
 
 The reference's lockstep ``lax.while_loop`` (run while any lane tracks, at
 most MAX_TRACK_STEPS steps) becomes a Python loop with one host sync a
@@ -36,7 +37,7 @@ from ..core.lookup import bank_lookup as _bl
 from ..core.vecmath import coordinate_system, normalize
 from ..sampling.hashes import MASK32, mix_bits, shr
 from ..spectral.rgb2spec import coeff4_eval, rgb_unbounded_eval
-from .types import BRICK, GRID, HOMOGENEOUS, MAJORANT_RES, RGBGRID, MediumBanks
+from .types import BRICK, BRICK_DIM, GRID, HOMOGENEOUS, MAJORANT_RES, RGBGRID, MediumBanks
 
 # lockstep step cap (global steps, as in the reference): a step is one free
 # flight or one majorant-cell crossing
@@ -129,14 +130,13 @@ def _stoch_corner(x0, x1, y0, y1, z0, z1, dx, dy, dz, u3):
             torch.where(u3[..., 2] < dz, z1, z0))
 
 
-def _voxels(banks: MediumBanks, midx, p, offsets):
+def _voxels(banks: MediumBanks, midx, p):
     """Voxel-centred trilinear setup of p in medium midx's grid: (inside,
-    reader(buffer) -> at(x, y, z), corners x0, x1, y0, y1, z0, z1, weights
-    dx, dy, dz)."""
+    resolution (..., 3) int64, corners x0, x1, y0, y1, z0, z1, weights dx,
+    dy, dz)."""
     lo = _bl(banks.bounds_lo, midx)
     hi = _bl(banks.bounds_hi, midx)
-    res = _bl(banks.grid_res, midx)
-    off = _bl(offsets, midx).long()
+    res = _bl(banks.grid_res, midx).long()
     ext = torch.clamp(hi - lo, min=1e-12)
     q = (p - lo) / ext
     inside = ((q >= 0.0) & (q <= 1.0)).all(-1)
@@ -144,17 +144,19 @@ def _voxels(banks: MediumBanks, midx, p, offsets):
     f = torch.minimum(torch.clamp(q * nf - 0.5, min=0.0), nf - 1.0)
     i0 = torch.floor(f).long()
     w = f - i0.float()
-    i1 = torch.minimum(i0 + 1, res.long() - 1)
-    nx, ny = res[..., 0].long(), res[..., 1].long()
-
-    def reader(buffer):
-        def at(xi, yi, zi):
-            lin = off + (zi * ny + yi) * nx + xi
-            return buffer[torch.clamp(lin, 0, buffer.shape[0] - 1)]
-        return at
-
-    return (inside, reader, i0[..., 0], i1[..., 0], i0[..., 1], i1[..., 1], i0[..., 2],
+    i1 = torch.minimum(i0 + 1, res - 1)
+    return (inside, res, i0[..., 0], i1[..., 0], i0[..., 1], i1[..., 1], i0[..., 2],
             i1[..., 2], w[..., 0], w[..., 1], w[..., 2])
+
+
+def _flat_reader(buffer, off, res):
+    """at(x, y, z) of a dense grid stored from voxel off of a flat buffer."""
+    nx, ny = res[..., 0], res[..., 1]
+
+    def at(xi, yi, zi):
+        lin = off + (zi * ny + yi) * nx + xi
+        return buffer[torch.clamp(lin, 0, buffer.shape[0] - 1)]
+    return at
 
 
 def _trilinear(at, x0, x1, y0, y1, z0, z1, dx, dy, dz):
@@ -171,9 +173,36 @@ def _grid_density(banks: MediumBanks, midx, p, u3=None):
     """Density of grid medium midx at world points p: trilinear over voxel
     centres, 0 outside its box; u3 (..., 3) uniforms give the stochastic
     one-corner estimate instead."""
-    inside, reader, x0, x1, y0, y1, z0, z1, dx, dy, dz = _voxels(banks, midx, p,
-                                                                 banks.grid_offset)
-    at = reader(banks.density)
+    inside, res, x0, x1, y0, y1, z0, z1, dx, dy, dz = _voxels(banks, midx, p)
+    at = _flat_reader(banks.density, _bl(banks.grid_offset, midx).long(), res)
+    if u3 is not None:
+        d = at(*_stoch_corner(x0, x1, y0, y1, z0, z1, dx, dy, dz, u3))
+    else:
+        d = _trilinear(at, x0, x1, y0, y1, z0, z1, dx, dy, dz)
+    return torch.where(inside, d, 0.0)
+
+
+def _brick_density(banks: MediumBanks, midx, p, u3=None):
+    """Density of brick medium midx at world points p, as _grid_density
+    reads a dense grid: per corner voxel one page-table read picks the
+    brick (or the background) and one pool read gives the voxel.
+
+    The pool index (base + brick) * 512 + voxel is int64: the JAX
+    package's int32 index wraps past 2^22 bricks (8.6 GB of pool, which
+    one card can hold); below that the two are equal."""
+    inside, res, x0, x1, y0, y1, z0, z1, dx, dy, dz = _voxels(banks, midx, p)
+    tab_off = _bl(banks.brick_tab_off, midx).long()
+    base = _bl(banks.brick_base, midx).long()
+    bg = _bl(banks.brick_bg, midx)
+    tbx, tby = res[..., 0] // BRICK_DIM, res[..., 1] // BRICK_DIM
+    table, vals = banks.brick_table, banks.brick_vals
+
+    def at(xi, yi, zi):
+        cell = tab_off + ((zi >> 3) * tby + (yi >> 3)) * tbx + (xi >> 3)
+        bid = table[torch.clamp(cell, 0, table.shape[0] - 1)].long()
+        lin = (base + bid) * 512 + (((zi & 7) * 8 + (yi & 7)) * 8 + (xi & 7))
+        return torch.where(bid >= 0, vals[torch.clamp(lin, 0, vals.shape[0] - 1)], bg)
+
     if u3 is not None:
         d = at(*_stoch_corner(x0, x1, y0, y1, z0, z1, dx, dy, dz, u3))
     else:
@@ -183,9 +212,8 @@ def _grid_density(banks: MediumBanks, midx, p, u3=None):
 
 def _rgb_grid_trilinear(banks: MediumBanks, midx, p, buffer, u3=None):
     """RGB value of an RGBGridMedium buffer (rgb_sa, rgb_ss or rgb_le) at p."""
-    inside, reader, x0, x1, y0, y1, z0, z1, dx, dy, dz = _voxels(banks, midx, p,
-                                                                 banks.rgb_offset)
-    at = reader(buffer)
+    inside, res, x0, x1, y0, y1, z0, z1, dx, dy, dz = _voxels(banks, midx, p)
+    at = _flat_reader(buffer, _bl(banks.rgb_offset, midx).long(), res)
     if u3 is not None:
         v = at(*_stoch_corner(x0, x1, y0, y1, z0, z1, dx, dy, dz, u3))
     else:
@@ -205,8 +233,12 @@ def _lane_media(banks: MediumBanks, midx, lam) -> dict:
 
 def _properties(banks: MediumBanks, table, lane: dict, midx, p, lam, u3=None):
     sa, ss, le = lane["sa"], lane["ss"], lane["le"]
+    mtype = lane["mtype"]
+    if banks.has_brick:
+        scale = torch.where(mtype == BRICK, _brick_density(banks, midx, p, u3), 1.0)
+        sa = sa * scale[..., None]
+        ss = ss * scale[..., None]
     if banks.has_grid:
-        mtype = lane["mtype"]
         scale = torch.where(mtype == GRID, _grid_density(banks, midx, p, u3), 1.0)
         sa = sa * scale[..., None]
         ss = ss * scale[..., None]

@@ -5,10 +5,10 @@ density grid), RGBGridMedium (per-voxel RGB sigma_a / sigma_s / Le), the
 procedural CloudVolume, the measured presets, and ``pack_media``, which
 packs a scene's media into one ``MediumBanks``: every grid medium shares
 one flat density buffer (and one flat RGB buffer) addressed by a
-per-medium offset, resolution and world box, and every spatial medium
-carries a MAJORANT_RES^3 grid of majorant cells that the tracking loops
-walk. The sparse ``BrickGridMedium`` is ROADMAP A9 and is not ported:
-``pack_media`` raises for it.
+per-medium offset, resolution and world box, every sparse
+``BrickGridMedium`` (NanoVDB-class volumes, ``media/nanovdb.py``) shares one
+page table and one brick pool, and every spatial medium carries a
+MAJORANT_RES^3 grid of majorant cells that the tracking loops walk.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ from ..spectral.rgb2spec import srgb_table, unbounded_coeff4
 HOMOGENEOUS = 0
 GRID = 1
 RGBGRID = 2
-BRICK = 3  # sparse brick-paged grid (ROADMAP A9, not ported)
+BRICK = 3       # sparse brick-paged grid (NanoVDB-class volumes)
+BRICK_DIM = 8   # voxels per brick edge (the NanoVDB leaf)
 
 MAJORANT_RES = 16  # majorant cells per axis
 
@@ -79,12 +80,17 @@ class RGBGridMedium:
 
 @dataclass
 class BrickGridMedium:
-    """Sparse brick-paged density medium (NanoVDB-class volumes). Defined
-    so that scenes naming it fail clearly: ``pack_media`` raises until
-    ROADMAP A9 ports it."""
+    """Sparse density medium: active 8^3 bricks under a coarse int32 page
+    table over the index bbox, so memory follows the active bricks and the
+    table, not the dense extent.
 
-    table: object = None
-    bricks: object = None
+    table: (tbz, tby, tbx) int32 brick ids, -1 = background.
+    bricks: (NB, 512) float32, voxel order ((z&7)*8+(y&7))*8+(x&7).
+    bounds_lo / bounds_hi: world box of the index bbox (table * 8 voxels);
+    sigma_a / sigma_s per unit density."""
+
+    table: object
+    bricks: object
     bounds_lo: tuple = (0.0, 0.0, 0.0)
     bounds_hi: tuple = (1.0, 1.0, 1.0)
     background: float = 0.0
@@ -200,8 +206,14 @@ class MediumBanks:
     maj: torch.Tensor          # (M, R, R, R) per-cell majorant scale
     defl_strength: torch.Tensor  # (M,) 0 = straight rays
     defl_center: torch.Tensor    # (M, 3)
+    brick_table: torch.Tensor    # (TV,) int32 page tables of every BRICK medium
+    brick_vals: torch.Tensor     # (NB * 512,) their bricks' voxels
+    brick_tab_off: torch.Tensor  # (M,) int32 into brick_table
+    brick_base: torch.Tensor     # (M,) int32 brick-id offset into the pool
+    brick_bg: torch.Tensor       # (M,) background density
     n_media: int = 0
     has_grid: bool = False         # a GRID or RGBGRID medium is present
+    has_brick: bool = False        # a BRICK medium is present
     has_deflection: bool = False
     has_rgb: bool = False          # an RGBGRID medium is present
 
@@ -252,7 +264,9 @@ def _empty_banks() -> MediumBanks:
         rgb_sa=z3.clone(), rgb_ss=z3.clone(), rgb_le=z3.clone(),
         rgb_offset=torch.zeros(1, dtype=torch.int32), max_density=torch.ones(1),
         maj=torch.ones((1, r, r, r)), defl_strength=torch.zeros(1),
-        defl_center=z3.clone())
+        defl_center=z3.clone(), brick_table=torch.full((1,), -1, dtype=torch.int32),
+        brick_vals=torch.zeros(1), brick_tab_off=torch.zeros(1, dtype=torch.int32),
+        brick_base=torch.zeros(1, dtype=torch.int32), brick_bg=torch.zeros(1))
 
 
 def pack_media(media: list) -> MediumBanks:
@@ -260,15 +274,16 @@ def pack_media(media: list) -> MediumBanks:
     if not media:
         return _empty_banks()
     rows = {k: [] for k in ("type", "sa", "ss", "le", "g", "lo", "hi", "goff", "roff",
-                            "res", "maxd", "maj", "defl_s", "defl_c")}
-    flat, rgb_sa, rgb_ss, rgb_le = [], [], [], []
-    offset = rgb_offset = 0
+                            "res", "maxd", "maj", "defl_s", "defl_c", "btab", "bbase",
+                            "bbg")}
+    flat, rgb_sa, rgb_ss, rgb_le, brick_tabs, brick_pool = [], [], [], [], [], []
+    offset = rgb_offset = brick_tab_cursor = brick_cursor = 0
     r = MAJORANT_RES
     for m in media:
-        if isinstance(m, BrickGridMedium):
-            raise NotImplementedError(
-                "BrickGridMedium (sparse brick volumes) is not ported to "
-                "hikari_tpu_torch yet: ROADMAP A9")
+        if not isinstance(m, BrickGridMedium):
+            rows["btab"].append(0)
+            rows["bbase"].append(0)
+            rows["bbg"].append(0.0)
         spec = getattr(m, "deflection", None)
         if spec is None:
             rows["defl_s"].append(0.0)
@@ -340,6 +355,36 @@ def pack_media(media: list) -> MediumBanks:
             rgb_ss.append(ssg.reshape(-1, 3))
             rgb_le.append(leg.reshape(-1, 3))
             rgb_offset += nz * ny * nx
+        elif isinstance(m, BrickGridMedium):
+            tab = np.asarray(m.table, np.int32)
+            if tab.ndim != 3:
+                raise ValueError(f"BrickGridMedium.table: shape {tab.shape}, "
+                                 "expected (tbz, tby, tbx)")
+            bricks = np.asarray(m.bricks, np.float32).reshape(-1, 512)
+            tbz, tby, tbx = tab.shape
+            rows["type"].append(BRICK)
+            rows["sa"].append(np.asarray(m.sigma_a) * m.scale)
+            rows["ss"].append(np.asarray(m.sigma_s) * m.scale)
+            rows["le"].append(np.asarray(m.le))
+            rows["lo"].append(m.bounds_lo)
+            rows["hi"].append(m.bounds_hi)
+            rows["goff"].append(0)
+            rows["roff"].append(0)
+            rows["res"].append((tbx * BRICK_DIM, tby * BRICK_DIM, tbz * BRICK_DIM))
+            rows["btab"].append(brick_tab_cursor)
+            rows["bbase"].append(brick_cursor)
+            rows["bbg"].append(float(m.background))
+            brick_tabs.append(tab.reshape(-1))
+            brick_pool.append(bricks)
+            brick_tab_cursor += tab.size
+            brick_cursor += len(bricks)
+            # majorant cells from the brick maxima: _build_majorant_cells'
+            # one-unit dilation is a whole brick of slack here, which covers
+            # the trilinear bleed across brick borders
+            bmax = bricks.max(axis=1) if len(bricks) else np.zeros(1, np.float32)
+            cell = np.where(tab >= 0, bmax[np.maximum(tab, 0)], m.background)
+            rows["maxd"].append(float(cell.max()) if cell.size else 0.0)
+            rows["maj"].append(_build_majorant_cells(cell.astype(np.float32)))
         else:
             raise TypeError(f"unknown medium {type(m).__name__}")
         rows["g"].append(m.g)
@@ -349,6 +394,9 @@ def pack_media(media: list) -> MediumBanks:
             return torch.zeros((1, width) if width else (1,))
         return torch.from_numpy(np.concatenate(parts).astype(np.float32))
 
+    # a brick medium without bricks still reads the pool (masked): one value
+    pool = (np.concatenate(brick_pool).reshape(-1) if brick_pool
+            else np.zeros(0, np.float32))
     table = srgb_table()
     sa, ss, le = (torch.from_numpy(np.stack(rows[k]).astype(np.float32))
                   for k in ("sa", "ss", "le"))
@@ -368,5 +416,11 @@ def pack_media(media: list) -> MediumBanks:
         max_density=_f32(rows["maxd"]),
         maj=torch.from_numpy(np.stack(rows["maj"])),
         defl_strength=_f32(defl_s), defl_center=_f32(rows["defl_c"]),
-        n_media=len(media), has_grid=bool(flat or rgb_sa),
+        brick_table=torch.from_numpy(np.concatenate(brick_tabs) if brick_tabs
+                                     else np.full(1, -1, np.int32)),
+        brick_vals=torch.from_numpy(pool if pool.size else np.zeros(1, np.float32)),
+        brick_tab_off=torch.tensor(rows["btab"], dtype=torch.int32),
+        brick_base=torch.tensor(rows["bbase"], dtype=torch.int32),
+        brick_bg=_f32(rows["bbg"]),
+        n_media=len(media), has_grid=bool(flat or rgb_sa), has_brick=bool(brick_tabs),
         has_deflection=any(s != 0.0 for s in defl_s), has_rgb=bool(rgb_sa))

@@ -48,11 +48,34 @@ class _Tensors:
         return type(self)(**{f.name: getattr(self, f.name).to(device) for f in fields(self)})
 
 
+_SCAN_BLOCK = 16
+
+
+def _cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 prefix sum along the last axis, rounded as the JAX
+    package's ``jnp.cumsum`` on the CPU: XLA sums blocks of 16 in order,
+    the blocks' totals by the same rule, and adds each block's carry to
+    its in-block sums (torch.cumsum rounds otherwise, by a few ulps)."""
+    n = x.shape[-1]
+    lead = x.shape[:-1]
+    if n <= _SCAN_BLOCK:
+        acc, out = torch.zeros(lead, device=x.device), []
+        for k in range(n):
+            acc = acc + x[..., k]
+            out.append(acc)
+        return torch.stack(out, -1) if out else x.clone()
+    nb = -(-n // _SCAN_BLOCK)
+    padded = torch.cat([x, x.new_zeros(lead + (nb * _SCAN_BLOCK - n,))], -1)
+    inner = _cumsum(padded.reshape(lead + (nb, _SCAN_BLOCK)))
+    carry = torch.cat([x.new_zeros(lead + (1,)), _cumsum(inner[..., -1])[..., :-1]], -1)
+    return (inner + carry[..., None]).reshape(lead + (nb * _SCAN_BLOCK,))[..., :n]
+
+
 def _normalised_cdf(func: torch.Tensor):
     """(cdf with a leading 0, integral) along the last axis; a row that
     integrates to 0 gets the uniform CDF."""
     n = func.shape[-1]
-    cdf = torch.cat([torch.zeros(func.shape[:-1] + (1,)), torch.cumsum(func, -1) / n], -1)
+    cdf = torch.cat([torch.zeros(func.shape[:-1] + (1,)), _cumsum(func) / n], -1)
     integral = cdf[..., -1]
     safe = torch.where(integral > 0.0, integral, 1.0)
     cdf = torch.where((integral > 0.0)[..., None], cdf / safe[..., None],

@@ -16,7 +16,8 @@ either
 ``inst.{lo,hi,bw,ti_obj,ti_inst,inst_a}``, ``inst_nrm``, ``inst_l2w`` and
 ``inst_mat_packed`` (an instanced scene). A scene with media adds
 ``media.<field>`` for every tensor field of the port's ``MediumBanks``,
-``media.n_media``, ``media.has_grid``, ``media.has_deflection``,
+``media.n_media``, ``media.has_grid``, ``media.has_brick``,
+``media.has_deflection``,
 ``camera_medium`` and ``has_media``; without them the scene has no media.
 Every ``bw`` is converted to
 float32 by the caller; the instanced BLAS blocks always use the 3-way
@@ -91,7 +92,7 @@ def scene_from_numpy(arrays: dict, device) -> SceneData:
     lights = LightBanks(**light_kw)
     media_kw = dict(media=pack_media([]))
     if "media.med_type" in arrays:
-        flags = {"n_media": int, "has_grid": bool, "has_deflection": bool}
+        flags = {"n_media": int, "has_grid": bool, "has_brick": bool, "has_deflection": bool}
         banks = {f.name: (flags[f.name](arrays[f"media.{f.name}"]) if f.name in flags
                           else t(f"media.{f.name}"))
                  for f in fields(MediumBanks) if f.name != "has_rgb"}

@@ -1,6 +1,6 @@
 """Triangle meshes (host numpy) and procedural constructors.
 
-Port of ``hikari_tpu/scene/mesh.py`` without the OBJ loader.
+Port of ``hikari_tpu/scene/mesh.py``.
 """
 
 from __future__ import annotations
@@ -92,3 +92,52 @@ def make_sphere(center, radius, n_theta=32, n_phi=64) -> TriangleMesh:
                 faces.append([b, c, d])
     return TriangleMesh(verts.astype(np.float32), np.array(faces, np.int32),
                         normals=normals, uvs=uvs)
+
+
+def load_obj(path: str) -> TriangleMesh:
+    """Minimal OBJ loader: v / vn / vt / f, polygons triangulated as fans.
+    Negative (relative) indices are resolved for positions only, as in the
+    JAX package: a corner with a negative vt / vn index gets none."""
+    verts, norms, uvs = [], [], []
+    f_v, f_n, f_t = [], [], []
+    with open(path) as fh:
+        for line in fh:
+            parts = line.split()
+            if not parts:
+                continue
+            if parts[0] == "v":
+                verts.append([float(x) for x in parts[1:4]])
+            elif parts[0] == "vn":
+                norms.append([float(x) for x in parts[1:4]])
+            elif parts[0] == "vt":
+                uvs.append([float(x) for x in parts[1:3]])
+            elif parts[0] == "f":
+                idx = []
+                for tok in parts[1:]:
+                    sub = tok.split("/")
+                    vi = int(sub[0])
+                    ti = int(sub[1]) if len(sub) > 1 and sub[1] else 0
+                    ni = int(sub[2]) if len(sub) > 2 and sub[2] else 0
+                    idx.append((vi, ti, ni))
+                for k in range(1, len(idx) - 1):
+                    tri = [idx[0], idx[k], idx[k + 1]]
+                    f_v.append([t[0] - 1 if t[0] > 0 else len(verts) + t[0] for t in tri])
+                    f_t.append([t[1] - 1 for t in tri])
+                    f_n.append([t[2] - 1 for t in tri])
+
+    verts = np.asarray(verts, np.float32)
+    faces = np.asarray(f_v, np.int32)
+    # per-corner normals / uvs become per-vertex by splitting every corner
+    if norms and any(n >= 0 for tri in f_n for n in tri):
+        norms = np.asarray(norms, np.float32)
+        corner_n = np.asarray(f_n, np.int64).reshape(-1)
+        new_verts = verts[faces.reshape(-1)]
+        new_norms = np.where((corner_n >= 0)[:, None],
+                             norms[np.clip(corner_n, 0, len(norms) - 1)], 0.0).astype(np.float32)
+        new_uvs = None
+        if uvs and any(t >= 0 for tri in f_t for t in tri):
+            uvarr = np.asarray(uvs, np.float32)
+            new_uvs = uvarr[np.clip(np.asarray(f_t, np.int64).reshape(-1), 0, len(uvarr) - 1)]
+        new_faces = np.arange(len(new_verts), dtype=np.int32).reshape(-1, 3)
+        return TriangleMesh(new_verts, new_faces, normals=new_norms, uvs=new_uvs)
+    return TriangleMesh(verts, faces)

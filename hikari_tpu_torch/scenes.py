@@ -13,8 +13,11 @@ tree under the sun and sky). Three scenes hold participating media:
 Interface box inside a Cornell room), ``cloud_scene``
 (``bench.build_cloud_scene``, a 64^3 CloudVolume grid in an Interface box
 over a floor under the sun and sky) and ``cloud_grid_scene`` (the same
-cloud under an emissive quad and a point light). ``lights_scene`` holds a
-spot, a distant, an ambient and an environment light.
+cloud under an emissive quad and a point light) and ``sparse_cloud_scene``
+(``examples/sparse_cloud_example.py``: a 96^3 cloud written to a NanoVDB
+file and read back as a sparse BrickGridMedium, under the sun and sky).
+``lights_scene`` holds a spot, a distant, an ambient and an environment
+light.
 ``transport_probe`` is the port of ``bench.transport_probe`` and
 ``check_transport`` holds it against the stored reference: the bench's
 surface and fog probes in ``tools/transport_ref.json``, with the
@@ -26,18 +29,21 @@ with the JAX package by ``tools/gen_probe_ref.py``.
 from __future__ import annotations
 
 import json
+import tempfile
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from .camera.camera import make_perspective_camera
-from .film.filters import make_filter
+from .film.filters import BOX, GAUSSIAN, LANCZOS, MITCHELL, TRIANGLE, make_filter
 from .integrators.volpath import VolPath, render_lanes, render_lanes_segmented
 from .lights.sunsky import sunsky_environment
 from .lights.types import (AmbientLight, DistantLight, EnvironmentLight, PointLight,
                            SpotLight, equirect_to_equal_area)
 from .materials.types import Emissive, Glass, Gold, Interface, Matte, Mirror
+from .media.nanovdb import nanovdb_medium, save_nanovdb
+from .media.noise import generate_cloud_density
 from .media.types import CloudVolume, HomogeneousMedium
 from .scene.mesh import TriangleMesh, make_box, make_quad, make_sphere
 from .scene.scene import Scene
@@ -55,7 +61,10 @@ SCENE_DEFS = {
     "cloud": (((0.0, 0.7, -3.0), (0.0, 0.9, 0.0), 50.0), (32, 12, 16, 0.10)),
     "cloud_grid": (((0.0, 0.7, -3.0), (0.0, 0.9, 0.0), 50.0), (32, 12, 16, 0.10)),
     "lights": (((0.0, 1.5, -3.5), (0.0, 0.6, 1.0), 50.0), (64, 5, 1, 0.02)),
+    "sparse_cloud": (((0.0, 1.1, -4.2), (0.0, 1.0, 0.0), 50.0), (32, 12, 16, 0.10)),
 }
+FILTER_NAMES = {BOX: "box", TRIANGLE: "triangle", GAUSSIAN: "gaussian",
+                MITCHELL: "mitchell", LANCZOS: "lanczos"}
 PROBE_BATCH = 16  # samples a transport_probe renders in one wavefront
 
 
@@ -289,6 +298,39 @@ def cloud_scene() -> Scene:
     return s
 
 
+SPARSE_CLOUD_BOX = ((-1.6, 0.2, -1.2), (1.6, 2.0, 1.2))
+
+
+def sparse_cloud_scene(resolution: int = 96, path=None, dense: bool = False) -> Scene:
+    """examples/sparse_cloud_example.py: generate_cloud_density(resolution)
+    written by save_nanovdb over SPARSE_CLOUD_BOX to `path` (a temporary
+    file when None), read back by nanovdb_medium (sigma_s 55, sigma_a 0.3,
+    g 0.877) as a sparse BrickGridMedium in an Interface box over a 24 x 24
+    floor, under sunsky_environment(direction=(0.55, 0.4, 0.35)).
+    dense=True reads the same file as a dense GridMedium: the same
+    transport, so the two isolate the cost of the brick reads."""
+    lo, hi = SPARSE_CLOUD_BOX
+
+    def load(nvdb):
+        save_nanovdb(str(nvdb), generate_cloud_density(resolution), origin=lo,
+                     extent=tuple(b - a for a, b in zip(lo, hi)))
+        return nanovdb_medium(str(nvdb), sigma_s=(55.0,) * 3, sigma_a=(0.3,) * 3, g=0.877,
+                              sparse=not dense)
+
+    if path is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            cloud = load(Path(tmp) / "cloud.nvdb")
+    else:
+        cloud = load(path)
+    s = Scene()
+    s.add(make_quad((-12, 0, -12), (12, 0, -12), (12, 0, 12), (-12, 0, 12)),
+          Matte(kd=(0.3, 0.34, 0.4)))
+    s.add(make_box(lo, hi), Interface(), inside_medium=cloud)
+    for light in sunsky_environment(direction=(0.55, 0.4, 0.35)):
+        s.add_light(light)
+    return s
+
+
 def latlong_sky(height: int = 32, width: int = 64) -> np.ndarray:
     """A procedural lat-long (equirectangular) sky, y up: a blue gradient
     over a grey ground and a warm patch at one azimuth."""
@@ -323,7 +365,7 @@ def lights_scene() -> Scene:
 
 BUILDERS = {"default": default_scene, "mesh": mesh_scene, "fog": fog_scene,
             "sphere": sphere_scene, "cloud": cloud_scene, "cloud_grid": cloud_grid_scene,
-            "lights": lights_scene}
+            "lights": lights_scene, "sparse_cloud": sparse_cloud_scene}
 
 
 def scene_camera(which: str, res_px: int):
@@ -338,10 +380,11 @@ def probe_config(which: str, res=None, depth=None, spp=None):
 
 
 def transport_probe(scene, which: str = "default", n_segments: int = 0, res=None,
-                    depth=None, spp=None, **vp_kw):
+                    depth=None, spp=None, ftype: int = GAUSSIAN, **vp_kw):
     """Render of a scene at its probe size (SCENE_DEFS, or res / depth /
     spp): (rays traced, mean framebuffer RGB), each averaged over samples
-    0..spp-1 of VolPath(samples_per_pixel=spp), as a render draws them.
+    0..spp-1 of VolPath(samples_per_pixel=spp), as a render draws them,
+    through the filter ftype (make_filter's default radius).
     (bench.transport_probe keeps samples_per_pixel=1 for its 16-sample
     cloud probe; the sampler then folds sample indices past 0 onto other
     pixels' samples, and the probe averages few distinct samples.) Up to
@@ -357,7 +400,7 @@ def transport_probe(scene, which: str = "default", n_segments: int = 0, res=None
     for s0 in range(0, pspp, PROBE_BATCH):
         k = min(PROBE_BATCH, pspp - s0)
         si = s0 + torch.arange(k, device=scene.device).repeat_interleave(lanes.numel())
-        args = (vp, scene, camera, make_filter(), si, (lanes % pres).repeat(k),
+        args = (vp, scene, camera, make_filter(ftype), si, (lanes % pres).repeat(k),
                 (lanes // pres).repeat(k))
         rgb, _, stats = (render_lanes_segmented(*args, n_segments) if n_segments
                          else render_lanes(*args))
@@ -373,19 +416,24 @@ def transport_probe(scene, which: str = "default", n_segments: int = 0, res=None
 TRANSPORT_REF_SCENES = ("default", "mesh", "fog", "sphere")
 
 
-def probe_key(which: str, res: int, depth: int, spp: int, sampler: str = "power") -> str:
+def probe_key(which: str, res: int, depth: int, spp: int, sampler: str = "power",
+              ftype: int = GAUSSIAN) -> str:
     key = f"{which} {res}x{res} depth {depth} {spp} spp"
-    return key if sampler == "power" else f"{key}, {sampler} sampler"
+    if sampler != "power":
+        key = f"{key}, {sampler} sampler"
+    return key if ftype == GAUSSIAN else f"{key}, {FILTER_NAMES[ftype]} filter"
 
 
-def probe_reference(which: str, res=None, depth=None, spp=None, sampler="power") -> dict:
-    """The JAX package's stored probe of a scene under a light sampler: its
-    bench probe from tools/transport_ref.json, any other from
+def probe_reference(which: str, res=None, depth=None, spp=None, sampler="power",
+                    ftype: int = GAUSSIAN) -> dict:
+    """The JAX package's stored probe of a scene under a light sampler and
+    a filter: its bench probe from tools/transport_ref.json, any other from
     data/probe_ref.json (written by tools/gen_probe_ref.py)."""
     cfg = probe_config(which, res, depth, spp)
-    if sampler == "power" and which in TRANSPORT_REF_SCENES and cfg == probe_config(which):
+    if (sampler == "power" and ftype == GAUSSIAN and which in TRANSPORT_REF_SCENES
+            and cfg == probe_config(which)):
         return json.loads(TRANSPORT_REF.read_text())["scenes"][which]
-    return json.loads(PROBE_REF.read_text())["probes"][probe_key(which, *cfg, sampler)]
+    return json.loads(PROBE_REF.read_text())["probes"][probe_key(which, *cfg, sampler, ftype)]
 
 
 def check_transport(scene, which: str = "default", rgb_tol=None, **probe_kw):
@@ -394,14 +442,17 @@ def check_transport(scene, which: str = "default", rgb_tol=None, **probe_kw):
     0.5%, mean RGB within rgb_tol (SCENE_DEFS's unless given). Returns
     (ok, message)."""
     cfg = {k: probe_kw.pop(k, None) for k in ("res", "depth", "spp")}
-    ref = probe_reference(which, **cfg, sampler=scene.light_sampler)
-    rays, mean_rgb = transport_probe(scene, which, **cfg, **probe_kw)
+    ftype = probe_kw.pop("ftype", GAUSSIAN)
+    ref = probe_reference(which, **cfg, sampler=scene.light_sampler, ftype=ftype)
+    rays, mean_rgb = transport_probe(scene, which, **cfg, ftype=ftype, **probe_kw)
     tol = SCENE_DEFS[which][1][3] if rgb_tol is None else rgb_tol
     dr = abs(rays - ref["rays_traced"]) / max(ref["rays_traced"], 1.0)
     dc = abs(mean_rgb - ref["mean_rgb"]) / max(abs(ref["mean_rgb"]), 1e-6)
     res, depth, spp = probe_config(which, **cfg)
     if scene.light_sampler != "power":
         which = f"{which} ({scene.light_sampler} sampler)"
+    if ftype != GAUSSIAN:
+        which = f"{which} ({FILTER_NAMES[ftype]} filter)"
     msg = (f"{which} {res}x{res} depth {depth} {spp} spp: rays_traced {rays:.2f} vs "
            f"{ref['rays_traced']:.2f} ({dr * 100:.3f}%, tolerance 0.5%), mean_rgb "
            f"{mean_rgb:.7f} vs {ref['mean_rgb']:.7f} ({dc * 100:.3f}%, tolerance "

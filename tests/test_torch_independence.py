@@ -1,6 +1,7 @@
 """The port stands alone: it imports nothing of JAX or of the JAX package,
 reads no file of it, and its copies of the JAX package's data tables, BVH
-builder source and noise module have not drifted from the originals.
+builder source, noise module and NanoVDB reader / writer have not drifted
+from the originals.
 
 Runs on the CPU without JAX.
 """
@@ -28,6 +29,7 @@ COPIES = {
     "data/srgb_spectrum_table.npz": "data/srgb_spectrum_table.npz",
     "csrc/bvh_builder.cpp": "native/bvh_builder.cpp",
     "media/noise.py": "media/noise.py",
+    "media/nanovdb.py": "media/nanovdb.py",
 }
 
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]

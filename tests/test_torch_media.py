@@ -32,7 +32,8 @@ eagerly on the CPU) and its port:
   build (face rows with the medium words, MediumBanks, camera_medium);
   the instanced build's medium words equal the JAX package's;
 * every medium type, the camera medium and instanced media render on the
-  CPU; BrickGridMedium raises NotImplementedError naming ROADMAP A9.
+  CPU; a BrickGridMedium packs into the JAX package's brick tables
+  (tests/test_torch_nanovdb.py holds its reads and renders).
 """
 
 from dataclasses import fields
@@ -171,9 +172,15 @@ def test_majorant_cells_and_banks(banks):
                                        atol=1e-7, err_msg=f.name)
         else:
             np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=f.name)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tmed.pack_media([tmed.BrickGridMedium(table=np.zeros((1, 1, 1), np.int32),
-                                              bricks=np.zeros((1, 512), np.float32))])
+    table = np.array([[[0, -1], [-1, 1]]], np.int32)
+    bricks = rng.rand(2, 512).astype(np.float32)
+    tb = tmed.pack_media([tmed.BrickGridMedium(table=table, bricks=bricks, background=0.1)])
+    jb = jmed.pack_media([jmed.BrickGridMedium(table=table, bricks=bricks, background=0.1)])
+    assert tb.has_brick and jb.has_brick and not tb.has_grid
+    for name in ("brick_table", "brick_vals", "brick_tab_off", "brick_base", "brick_bg",
+                 "grid_res", "maj", "max_density"):
+        np.testing.assert_array_equal(getattr(tb, name).numpy(),
+                                      np.asarray(getattr(jb, name)), err_msg=name)
 
 
 def _rays(seed: int):

@@ -3,12 +3,15 @@
 
     python tools/gen_probe_ref.py [--only KEY ...] [--reseeds N]
 
+(KEY as hikari_tpu_torch.scenes.probe_key writes it, e.g. "sparse_cloud 32x32
+depth 12 16 spp" or "default 64x64 depth 5 1 spp, mitchell filter".)
+
 Writes hikari_tpu_torch/data/probe_ref.json, the stored side of every port
 probe that tools/transport_ref.json does not hold (hikari_tpu_torch/scenes.py
 probe_reference; chip_smoke.py phase 4; tests/test_torch_media_render.py,
 tests/test_torch_lights_render.py). Each probe is
 hikari_tpu_torch.scenes.transport_probe's computation on a scene of the
-port's SCENE_DEFS under a light sampler: VolPath(max_depth=depth,
+port's SCENE_DEFS under a light sampler and a filter: VolPath(max_depth=depth,
 samples_per_pixel=spp) rendered for samples 0 .. spp-1, rays traced and
 mean framebuffer RGB averaged over the samples.
 
@@ -28,8 +31,10 @@ beside the draws themselves and the relative spread of one draw
 
 The scenes are built through the JAX API: the fog and the sun-sky cloud by
 bench.build_fog_scene / build_cloud_scene, and the grid cloud, the default
-scene under a light sampler and the lights scene by the jax_*_scene
-builders below (the same scenes as the port's scenes.py builds). Draw 0's
+scene under a light sampler, the lights scene and the sparse cloud (written
+to a NanoVDB file by the JAX package and read back as its BrickGridMedium)
+by the jax_*_scene builders below (the same scenes as the port's scenes.py
+builds). Draw 0's
 port value on the CPU is printed beside it.
 """
 
@@ -52,7 +57,8 @@ sys.path.insert(0, ROOT)
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-# (scene, light sampler, res, depth, spp, samples per JAX call)
+# (scene, light sampler, res, depth, spp, samples per JAX call[, filter type,
+# hikari_tpu_torch.film.filters' numbering; Gaussian when absent])
 PROBES = [
     ("fog", "power", 64, 5, 512, 16),         # chip_smoke.py phase 4, against 2%
     ("cloud_grid", "power", 32, 12, 16, 16),  # the bench cloud probe's configuration, 10%
@@ -63,8 +69,11 @@ PROBES = [
     ("default", "bvh", 64, 5, 1, 1),          # chip_smoke.py phase 4, tests (slow)
     ("lights", "power", 64, 5, 1, 1),         # chip_smoke.py phase 4, tests (slow)
     ("lights", "bvh", 32, 5, 4, 4),           # tests/test_torch_lights_render.py
+    ("sparse_cloud", "power", 32, 12, 16, 16),  # chip_smoke.py phase 4, tests (slow), 10%
+    ("default", "power", 64, 5, 1, 1, 3),     # Mitchell: chip_smoke.py phase 4, tests (slow)
+    ("default", "power", 64, 5, 1, 1, 4),     # Lanczos: the same
 ]
-MEDIUM_SCENES = ("fog", "cloud", "cloud_grid")
+MEDIUM_SCENES = ("fog", "cloud", "cloud_grid", "sparse_cloud")
 OUT = os.path.join(ROOT, "hikari_tpu_torch", "data", "probe_ref.json")
 
 
@@ -140,6 +149,35 @@ def jax_lights_scene(sampler: str):
     return s.build()
 
 
+def jax_sparse_cloud_scene():
+    """hikari_tpu_torch.scenes.sparse_cloud_scene through the JAX API: the
+    JAX package writes the cloud's NanoVDB file and reads it back sparse."""
+    import tempfile
+
+    from hikari_tpu.lights.sunsky import sunsky_environment
+    from hikari_tpu.materials.types import Interface, Matte
+    from hikari_tpu.media.nanovdb import nanovdb_medium, save_nanovdb
+    from hikari_tpu.media.noise import generate_cloud_density
+    from hikari_tpu.scene.mesh import make_box, make_quad
+    from hikari_tpu.scene.scene import Scene
+    from hikari_tpu_torch.scenes import SPARSE_CLOUD_BOX
+
+    lo, hi = SPARSE_CLOUD_BOX
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cloud.nvdb")
+        save_nanovdb(path, generate_cloud_density(96), origin=lo,
+                     extent=tuple(b - a for a, b in zip(lo, hi)))
+        cloud = nanovdb_medium(path, sigma_s=(55.0,) * 3, sigma_a=(0.3,) * 3, g=0.877,
+                               sparse=True)
+    s = Scene()
+    s.add(make_quad((-12, 0, -12), (12, 0, -12), (12, 0, 12), (-12, 0, 12)),
+          Matte(kd=(0.3, 0.34, 0.4)))
+    s.add(make_box(lo, hi), Interface(), inside_medium=cloud)
+    for light in sunsky_environment(direction=(0.55, 0.4, 0.35)):
+        s.add_light(light)
+    return s.build()
+
+
 def jax_scene(which: str, sampler: str = "power"):
     """The JAX package's build of a scene of the port's SCENE_DEFS."""
     import bench
@@ -153,6 +191,8 @@ def jax_scene(which: str, sampler: str = "power"):
         return bench.build_fog_scene()
     if which == "cloud":
         return bench.build_cloud_scene()
+    if which == "sparse_cloud":
+        return jax_sparse_cloud_scene()
     return jax_cloud_grid_scene()
 
 
@@ -176,9 +216,9 @@ def jax_reseeded(k: int):
     return patched()
 
 
-def jax_probe(js, which: str, res: int, depth: int, spp: int, batch: int):
+def jax_probe(js, which: str, res: int, depth: int, spp: int, batch: int, ftype: int):
     """(rays traced per sample, mean RGB, per-sample mean RGB (spp,)) of the
-    JAX package, `batch` samples per compiled call."""
+    JAX package through filter ftype, `batch` samples per compiled call."""
     from hikari_tpu.camera.camera import make_perspective_camera
     from hikari_tpu.film.filters import make_filter
     from hikari_tpu.integrators.volpath import VolPath, render_lanes
@@ -194,7 +234,7 @@ def jax_probe(js, which: str, res: int, depth: int, spp: int, batch: int):
     @jax.jit
     def run(s0):
         si = s0 + jnp.repeat(jnp.arange(batch, dtype=jnp.uint32), res * res)
-        rgb, _, stats = render_lanes(vp, js, camera, make_filter(), si, px, py)
+        rgb, _, stats = render_lanes(vp, js, camera, make_filter(ftype), si, px, py)
         return stats["rays_traced"], rgb.reshape(batch, -1).mean(1)
 
     rays, means = 0.0, []
@@ -207,7 +247,8 @@ def jax_probe(js, which: str, res: int, depth: int, spp: int, batch: int):
 
 
 def main():
-    from hikari_tpu_torch.scenes import BUILDERS, probe_key, transport_probe
+    from hikari_tpu_torch.film.filters import GAUSSIAN
+    from hikari_tpu_torch.scenes import BUILDERS, FILTER_NAMES, probe_key, transport_probe
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", nargs="*", help="probe keys to recompute (default: all)")
@@ -218,8 +259,9 @@ def main():
         with open(OUT) as f:
             refs = json.load(f)
     scenes, ports = {}, {}
-    for which, sampler, res, depth, spp, batch in PROBES:
-        key = probe_key(which, res, depth, spp, sampler)
+    for which, sampler, res, depth, spp, batch, *ft in PROBES:
+        ftype = ft[0] if ft else GAUSSIAN
+        key = probe_key(which, res, depth, spp, sampler, ftype)
         if args.only and key not in args.only:
             continue
         if (which, sampler) not in scenes:
@@ -232,20 +274,22 @@ def main():
             t0 = time.perf_counter()
             with jax_reseeded(k):
                 rays, mean_rgb, means = jax_probe(scenes[which, sampler], which, res, depth,
-                                                  spp, batch)
+                                                  spp, batch, ftype)
             secs = time.perf_counter() - t0
             draws.append((rays, mean_rgb))
             port = ""
             if k == 0:
                 spread = float(means.std(ddof=1) / means.mean()) if spp > 1 else None
-                p = transport_probe(ports[which, sampler], which, res=res, depth=depth, spp=spp)
+                p = transport_probe(ports[which, sampler], which, res=res, depth=depth, spp=spp,
+                                    ftype=ftype)
                 port = f"; port on the CPU {p[0]:.4f} rays, {p[1]:.7f}"
             print(f"{key}, draw {k}: JAX {rays:.4f} rays, mean RGB {mean_rgb:.7f} ({secs:.0f} "
                   f"s){port}", flush=True)
         j = np.array(draws)
         rel = j.std(0, ddof=1) / j.mean(0) if len(j) > 1 else [None, None]
         refs["probes"][key] = {
-            "scene": which, "sampler": sampler, "res": res, "depth": depth, "spp": spp,
+            "scene": which, "sampler": sampler, "filter": FILTER_NAMES[ftype], "res": res,
+            "depth": depth, "spp": spp,
             "rays_traced": float(j[:, 0].mean()), "mean_rgb": float(j[:, 1].mean()),
             "draws": {"rays_traced": j[:, 0].tolist(), "mean_rgb": j[:, 1].tolist()},
             "draw_rel_std": {"rays_traced": None if rel[0] is None else float(rel[0]),
