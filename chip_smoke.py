@@ -61,7 +61,10 @@ exits nonzero without its result line:
    BrickGridMedium, under the sun and sky) against the JAX package's
    six-draw mean (rays 0.5%, mean RGB 10%), and the default probe under
    the Mitchell and Lanczos filters against the JAX package's (rays 0.5%,
-   mean RGB 1e-4); every JAX probe but the bench's in
+   mean RGB 1e-4). Materials: bench.py's materials scene (every
+   BSDF-bearing material, the three layered coats among them) under each
+   material dispatch ('none', 'gated', 'sorted') against the JAX package's
+   probe (rays 0.5%, mean RGB 2%); every JAX probe but the bench's in
    hikari_tpu_torch/data/probe_ref.json;
 5. main paths: render(VolPath(max_depth=5, samples_per_pixel=4)) at
    800x800 through the public API of the default scene (tile kernels), the
@@ -99,7 +102,19 @@ exits nonzero without its result line:
    512^3 page table) tracked on the card (sparse_index_check). Last, the
    default scene under the Mitchell filter (K1/K2 held on every sweep
    call, as the lights' paths) and the same samples in a crop window,
-   whose film must equal the full film's window;
+   whose film must equal the full film's window. The materials paths,
+   before the medium paths: the materials scene at depth 5 under each
+   dispatch ('[materials none]', '[materials gated]', '[materials sorted]'
+   lines): a synchronising stage split of one wavefront (layered sample,
+   layered eval, the other BSDFs, traversal, the rest), K1/K2 held on
+   every sweep call of the 'none' wavefront, then a warm-up and two timed
+   renders with timed_render's checks; the three must trace the same rays
+   and agree in mean RGB within MODES_RGB_RTOL; and each layered
+   material's sample alone at 2.56M and 160k lanes (walk_widths). Then
+   the Mix floor at
+   depth 2 ('[mix]'): each child's share of the lit pixels within
+   MIX_SHARE. '[time]' lines give the script's clock after phases 4 and 5
+   and after the materials paths;
 6. timings: each kernel's wrapper call (pair_schedule and scratch
    included) against its plain version on every sweep call of its main
    path's first wavefront (one per bounce), summed per render beside the
@@ -152,6 +167,11 @@ TWIN_RGB_TOL = 0.03
 # the filter probes: equal to the JAX package's, as the light probes are
 FILTER_RGB_TOL = 1e-4
 CROP = ((0.25, 0.25), (0.75, 0.75))
+# the materials paths: bench.py's materials scene under each material
+# dispatch; the three trace the same rays and agree in mean RGB to this
+MATERIAL_MODES = ("none", "gated", "sorted")
+MODES_RGB_RTOL = 1e-5
+MIX_SHARE = (0.2, 0.8)  # each Mix child's share of the lit floor pixels
 SPARSE_INDEX_RES = 4096  # index voxels per axis of sparse_index_check
 BAND_FRAC = 0.15    # banded closest hit: band = 0.15 x the world diagonal
 # a path's plain walk runs on a sweep call only while it is expected to
@@ -872,6 +892,159 @@ def hold_path(label, rec, cases, smi, partial=()):
                              f"bit on every sweep call compared, or too few were compared")
 
 
+class ShadingInstruments:
+    """Synchronising wrappers around the stages of a materials path, for
+    one instrumented render_lanes: the layered types' BSDF sampling and
+    NEE evaluation (the random walks), every other type's, and the
+    traversal (scene_closest_hit and scene_any_hit, the sweeps and their
+    drivers); per stage, the time between a synchronize before the call
+    and one after."""
+
+    STAGES = ("layered sample", "layered eval", "other BSDFs", "traversal")
+
+    def __init__(self):
+        self.secs = dict.fromkeys(self.STAGES, 0.0)
+
+    def _timed(self, stage, fn):
+        def wrapped(*args, **kw):
+            import torch
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.secs[stage] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    def __enter__(self):
+        from hikari_tpu_torch.integrators import volpath
+
+        self.saved = (dict(volpath._SAMPLERS), dict(volpath._EVALUATORS),
+                      volpath.scene_closest_hit, volpath.scene_any_hit)
+        for table, verb in ((volpath._SAMPLERS, "sample"), (volpath._EVALUATORS, "eval")):
+            for tag, fn in table.items():
+                layered = tag in volpath._LAYERED_TAGS
+                table[tag] = self._timed(f"layered {verb}" if layered else "other BSDFs", fn)
+        volpath.scene_closest_hit = self._timed("traversal", volpath.scene_closest_hit)
+        volpath.scene_any_hit = self._timed("traversal", volpath.scene_any_hit)
+        return self
+
+    def __exit__(self, *exc):
+        from hikari_tpu_torch.integrators import volpath
+
+        samplers, evaluators, volpath.scene_closest_hit, volpath.scene_any_hit = self.saved
+        volpath._SAMPLERS.update(samplers)
+        volpath._EVALUATORS.update(evaluators)
+
+
+def materials_paths(sc, cam, smi):
+    """bench.py's materials scene at full size under each material dispatch
+    (MATERIAL_MODES): an instrumented render_lanes of sample batch 0
+    (ShadingInstruments) prints the stage split and counts the rays; under
+    'none' it also captures the tile sweeps' calls, and K1 / K2 go against
+    their plain versions on every one of them, bit for bit (hold_path).
+    Then a warm-up render and two timed renders (timed_render's checks:
+    K1 and K2 launched, no other sweep). The modes must trace the same
+    rays and agree in mean RGB within MODES_RGB_RTOL."""
+    import torch
+    import hikari_tpu_torch as hk
+    from hikari_tpu_torch.geometry import wavefront
+    from hikari_tpu_torch.integrators.volpath import render_lanes
+
+    names = ("closest_tiles", "occlusion_tiles")
+    dev = sc.device
+    w, h = cam.resolution
+    lanes = torch.arange(w * h, device=dev)
+    rays, rgb = {}, {}
+    for mode in MATERIAL_MODES:
+        label = f"materials {mode}"
+        vp = hk.VolPath(max_depth=5, samples_per_pixel=MAIN_SPP, material_coherence=mode)
+        k = vp.sample_batch
+        record = Recorder(wavefront, names) if mode == "none" else contextlib.nullcontext()
+        with record as rec, ShadingInstruments() as ins:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, stats = render_lanes(vp, sc, cam, hk.make_filter(),
+                                       torch.arange(k, device=dev).repeat_interleave(w * h),
+                                       (lanes % w).repeat(k), (lanes // w).repeat(k))
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        split = dict(ins.secs, rest=total - sum(ins.secs.values()))
+        log(f"[{label}] stage split of one synchronised {w}x{h} {k}-sample wavefront, "
+            f"{total:.3f} s: " + ", ".join(f"{name} {sec * 1e3:.1f} ms ({sec / total * 100:.1f}%)"
+                                         for name, sec in split.items()) + f" [{smi}]")
+        if rec is not None:
+            hold_path(label, rec, [(n, sc.treelets) for n in names], smi)
+            del rec  # the captured inputs stay out of the renders' peak memory
+        rays[mode] = float(stats["rays_traced"])
+        hk.render(vp, sc, cam)  # warm-up
+        runs = [timed_render(label, sc, cam, vp, names, smi, rays[mode],
+                             float(stats["nonfinite_lanes"])) for _ in range(2)]
+        rgb[mode] = runs[-1][1]["mean_rgb"]
+        ms = [r[1]["ms_sample"] for r in runs]
+        log(f"[{label}] {ms[0]:.1f}, {ms[1]:.1f} ms/sample over two renders; "
+            f"{rays[mode] / (sum(ms) / 2 * MAIN_SPP / 1e3) / 1e6:.3f} Mray/s on their mean "
+            f"[{smi}]")
+    ref = MATERIAL_MODES[0]
+    rgb_err = max(abs(rgb[m] / rgb[ref] - 1) for m in MATERIAL_MODES)
+    ok = len(set(rays.values())) == 1 and rgb_err <= MODES_RGB_RTOL
+    log("[materials] the modes: rays " + ", ".join(f"{m} {rays[m]:.0f}" for m in MATERIAL_MODES)
+        + ", mean RGB " + ", ".join(f"{m} {rgb[m]:.7f}" for m in MATERIAL_MODES)
+        + f" (largest relative difference {rgb_err:.2e}, tolerance {MODES_RGB_RTOL:g}) "
+        f"[{smi}] -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the material dispatch modes do not render the same image")
+    walk_widths(sc, smi)
+
+
+def walk_widths(sc, smi, widths=(2_560_000, 160_000)):
+    """Each layered material's sample (one 10-step walk and its stochastic
+    pdf) alone on the card at the main path's width and at 1/16 of it,
+    on random directions (CUDA events over three calls after a warm-up):
+    a walk whose time does not follow its width is bound by its launches."""
+    import torch
+    from hikari_tpu_torch.materials import layered as ml
+
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    parts = []
+    for name in ("coated_diffuse", "coated_conductor", "coated_diffuse_transmission"):
+        ms = []
+        for n in widths:
+            wo = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=-1)
+            lam = 360.0 + 470.0 * torch.rand(n, 4, generator=gen)
+            args = [x.to(sc.device) for x in (
+                torch.zeros(n, dtype=torch.int32), wo, lam, torch.rand(n, 2, generator=gen),
+                torch.rand(n, generator=gen))]
+            sample = getattr(ml, f"sample_{name}")
+            ms.append(cuda_ms(lambda: sample(sc.materials, *args), 3))
+        parts.append(f"{name} " + " / ".join(f"{t:.1f}" for t in ms))
+    log(f"[materials] one layered sample alone, ms at {' / '.join(f'{n:,}' for n in widths)} "
+        f"lanes: " + "; ".join(parts) + f" [{smi}]")
+
+
+def mix_path(sc, cam, smi):
+    """The Mix floor (scenes.mix_scene, depth 2) at full size through render
+    (timed_render's checks): each child's share of the lit pixels, a pixel
+    being red where R > 2G and green where G > 2R, must lie in MIX_SHARE."""
+    import hikari_tpu_torch as hk
+
+    names = ("closest_tiles", "occlusion_tiles")
+    _, r = timed_render("mix", sc, cam, hk.VolPath(max_depth=2, samples_per_pixel=MAIN_SPP),
+                        names, smi, None, 0.0)
+    img = hk.framebuffer(r["film"])
+    lit = img.sum(-1) > 1e-3
+    red = float((img[..., 0] > 2 * img[..., 1])[lit].float().mean())
+    green = float((img[..., 1] > 2 * img[..., 0])[lit].float().mean())
+    lo, hi = MIX_SHARE
+    ok = lo < red < hi and lo < green < hi
+    log(f"[mix] {int(lit.sum())} lit pixels of {img.shape[1]}x{img.shape[0]}: red (m1) "
+        f"{red:.4f}, green (m2) {green:.4f} (each within {lo}-{hi}) [{smi}] -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the Mix floor does not show both children")
+
+
 def sparse_paths(sparse, cam, smi):
     """The sparse cloud's medium path (medium_path, the example's depth)
     with the brick pool's and page table's bytes beside its peak memory;
@@ -1056,8 +1229,9 @@ def main() -> int:
     from hikari_tpu_torch.scenes import (BUILDERS, check_transport, cloud_grid_scene,
                                          cloud_scene, default_scene, fog_scene, forest_camera,
                                          forest_scene, instanced_default_scene, lights_scene,
-                                         probe_reference, scene_camera, sparse_cloud_scene,
-                                         sphere_scene, transport_probe)
+                                         materials_scene, mix_scene, probe_reference,
+                                         scene_camera, sparse_cloud_scene, sphere_scene,
+                                         transport_probe)
 
     flat_names = ("closest_tiles", "occlusion_tiles")
     inst_names = ("closest_inst", "occlusion_inst")
@@ -1184,6 +1358,14 @@ def main() -> int:
         log(f"[transport] {msg} -> {'pass' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"filter probe failed: {msg}")
+    # every material: the materials scene's probe under each dispatch
+    scenes["materials"] = materials_scene().build(device=dev)
+    for mode in MATERIAL_MODES:
+        ok, msg = check_transport(scenes["materials"], "materials", material_coherence=mode)
+        log(f"[transport] {mode} dispatch: {msg} -> {'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"materials probe failed under {mode} dispatch: {msg}")
+    log(f"[time] phases 1-4 done at {time.perf_counter() - t_start:.0f} s")
 
     # phase 5: the main paths at full size: flat (tile sweeps, pair grid,
     # every switch on), then instanced
@@ -1222,6 +1404,13 @@ def main() -> int:
         hold_path(label, rec, [(n, None if sc.has_instances else sc.treelets) for n in names],
                   smi, partial=partial)
         del rec  # the captured inputs stay out of the next path's peak memory
+    # every material: the materials scene under each dispatch, the Mix floor
+    materials_paths(scenes["materials"], scene_camera("materials", MAIN_RES), smi)
+    del scenes["materials"]
+    mix_path(mix_scene().build(device=dev), scene_camera("mix", MAIN_RES), smi)
+    torch.cuda.empty_cache()
+    log(f"[time] the flat, instanced, lights' and materials paths done at "
+        f"{time.perf_counter() - t_start:.0f} s")
     # the medium paths: K1 (or K5) for camera rays and every shadow-walk
     # segment, no occlusion sweep
     for label, which, names, switches in (
@@ -1239,6 +1428,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     sparse_index_check(dev, smi)
     filter_paths(scenes["default"], main_cam, smi)
+    log(f"[time] phase 5 done at {time.perf_counter() - t_start:.0f} s")
 
     # phase 6: kernel times at the main paths' shapes (after the counts were read)
     flat_tl = scenes["default"].treelets

@@ -5,12 +5,13 @@ The JAX package ``hikari_tpu`` is the reference; this package mirrors its
 module tree and names and is checked against it. It imports neither JAX nor
 ``hikari_tpu`` and reads no file of it: its data tables (``data/``) and
 BVH builder source (``csrc/bvh_builder.cpp``) are copies of the
-reference's. Participating media (homogeneous, density-grid, RGB-grid and
-sparse brick grids read from NanoVDB files, delta and ratio tracking),
-every light (point, spot, distant, sun,
-ambient, area, environment and the Hosek-Wilkie sun and sky) and the
-power, uniform and BVH light samplers are plain PyTorch. The Pallas sweep kernels of the flat, pair-grid and
-instanced paths are hand-written CUDA (``csrc/sweep_tiles.cu``,
+reference's. Every material (the layered coats through their random
+walks, Mix resolved per hit), participating media (homogeneous,
+density-grid, RGB-grid and sparse brick grids read from NanoVDB files,
+delta and ratio tracking), every light (point, spot, distant, sun, ambient,
+area, environment and the Hosek-Wilkie sun and sky) and the power, uniform
+and BVH light samplers are plain PyTorch. The Pallas sweep kernels of the
+flat, pair-grid and instanced paths are hand-written CUDA (``csrc/sweep_tiles.cu``,
 ``csrc/sweep_pairs.cu``, ``csrc/sweep_inst.cu``), built with nvcc at first
 use. Entry points run on the first CUDA device unless given
 ``device="cpu"``.
@@ -20,7 +21,7 @@ use. Entry points run on the first CUDA device unless given
     s = hk.Scene()
     s.add(hk.make_quad((-2, 0, -2), (2, 0, -2), (2, 0, 2), (-2, 0, 2)),
           hk.Matte(kd=(0.7, 0.7, 0.7)))
-    s.add(hk.make_sphere((0, 0.5, 0), 0.5), hk.Gold(roughness=0.15))
+    s.add(hk.make_sphere((0, 0.5, 0), 0.5), hk.Plastic(kd=(0.8, 0.1, 0.1)))
     s.add_light(hk.PointLight(position=(1, 2, -1), intensity=(6, 6, 6)))
     cam = hk.make_perspective_camera((0, 1, -3), (0, 0.4, 0), (256, 256))
     img = hk.framebuffer(hk.render(hk.VolPath(samples_per_pixel=16),
@@ -39,9 +40,11 @@ from .integrators.volpath import (VolPath, render, render_lanes, scene_any_hit,
 from .lights.sunsky import sunsky_environment
 from .lights.types import (AmbientLight, DistantLight, EnvironmentLight, PointLight,
                            SpotLight, SunLight, equirect_to_equal_area)
-from .materials.types import (BK7, SF11, Aluminum, Brass, Conductor, Copper, Diamond,
-                              Dielectric, Diffuse, Emissive, FusedSilica, Glass, Gold,
-                              Interface, Matte, Metal, Mirror, Sapphire, Silver)
+from .materials.types import (BK7, SF11, Aluminum, Brass, CoatedConductor, CoatedDiffuse,
+                              CoatedDiffuseTransmission, Conductor, Copper, Diamond,
+                              Dielectric, Diffuse, DiffuseTransmission, Emissive, FusedSilica,
+                              Glass, Gold, Interface, Matte, Metal, Mirror, Mix, Plastic,
+                              Sapphire, Silver, ThinDielectric)
 from .media.nanovdb import load_nanovdb, load_nanovdb_sparse, nanovdb_medium, save_nanovdb
 from .media.noise import fbm3d, generate_cloud_density, perlin3d, worley3d
 from .media.types import (BrickGridMedium, CloudVolume, Fog, GridMedium, HomogeneousMedium,
@@ -57,7 +60,9 @@ __all__ = [
     "rotate_z", "look_at", "perspective", "from_matrix",
     "Matte", "Diffuse", "Gold", "Silver", "Copper", "Aluminum", "Brass", "Conductor",
     "Metal", "Glass", "Dielectric", "BK7", "SF11", "Sapphire", "FusedSilica", "Diamond",
-    "Mirror", "Emissive", "Interface", "PointLight",
+    "Mirror", "Emissive", "Interface", "ThinDielectric", "DiffuseTransmission",
+    "CoatedDiffuse", "Plastic", "CoatedConductor", "CoatedDiffuseTransmission", "Mix",
+    "PointLight",
     "SpotLight", "DistantLight", "SunLight", "AmbientLight", "EnvironmentLight",
     "sunsky_environment", "equirect_to_equal_area",
     "HomogeneousMedium", "GridMedium", "RGBGridMedium", "BrickGridMedium", "CloudVolume",

@@ -10,8 +10,8 @@ resident loop (``resident='on'``) and depth segments
 (the reference's state dict, with the medium channel ``med``), advanced by
 ``_bounce_core`` one bounce at a time; ``lax.fori_loop`` becomes a Python
 loop over depth and ``where``-selects stay ``torch.where``. Every
-``path_sample_*`` dimension index (0, 1, 3, 5, 6) is the JAX package's, so
-both draw the same samples.
+``path_sample_*`` dimension index (0, 1, 3, 5, 6, 7, 9) is the JAX
+package's, so both draw the same samples.
 
 Participating media (``media/``): a lane inside a medium is delta-tracked
 up to its surface hit, and may scatter (HG phase function, with NEE from
@@ -27,9 +27,12 @@ world treelet and column, decoded into the shared face row and the
 instance (``_face_decode``), whose normal transform and material override
 apply at the hit, in shadow walks too.
 
-Textures, alpha, Mix and layered materials are not ported; scenes that
-need them raise ``NotImplementedError`` instead of rendering a wrong
-image.
+Every material of the JAX package shades here, under each
+material_coherence mode: the layered ones through the random walks of
+``materials/layered.py``, whose NEE evaluation draws ZSobol dimensions 7
+and 9, and Mix resolved per hit to one of its children (``mix_u``).
+Textures and alpha are not ported; scenes that need them raise
+``NotImplementedError`` instead of rendering a wrong image.
 """
 
 from __future__ import annotations
@@ -53,9 +56,11 @@ from ..geometry.wavefront import _inverse_permutation, ray_sort_keys
 from ..lights import types as lt
 from ..lights.bvh_sampler import bvh_pmf, bvh_sample_light
 from ..materials import bsdf as mb
+from ..materials import layered as ml
 from ..materials import types as mt
 from ..media import sample as ms
 from ..sampling import sobol as sb
+from ..sampling.hashes import MASK32, f32_bits, hash_u32x2, shr
 from ..scene.scene import SceneData
 from ..spectral import spectrum as sp
 from ..spectral.cie import spectral_to_xyz, xyz_to_linear_srgb
@@ -163,18 +168,42 @@ def _sorted_type_dispatch(mat_type, per_lane, out_init, present, run_type):
     return back
 
 
-def _sample_type(banks, tag, idx, wo, lam, u2, uc, reg):
-    if tag == mt.MATTE:
-        return mb.sample_matte(banks, idx, wo, lam, u2, uc)
-    if tag == mt.MIRROR:
-        return mb.sample_mirror(banks, idx, wo, lam, u2, uc)
-    if tag == mt.GLASS:
-        return mb.sample_glass(banks, idx, wo, lam, u2, uc, reg)
-    return mb.sample_conductor(banks, idx, wo, lam, u2, uc, reg)
+_LAYERED_TAGS = (mt.COATED_DIFFUSE, mt.COATED_CONDUCTOR, mt.COATED_DIFFUSE_TRANSMISSION)
 
 
-_SAMPLE_TAGS = (mt.MATTE, mt.MIRROR, mt.GLASS, mt.CONDUCTOR)
-_EVAL_TAGS = (mt.MATTE, mt.CONDUCTOR, mt.GLASS)
+def _no_reg(fn):
+    """A lobe that takes no regularize mask, under the dispatch's signature."""
+    return lambda banks, idx, wo, lam, u2, uc, reg: fn(banks, idx, wo, lam, u2, uc)
+
+
+def _walk_eval(fn):
+    """A layered lobe's evaluation: no regularize mask, the walk's u2 / uc."""
+    return lambda banks, idx, wo, wi, lam, reg, u2, uc: fn(banks, idx, wo, wi, lam, u2, uc)
+
+
+# per BSDF-bearing tag: sample(banks, idx, wo, lam, u2, uc, reg)
+_SAMPLERS = {
+    mt.MATTE: _no_reg(mb.sample_matte), mt.MIRROR: _no_reg(mb.sample_mirror),
+    mt.GLASS: mb.sample_glass, mt.CONDUCTOR: mb.sample_conductor,
+    mt.THIN_DIELECTRIC: _no_reg(mb.sample_thin_dielectric),
+    mt.DIFFUSE_TRANSMISSION: _no_reg(mb.sample_diffuse_transmission),
+    mt.COATED_DIFFUSE: _no_reg(ml.sample_coated_diffuse),
+    mt.COATED_CONDUCTOR: _no_reg(ml.sample_coated_conductor),
+    mt.COATED_DIFFUSE_TRANSMISSION: _no_reg(ml.sample_coated_diffuse_transmission),
+}
+# per tag with a non-delta lobe: eval(banks, idx, wo, wi, lam, reg, u2, uc) -> (f,
+# pdf); u2 / uc drive the layered walks
+_EVALUATORS = {
+    mt.MATTE: lambda b, i, wo, wi, lam, reg, u2, uc: mb.eval_matte(b, i, wo, wi, lam),
+    mt.CONDUCTOR: lambda b, i, wo, wi, lam, reg, u2, uc: mb.eval_conductor(
+        b, i, wo, wi, lam, reg),
+    mt.GLASS: lambda b, i, wo, wi, lam, reg, u2, uc: mb.eval_glass(b, i, wo, wi, lam, reg),
+    mt.DIFFUSE_TRANSMISSION: lambda b, i, wo, wi, lam, reg, u2, uc: (
+        mb.eval_diffuse_transmission(b, i, wo, wi, lam)),
+    mt.COATED_DIFFUSE: _walk_eval(ml.eval_coated_diffuse),
+    mt.COATED_CONDUCTOR: _walk_eval(ml.eval_coated_conductor),
+    mt.COATED_DIFFUSE_TRANSMISSION: _walk_eval(ml.eval_coated_diffuse_transmission),
+}
 _SAMPLE_FIELDS = tuple(f.name for f in fields(mb.BSDFSample))
 
 
@@ -196,11 +225,11 @@ def _sample_bsdf_dispatch(scene, mat_type, mat_idx, wo, lam, u2, uc, regularize,
     """Per-type BSDF sampling, selected by tag."""
     banks = scene.materials
     init = mb.invalid_sample(tuple(mat_type.shape), mat_type.device)
-    tags = [t for t in _SAMPLE_TAGS if t in scene.present_materials]
+    tags = [t for t in _SAMPLERS if t in scene.present_materials]
 
     def run(tag, pl):
-        s = _sample_type(banks, tag, pl["idx"], pl["wo"], pl["lam"], pl["u2"], pl["uc"],
-                         pl["reg"])
+        s = _SAMPLERS[tag](banks, pl["idx"], pl["wo"], pl["lam"], pl["u2"], pl["uc"],
+                           pl["reg"])
         return [getattr(s, f) for f in _SAMPLE_FIELDS]
 
     out = _dispatch(mat_type, tags,
@@ -209,20 +238,21 @@ def _sample_bsdf_dispatch(scene, mat_type, mat_idx, wo, lam, u2, uc, regularize,
     return mb.BSDFSample(**dict(zip(_SAMPLE_FIELDS, out)))
 
 
-def _eval_bsdf_dispatch(scene, mat_type, mat_idx, wo, wi, lam, regularize,
-                        coherence="none"):
-    """(f, pdf) for NEE MIS; zero for specular-only materials."""
+def _eval_bsdf_dispatch(scene, mat_type, mat_idx, wo, wi, lam, regularize, coherence,
+                        eval_u2, eval_uc):
+    """(f, pdf) for NEE MIS; zero for specular-only materials. eval_u2 /
+    eval_uc (the ZSobol dimensions 7 and 9) drive the layered walks (None
+    in a scene without layered materials)."""
     banks = scene.materials
-    tags = [t for t in _EVAL_TAGS if t in scene.present_materials]
+    tags = [t for t in _EVALUATORS if t in scene.present_materials]
 
     def run(tag, pl):
-        if tag == mt.MATTE:
-            return mb.eval_matte(banks, pl["idx"], pl["wo"], pl["wi"], pl["lam"])
-        fn = mb.eval_conductor if tag == mt.CONDUCTOR else mb.eval_glass
-        return fn(banks, pl["idx"], pl["wo"], pl["wi"], pl["lam"], pl["reg"])
+        return _EVALUATORS[tag](banks, pl["idx"], pl["wo"], pl["wi"], pl["lam"], pl["reg"],
+                                pl["u2"], pl["uc"])
 
     f, pdf = _dispatch(mat_type, tags,
-                       dict(idx=mat_idx, wo=wo, wi=wi, lam=lam, reg=regularize),
+                       dict(idx=mat_idx, wo=wo, wi=wi, lam=lam, reg=regularize, u2=eval_u2,
+                            uc=eval_uc),
                        [torch.zeros_like(lam), torch.zeros(mat_type.shape, device=lam.device)],
                        run, coherence)
     return f, pdf
@@ -251,6 +281,25 @@ def _volumetric(scene: SceneData) -> bool:
     return scene.has_media or mt.INTERFACE in scene.present_materials
 
 
+def mix_u(b1, b2, tri):
+    """The Mix choice's uniform of each hit: a hash of its barycentrics'
+    bits and its face row (mix-material.jl:39-57), stable across samples
+    so that the material does not flicker."""
+    h = hash_u32x2(f32_bits(b1 + 0.123) ^ (tri & MASK32), f32_bits(b2 + 0.456))
+    return shr(h, 32).to(torch.float32) * 2.0 ** -32
+
+
+def _resolve_mix(banks, mat_type, mat_idx, tri, rec):
+    """Mix lanes -> the child that the hit's mix_u picks (the first where
+    mix_u < amount)."""
+    mi = torch.clamp(mat_idx, min=0).long()
+    use1 = mix_u(rec.b1, rec.b2, tri) < banks.mix_amount[mi]
+    is_mix = mat_type == mt.MIX
+    child_t = torch.where(use1, banks.mix_m1_type[mi], banks.mix_m2_type[mi])
+    child_i = torch.where(use1, banks.mix_m1_idx[mi], banks.mix_m2_idx[mi])
+    return torch.where(is_mix, child_t, mat_type), torch.where(is_mix, child_i, mat_idx)
+
+
 def _surface_data(scene: SceneData, rec, o, d):
     """Hit-point attributes from one (F, 17) face-row gather."""
     tri, inst = _face_decode(scene, rec.tri)
@@ -265,12 +314,15 @@ def _surface_data(scene: SceneData, rec, o, d):
         ns = normalize(_inst_xform_normal(scene, inst, ns))
         override = scene.inst_mat_packed[inst]  # per-instance material
         packed = torch.where(override >= 0, override, packed)
+    mat_type, mat_idx = packed >> 24, packed & 0xFFFFFF
+    if mt.MIX in scene.present_materials:
+        mat_type, mat_idx = _resolve_mix(scene.materials, mat_type, mat_idx, tri, rec)
     if mt.EMISSIVE in scene.present_materials:
         arealight = rows[..., 14].to(torch.int32) - 1
     else:
         arealight = torch.full_like(packed, -1)
     sd = dict(p=o + rec.t[..., None] * d, ng=face_forward(ng_raw, ns), ns=ns,
-              mat_type=packed >> 24, mat_idx=packed & 0xFFFFFF, arealight=arealight)
+              mat_type=mat_type, mat_idx=mat_idx, arealight=arealight)
     if _volumetric(scene):
         sd.update(ng_raw=ng_raw, inside_med=rows[..., 15].to(torch.int32) - 1,
                   outside_med=rows[..., 16].to(torch.int32) - 1)
@@ -439,8 +491,12 @@ def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays
         ls = lt.sample_li(lights, scene.rgb2spec, _bl(lights.light_type, li_flat),
                           _bl(lights.light_idx, li_flat), p_ref, lam, ul2, scene.scene_radius)
         wi_l = to_local(*frame, ls.wi)
+        u2e = uce = None
+        if any(t in scene.present_materials for t in _LAYERED_TAGS):
+            u2e = torch.stack(sb.path_sample_2d(zcfg, px, py, si, depth, 7), -1)
+            uce = sb.path_sample_1d(zcfg, px, py, si, depth, 9)
         f_s, pdf_b = _eval_bsdf_dispatch(scene, sd["mat_type"], sd["mat_idx"],
-                                         wo_l, wi_l, lam, reg, coherence)
+                                         wo_l, wi_l, lam, reg, coherence, u2e, uce)
         f_hat = f_s * torch.abs(wi_l[..., 2])[..., None]
         nee_lanes = hit
         o_sh = spawn_ray(sd["p"], sd["ng"], ls.wi)

@@ -1,10 +1,12 @@
 """Spectral BSDF sampling and evaluation per material type.
 
-Port of the Matte, Mirror, Glass and Conductor lobes and of the emission
-of ``hikari_tpu/materials/bsdf.py``. Everything runs on whole wavefronts
-in the local shading frame (z = shading normal); spectra are (..., 4)
-hero-wavelength tensors. Constant colours evaluate their precomputed
-sigmoid coefficients (textures are not ported).
+Port of ``hikari_tpu/materials/bsdf.py``: the Matte, Mirror, Glass,
+Conductor, ThinDielectric and DiffuseTransmission lobes, the colourless
+dielectric interface that the layered walk (``layered.py``) samples, and
+the emission. Everything runs on whole wavefronts in the local shading
+frame (z = shading normal); spectra are (..., 4) hero-wavelength tensors.
+Constant colours evaluate their precomputed sigmoid coefficients (textures
+are not ported).
 """
 
 from __future__ import annotations
@@ -303,6 +305,158 @@ def eval_conductor(banks, idx, wo, wi, lam, regularize=None):
     pdf = tr_pdf(wo, wm, ax, ay) / (4.0 * torch.clamp(dot_om, min=1e-8))
     ok = same & ~smooth & (wm_len[..., 0] > 1e-9)
     return torch.where(ok[..., None], f, 0.0), torch.where(ok, pdf, 0.0)
+
+
+# --- bare dielectric interface (the layered walk's coat) -----------------------------
+
+
+def dielectric_interface_sample(wo, eta, ax, ay, u2, uc) -> dict:
+    """Sample the colourless dielectric interface, smooth or rough. Returns
+    dict(wi, weight (f cos / pdf), pdf, is_trans, specular, valid); rough
+    transmission keeps eta'^2 in its weight, since the walk crosses the
+    interface again on its way out."""
+    smooth = effectively_smooth(ax, ay)
+    cos_o = wo[..., 2]
+    eta_p = torch.where(cos_o > 0.0, eta, 1.0 / eta)
+
+    fr_s = fresnel_dielectric(cos_o, eta)
+    wi_rs = _mirror_dir(wo)
+    n = torch.zeros_like(wo)
+    n[..., 2] = 1.0
+    n = torch.where(cos_o[..., None] < 0.0, -n, n)
+    ok_ts, wi_ts = refract(wo, n, eta_p)
+
+    wm = tr_sample_wm(wo, u2, ax, ay)
+    dot_om = (wo * wm).sum(-1)
+    fr_m = fresnel_dielectric(dot_om, eta)
+    wi_rm = reflect(wo, wm)
+    ok_rm = same_hemisphere(wo, wi_rm)
+    wm_o = torch.where(dot_om[..., None] < 0.0, -wm, wm)
+    ok_tm, wi_tm = refract(wo, wm_o, eta_p)
+    ok_tm = ok_tm & ~same_hemisphere(wo, wi_tm)
+
+    fr = torch.where(smooth, fr_s, fr_m)
+    choose_r = uc < fr
+    cr = choose_r[..., None]
+    wi = torch.where(smooth[..., None], torch.where(cr, wi_rs, wi_ts),
+                     torch.where(cr, wi_rm, wi_tm))
+    cos_i = torch.clamp(abs_cos_theta(wi), min=1e-6)
+    cos_oa = torch.clamp(torch.abs(cos_o), min=1e-6)
+
+    d = tr_d(wm, ax, ay)
+    g = tr_g(wo, wi, ax, ay)
+    abs_dot_om = torch.clamp(torch.abs(dot_om), min=1e-8)
+    pdf_rm = tr_pdf(wo, wm, ax, ay) / (4.0 * abs_dot_om) * fr_m
+    w_rm = torch.where(
+        pdf_rm > 1e-12,
+        (d * g * fr_m / (4.0 * cos_oa * cos_i)) * cos_i / torch.clamp(pdf_rm, min=1e-12),
+        0.0)
+    dot_im = (wi * wm).sum(-1)
+    denom_t = (dot_im + dot_om / eta_p) ** 2
+    dwm_dwi = torch.abs(dot_im) / torch.clamp(denom_t, min=1e-12)
+    pdf_tm = tr_pdf(wo, wm, ax, ay) * dwm_dwi * (1.0 - fr_m)
+    ft = (d * g * (1.0 - fr_m)
+          * torch.abs(dot_im * dot_om / torch.clamp(cos_i * cos_oa * denom_t, min=1e-12))
+          / (eta_p * eta_p))
+    w_tm = torch.where(pdf_tm > 1e-12, ft * cos_i / torch.clamp(pdf_tm, min=1e-12), 0.0)
+
+    weight = torch.where(smooth, 1.0, torch.where(choose_r, w_rm, w_tm))
+    weight = torch.where(~smooth & ~choose_r, weight * eta_p * eta_p, weight)
+    pdf = torch.where(smooth, torch.where(choose_r, fr_s, 1.0 - fr_s),
+                      torch.where(choose_r, pdf_rm, pdf_tm))
+    ok = torch.where(smooth, choose_r | ok_ts, torch.where(choose_r, ok_rm, ok_tm))
+    return dict(wi=wi, weight=weight, pdf=pdf, is_trans=~choose_r, specular=smooth,
+                valid=ok & (torch.abs(cos_o) > 1e-6))
+
+
+def dielectric_interface_f(wo, wi, eta, ax, ay):
+    """(f, pdf) of the rough interface; zero where effectively smooth."""
+    smooth = effectively_smooth(ax, ay)
+    cos_o, cos_i = wo[..., 2], wi[..., 2]
+    is_reflect = cos_o * cos_i > 0.0
+    eta_p = torch.where(is_reflect, 1.0, torch.where(cos_o > 0.0, eta, 1.0 / eta))
+    wm_raw = wi * eta_p[..., None] + wo
+    wm_len = torch.linalg.norm(wm_raw, dim=-1, keepdim=True)
+    wm = wm_raw / torch.clamp(wm_len, min=1e-12)
+    wm = torch.where(wm[..., 2:3] < 0.0, -wm, wm)
+    dot_om = (wo * wm).sum(-1)
+    dot_im = (wi * wm).sum(-1)
+    backface = (dot_im * cos_i < 0.0) | (dot_om * cos_o < 0.0)
+    fr = fresnel_dielectric(dot_om, eta)
+    d = tr_d(wm, ax, ay)
+    g = tr_g(wo, wi, ax, ay)
+    cos_oa = torch.clamp(torch.abs(cos_o), min=1e-6)
+    cos_ia = torch.clamp(torch.abs(cos_i), min=1e-6)
+    f_r = d * g * fr / (4.0 * cos_oa * cos_ia)
+    pdf_r = tr_pdf(wo, wm, ax, ay) / (4.0 * torch.clamp(torch.abs(dot_om), min=1e-8)) * fr
+    denom_t = (dot_im + dot_om / eta_p) ** 2
+    f_t = (d * g * (1.0 - fr)
+           * torch.abs(dot_im * dot_om / torch.clamp(cos_ia * cos_oa * denom_t, min=1e-12)))
+    pdf_t = (tr_pdf(wo, wm, ax, ay)
+             * torch.abs(dot_im) / torch.clamp(denom_t, min=1e-12) * (1.0 - fr))
+    f = torch.where(is_reflect, f_r, f_t)
+    pdf = torch.where(is_reflect, pdf_r, pdf_t)
+    ok = ~smooth & ~backface & (wm_len[..., 0] > 1e-9)
+    return torch.where(ok, f, 0.0), torch.where(ok, pdf, 0.0)
+
+
+# --- ThinDielectric (thin-dielectric.jl:45) ----------------------------------------------
+
+
+def sample_thin_dielectric(banks, idx, wo, lam, u2, uc) -> BSDFSample:
+    """Reflect with R' = 2R / (1 + R), else pass straight through: both
+    faces of the slab are crossed, so the ray stays in its medium."""
+    kr = _spec(banks.thin_kr_c4, idx, lam)
+    kt = _spec(banks.thin_kt_c4, idx, lam)
+    eta = _bl(banks.thin_eta, idx)
+    cos_o = wo[..., 2]
+    r0 = fresnel_dielectric(torch.abs(cos_o), eta)
+    r = torch.where(r0 < 1.0, 2.0 * r0 / (1.0 + r0), 1.0)
+    t = 1.0 - r
+    choose_r = uc < r
+    wi = torch.where(choose_r[..., None], _mirror_dir(wo), -wo)
+    cos_i = torch.clamp(abs_cos_theta(wi), min=1e-6)
+    f = torch.where(choose_r[..., None], kr * (r / cos_i)[..., None],
+                    kt * (t / cos_i)[..., None])
+    pdf = torch.where(choose_r, r, t)
+    yes = torch.ones_like(choose_r)
+    return BSDFSample(wi=wi, f=f, pdf=pdf, specular=yes, transmission=~yes,
+                      eta_scale=torch.ones_like(pdf),
+                      valid=(torch.abs(cos_o) > 1e-6) & (pdf > 1e-9))
+
+
+# --- DiffuseTransmission (diffuse-transmission.jl:39) -------------------------------------
+
+
+def _dt_albedos(banks, idx, lam):
+    """(reflectance, transmittance, probability of the reflection lobe)."""
+    r = _spec(banks.dt_refl_c4, idx, lam)
+    t = _spec(banks.dt_trans_c4, idx, lam)
+    pr = torch.clamp(r.amax(-1), min=1e-9)
+    pt = torch.clamp(t.amax(-1), min=0.0)
+    return r, t, pr / (pr + pt)
+
+
+def sample_diffuse_transmission(banks, idx, wo, lam, u2, uc) -> BSDFSample:
+    r, t, p_refl = _dt_albedos(banks, idx, lam)
+    choose_r = uc < p_refl
+    wi = cosine_sample_hemisphere(u2)
+    # reflection stays on wo's side; transmission flips
+    side = torch.where(choose_r, torch.sign(wo[..., 2]), -torch.sign(wo[..., 2]))
+    wi = wi * torch.stack([torch.ones_like(side), torch.ones_like(side), side], -1)
+    f = torch.where(choose_r[..., None], r, t) * INV_PI
+    pdf = abs_cos_theta(wi) * INV_PI * torch.where(choose_r, p_refl, 1.0 - p_refl)
+    return BSDFSample(wi=wi, f=f, pdf=pdf, specular=torch.zeros_like(choose_r),
+                      transmission=~choose_r, eta_scale=torch.ones_like(pdf),
+                      valid=(pdf > 1e-9) & (torch.abs(wo[..., 2]) > 1e-6))
+
+
+def eval_diffuse_transmission(banks, idx, wo, wi, lam):
+    r, t, p_refl = _dt_albedos(banks, idx, lam)
+    same = same_hemisphere(wo, wi)
+    f = torch.where(same[..., None], r, t) * INV_PI
+    pdf = abs_cos_theta(wi) * INV_PI * torch.where(same, p_refl, 1.0 - p_refl)
+    return f, pdf
 
 
 # --- emission ------------------------------------------------------------------------------

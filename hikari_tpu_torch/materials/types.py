@@ -1,12 +1,16 @@
 """Material definitions (host) and packed per-type banks (device).
 
-Port of the main-path materials of ``hikari_tpu/materials/types.py``:
-Matte, Mirror, Glass (with Cauchy / Sellmeier dispersion), Conductor
-(measured metals: Gold, Silver, Copper, Aluminum, Brass; or RGB eta/k), the
-Sellmeier glass presets (BK7, SF11, Sapphire, FusedSilica, Diamond),
-Emissive, and Interface, the invisible boundary of a participating medium
-(no BSDF). Materials are pushed into per-type banks and referenced per
-face by a (type tag, index) pair; the tags equal the JAX package's.
+Port of ``hikari_tpu/materials/types.py``: Matte, Mirror, Glass (with
+Cauchy / Sellmeier dispersion), Conductor (measured metals: Gold, Silver,
+Copper, Aluminum, Brass; or RGB eta/k), the Sellmeier glass presets (BK7,
+SF11, Sapphire, FusedSilica, Diamond), Emissive, Interface (the invisible
+boundary of a participating medium, no BSDF), ThinDielectric,
+DiffuseTransmission, the layered CoatedDiffuse (alias Plastic),
+CoatedConductor and CoatedDiffuseTransmission, and Mix (resolved to one of
+its two children per hit). Materials are pushed into per-type banks and
+referenced per face by a (type tag, index) pair; the tags, the bank field
+names and the packing order equal the JAX package's. Every field is a
+constant: textured fields (ROADMAP A10) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,13 @@ GLASS = 2
 CONDUCTOR = 3
 EMISSIVE = 4
 INTERFACE = 5  # no BSDF: a medium boundary that rays pass straight through
+THIN_DIELECTRIC = 6
+DIFFUSE_TRANSMISSION = 7
+MIX = 8  # resolved to a concrete child at each hit
+COATED_DIFFUSE = 9
+COATED_CONDUCTOR = 10
+COATED_DIFFUSE_TRANSMISSION = 11
+N_MATERIAL_TYPES = 12
 
 _LAM_GRID = np.arange(360.0, 831.0, dtype=np.float64)  # 471 samples
 
@@ -144,6 +155,89 @@ class Interface:
     between the inside and outside media of the faces they cross."""
 
 
+@dataclass
+class ThinDielectric:
+    """Thin glass pane / bubble wall (thin-dielectric.jl:45): transmission
+    passes straight through without bending or entering a medium; the
+    reflectance counts interreflection, R' = 2R / (1 + R)."""
+
+    kr: tuple = (1.0, 1.0, 1.0)
+    kt: tuple = (1.0, 1.0, 1.0)
+    eta: float = 1.5
+
+
+@dataclass
+class DiffuseTransmission:
+    """Lambertian reflection + Lambertian transmission
+    (diffuse-transmission.jl:39)."""
+
+    reflectance: tuple = (0.25, 0.25, 0.25)
+    transmittance: tuple = (0.25, 0.25, 0.25)
+
+
+@dataclass
+class CoatedDiffuse:
+    """Dielectric coating over a diffuse base (coated-diffuse.jl:32),
+    evaluated by the stochastic layered walk (materials/layered.py);
+    thickness, albedo and g describe the slab between the layers in optical
+    units."""
+
+    reflectance: object = (0.5, 0.5, 0.5)
+    roughness: float = 0.0       # coating interface roughness
+    ior: float = 1.5
+    thickness: float = 0.01
+    albedo: tuple = (0.0, 0.0, 0.0)
+    g: float = 0.0
+    remap_roughness: bool = True
+
+
+def Plastic(kd=(0.5, 0.5, 0.5), roughness=0.1, **kw):
+    """The reference's PlasticMaterial: a CoatedDiffuse."""
+    return CoatedDiffuse(reflectance=kd, roughness=roughness, **kw)
+
+
+@dataclass
+class CoatedDiffuseTransmission:
+    """Dielectric coating over a diffuse layer that both reflects and
+    transmits (coated-diffuse-transmission.jl:12)."""
+
+    reflectance: object = (0.5, 0.5, 0.5)
+    transmittance: object = (0.25, 0.25, 0.25)
+    roughness: float = 0.0
+    ior: float = 1.5
+    thickness: float = 0.01
+    albedo: tuple = (0.0, 0.0, 0.0)
+    g: float = 0.0
+    remap_roughness: bool = True
+
+
+@dataclass
+class CoatedConductor:
+    """Dielectric coating over a conductor (coated-conductor.jl:48): a
+    measured metal preset or RGB eta/k under the coat."""
+
+    interface_roughness: float = 0.0
+    interface_ior: float = 1.5
+    metal: str | None = "AU"
+    eta: tuple = (0.2, 0.92, 1.1)
+    k: tuple = (3.9, 2.45, 2.14)
+    conductor_roughness: float = 0.1
+    thickness: float = 0.01
+    albedo: tuple = (0.0, 0.0, 0.0)
+    g: float = 0.0
+    remap_roughness: bool = True
+
+
+@dataclass
+class Mix:
+    """Stochastic blend of two materials, resolved to one child per hit by
+    a hash of the hit (mix-material.jl:39-57); children may not be Mix."""
+
+    m1: object = None
+    m2: object = None
+    amount: float = 0.5  # probability of choosing m1
+
+
 # the reference's user-facing names (uber-material.jl:433-451)
 Diffuse = Matte
 Dielectric = Glass
@@ -178,6 +272,52 @@ class MaterialBanks:
     emissive_scale: torch.Tensor  # (Ne,)
     emissive_two_sided: torch.Tensor  # (Ne,) bool
     emissive_le_c4: torch.Tensor  # (Ne, 4) unbounded coefficients
+    thin_kr: torch.Tensor         # (Nt, 3) thin dielectric
+    thin_kt: torch.Tensor         # (Nt, 3)
+    thin_eta: torch.Tensor        # (Nt,)
+    thin_kr_c4: torch.Tensor      # (Nt, 4)
+    thin_kt_c4: torch.Tensor      # (Nt, 4)
+    dt_refl: torch.Tensor         # (Nd, 3) diffuse transmission
+    dt_trans: torch.Tensor        # (Nd, 3)
+    dt_refl_c4: torch.Tensor      # (Nd, 4)
+    dt_trans_c4: torch.Tensor     # (Nd, 4)
+    mix_m1_type: torch.Tensor     # (Nx,) int32 child (type, index) pairs
+    mix_m1_idx: torch.Tensor      # (Nx,) int32
+    mix_m2_type: torch.Tensor     # (Nx,) int32
+    mix_m2_idx: torch.Tensor      # (Nx,) int32
+    mix_amount: torch.Tensor      # (Nx,) probability of the first child
+    cd_refl: torch.Tensor         # (Ncd, 3) coated diffuse
+    cd_refl_c4: torch.Tensor      # (Ncd, 4)
+    cd_ax: torch.Tensor           # (Ncd,) coating alpha
+    cd_ay: torch.Tensor           # (Ncd,)
+    cd_eta: torch.Tensor          # (Ncd,)
+    cd_thick: torch.Tensor        # (Ncd,)
+    cd_albedo: torch.Tensor       # (Ncd, 3)
+    cd_albedo_c4: torch.Tensor    # (Ncd, 4)
+    cd_g: torch.Tensor            # (Ncd,)
+    cc_iax: torch.Tensor          # (Ncc,) coated conductor: interface alpha
+    cc_iay: torch.Tensor          # (Ncc,)
+    cc_eta: torch.Tensor          # (Ncc,) interface IOR
+    cc_cond_eta: torch.Tensor     # (Ncc, 471)
+    cc_cond_k: torch.Tensor       # (Ncc, 471)
+    cc_cond_eta_pw: torch.Tensor  # (Ncc, 16, 4)
+    cc_cond_k_pw: torch.Tensor    # (Ncc, 16, 4)
+    cc_cax: torch.Tensor          # (Ncc,) conductor alpha
+    cc_cay: torch.Tensor          # (Ncc,)
+    cc_thick: torch.Tensor        # (Ncc,)
+    cc_albedo: torch.Tensor       # (Ncc, 3)
+    cc_albedo_c4: torch.Tensor    # (Ncc, 4)
+    cc_g: torch.Tensor            # (Ncc,)
+    cdt_refl: torch.Tensor        # (Nct, 3) coated diffuse transmission
+    cdt_trans: torch.Tensor       # (Nct, 3)
+    cdt_refl_c4: torch.Tensor     # (Nct, 4)
+    cdt_trans_c4: torch.Tensor    # (Nct, 4)
+    cdt_albedo_c4: torch.Tensor   # (Nct, 4)
+    cdt_ax: torch.Tensor          # (Nct,)
+    cdt_ay: torch.Tensor          # (Nct,)
+    cdt_eta: torch.Tensor         # (Nct,)
+    cdt_thick: torch.Tensor       # (Nct,)
+    cdt_g: torch.Tensor           # (Nct,)
 
     def to(self, device) -> "MaterialBanks":
         return MaterialBanks(**{f.name: getattr(self, f.name).to(device)
@@ -194,7 +334,7 @@ def _rgb(field, what: str):
     except (TypeError, ValueError) as e:
         raise NotImplementedError(
             f"{what}: only constant RGB values are ported; textures and vertex "
-            "colours are not") from e
+            "colours are not (ROADMAP A10)") from e
 
 
 def _scalar(field, what: str) -> float:
@@ -202,20 +342,63 @@ def _scalar(field, what: str) -> float:
         return float(field)
     except (TypeError, ValueError) as e:
         raise NotImplementedError(
-            f"{what}: only constant values are ported; textures are not") from e
+            f"{what}: only constant values are ported; textures are not "
+            "(ROADMAP A10)") from e
+
+
+def _dense_eta_k(metal, eta, k):
+    """Dense (471,) eta and k spectra of a measured metal, or of RGB eta/k
+    as piecewise constants over thirds of the visible range."""
+    if metal is not None:
+        eta_s, k_s = metal_eta_k(metal)
+        lam = _LAM_GRID.astype(np.float32)
+        return eta_s(lam), k_s(lam)
+
+    def rgb_to_dense(rgb):
+        return np.where(_LAM_GRID < 490, rgb[2], np.where(
+            _LAM_GRID < 580, rgb[1], rgb[0])).astype(np.float32)
+
+    return rgb_to_dense(np.asarray(eta)), rgb_to_dense(np.asarray(k))
+
+
+def _with_mix_children(materials: list) -> list:
+    """The packing list: `materials`, then the Mix children not in it (by
+    identity), in order of first appearance; nested Mix is refused."""
+    work = list(materials)
+    for m in materials:
+        if isinstance(m, Mix):
+            for ch in (m.m1, m.m2):
+                if ch is None:
+                    raise ValueError("Mix needs two child materials")
+                if isinstance(ch, Mix):
+                    raise ValueError("nested Mix is not supported")
+                if not any(ch is w for w in work):
+                    work.append(ch)
+    return work
 
 
 def pack_materials(materials: list):
-    """Pack host materials into banks. Returns (banks, type tags (M,),
-    bank indices (M,), present type set)."""
+    """Pack host materials into banks. Mix children that are not in the
+    list themselves get rows after it (the tags and indices then cover
+    them too), as the JAX package packs them. Returns (banks, type tags
+    (M,), bank indices (M,), present type set)."""
     matte_kd, matte_sigma, mirror_kr = [], [], []
     glass = {k: [] for k in ("kr", "kt", "eta", "cauchy", "sell", "ax", "ay")}
     cond_eta, cond_k, cond_ax, cond_ay = [], [], [], []
     emis_le, emis_scale, emis_two = [], [], []
-    tags = np.zeros(len(materials), np.int32)
-    idxs = np.zeros(len(materials), np.int32)
+    thin_kr, thin_kt, thin_eta = [], [], []
+    dt_refl, dt_trans = [], []
+    cd = {k: [] for k in ("refl", "ax", "ay", "eta", "thick", "albedo", "g")}
+    cdt = {k: [] for k in ("refl", "trans", "ax", "ay", "eta", "thick", "albedo", "g")}
+    cc = {k: [] for k in ("iax", "iay", "eta", "ceta", "ck", "cax", "cay", "thick",
+                          "albedo", "g")}
+    mixes = []
+    work = _with_mix_children(materials)
+    tags = np.zeros(len(work), np.int32)
+    idxs = np.zeros(len(work), np.int32)
     present: set[int] = set()
-    for i, m in enumerate(materials):
+    for i, m in enumerate(work):
+        name = type(m).__name__
         if isinstance(m, Matte):
             tags[i], idxs[i] = MATTE, len(matte_kd)
             matte_kd.append(_rgb(m.kd, "Matte.kd"))
@@ -236,19 +419,9 @@ def pack_materials(materials: list):
             glass["ay"].append(_alpha(vr, m.remap_roughness))
         elif isinstance(m, Conductor):
             tags[i], idxs[i] = CONDUCTOR, len(cond_eta)
-            if m.metal is not None:
-                eta_s, k_s = metal_eta_k(m.metal)
-                lam = _LAM_GRID.astype(np.float32)
-                cond_eta.append(eta_s(lam))
-                cond_k.append(k_s(lam))
-            else:
-                def rgb_to_dense(rgb):
-                    lam = _LAM_GRID
-                    return np.where(lam < 490, rgb[2], np.where(
-                        lam < 580, rgb[1], rgb[0])).astype(np.float32)
-
-                cond_eta.append(rgb_to_dense(np.asarray(m.eta)))
-                cond_k.append(rgb_to_dense(np.asarray(m.k)))
+            eta_d, k_d = _dense_eta_k(m.metal, m.eta, m.k)
+            cond_eta.append(eta_d)
+            cond_k.append(k_d)
             rough = _scalar(m.roughness, "Conductor.roughness")
             vr = rough if m.v_roughness is None else m.v_roughness
             cond_ax.append(_alpha(rough, m.remap_roughness))
@@ -260,11 +433,63 @@ def pack_materials(materials: list):
             emis_two.append(m.two_sided)
         elif isinstance(m, Interface):
             tags[i], idxs[i] = INTERFACE, 0
+        elif isinstance(m, ThinDielectric):
+            tags[i], idxs[i] = THIN_DIELECTRIC, len(thin_kr)
+            thin_kr.append(_rgb(m.kr, "ThinDielectric.kr"))
+            thin_kt.append(_rgb(m.kt, "ThinDielectric.kt"))
+            thin_eta.append(m.eta)
+        elif isinstance(m, DiffuseTransmission):
+            tags[i], idxs[i] = DIFFUSE_TRANSMISSION, len(dt_refl)
+            dt_refl.append(_rgb(m.reflectance, f"{name}.reflectance"))
+            dt_trans.append(_rgb(m.transmittance, f"{name}.transmittance"))
+        elif isinstance(m, (CoatedDiffuse, CoatedDiffuseTransmission)):
+            rows = cd if isinstance(m, CoatedDiffuse) else cdt
+            tags[i] = COATED_DIFFUSE if rows is cd else COATED_DIFFUSE_TRANSMISSION
+            idxs[i] = len(rows["refl"])
+            rows["refl"].append(_rgb(m.reflectance, f"{name}.reflectance"))
+            if rows is cdt:
+                rows["trans"].append(_rgb(m.transmittance, f"{name}.transmittance"))
+            a = _alpha(_scalar(m.roughness, f"{name}.roughness"), m.remap_roughness)
+            rows["ax"].append(a)
+            rows["ay"].append(a)
+            rows["eta"].append(m.ior)
+            rows["thick"].append(m.thickness)
+            rows["albedo"].append(_rgb(m.albedo, f"{name}.albedo"))
+            rows["g"].append(m.g)
+        elif isinstance(m, CoatedConductor):
+            tags[i], idxs[i] = COATED_CONDUCTOR, len(cc["iax"])
+            ia = _alpha(m.interface_roughness, m.remap_roughness)
+            cc["iax"].append(ia)
+            cc["iay"].append(ia)
+            cc["eta"].append(m.interface_ior)
+            eta_d, k_d = _dense_eta_k(m.metal, m.eta, m.k)
+            cc["ceta"].append(eta_d)
+            cc["ck"].append(k_d)
+            ca = _alpha(m.conductor_roughness, m.remap_roughness)
+            cc["cax"].append(ca)
+            cc["cay"].append(ca)
+            cc["thick"].append(m.thickness)
+            cc["albedo"].append(_rgb(m.albedo, f"{name}.albedo"))
+            cc["g"].append(m.g)
+        elif isinstance(m, Mix):
+            tags[i], idxs[i] = MIX, len(mixes)
+            mixes.append(m)
         else:
-            raise NotImplementedError(
-                f"{type(m).__name__} is not ported to hikari_tpu_torch yet; "
-                "the port has Matte, Mirror, Glass, Conductor, Emissive and Interface")
+            raise TypeError(f"unknown material {type(m)}")
         present.add(int(tags[i]))
+
+    # second pass: the Mix children now have bank rows
+    def slot_of(child):
+        return next(j for j, w in enumerate(work) if w is child)
+
+    mix = {k: [] for k in ("m1t", "m1i", "m2t", "m2i", "amount")}
+    for m in mixes:
+        j1, j2 = slot_of(m.m1), slot_of(m.m2)
+        mix["m1t"].append(int(tags[j1]))
+        mix["m1i"].append(int(idxs[j1]))
+        mix["m2t"].append(int(tags[j2]))
+        mix["m2i"].append(int(idxs[j2]))
+        mix["amount"].append(_scalar(m.amount, "Mix.amount"))
 
     def pad3(rows, default):
         return torch.tensor(rows or [default], dtype=torch.float32)
@@ -309,5 +534,51 @@ def pack_materials(materials: list):
         emissive_scale=pad1(emis_scale, 1.0),
         emissive_two_sided=pad1(emis_two, False, torch.bool),
         emissive_le_c4=unbounded_coeff4(table, pad3(emis_le, (1.0, 1.0, 1.0))),
+        thin_kr=pad3(thin_kr, (1.0, 1.0, 1.0)),
+        thin_kt=pad3(thin_kt, (1.0, 1.0, 1.0)),
+        thin_eta=pad1(thin_eta, 1.5),
+        thin_kr_c4=a_c4(thin_kr, (1.0, 1.0, 1.0)),
+        thin_kt_c4=a_c4(thin_kt, (1.0, 1.0, 1.0)),
+        dt_refl=pad3(dt_refl, (0.25, 0.25, 0.25)),
+        dt_trans=pad3(dt_trans, (0.25, 0.25, 0.25)),
+        dt_refl_c4=a_c4(dt_refl, (0.25, 0.25, 0.25)),
+        dt_trans_c4=a_c4(dt_trans, (0.25, 0.25, 0.25)),
+        mix_m1_type=pad1(mix["m1t"], 0, torch.int32),
+        mix_m1_idx=pad1(mix["m1i"], 0, torch.int32),
+        mix_m2_type=pad1(mix["m2t"], 0, torch.int32),
+        mix_m2_idx=pad1(mix["m2i"], 0, torch.int32),
+        mix_amount=pad1(mix["amount"], 0.5),
+        cd_refl=pad3(cd["refl"], (0.5, 0.5, 0.5)),
+        cd_refl_c4=a_c4(cd["refl"], (0.5, 0.5, 0.5)),
+        cd_ax=pad1(cd["ax"], 0.0),
+        cd_ay=pad1(cd["ay"], 0.0),
+        cd_eta=pad1(cd["eta"], 1.5),
+        cd_thick=pad1(cd["thick"], 0.01),
+        cd_albedo=pad3(cd["albedo"], (0.0, 0.0, 0.0)),
+        cd_albedo_c4=a_c4(cd["albedo"], (0.0, 0.0, 0.0)),
+        cd_g=pad1(cd["g"], 0.0),
+        cc_iax=pad1(cc["iax"], 0.0),
+        cc_iay=pad1(cc["iay"], 0.0),
+        cc_eta=pad1(cc["eta"], 1.5),
+        cc_cond_eta=torch.from_numpy(dense(cc["ceta"], 0.0).astype(np.float32)),
+        cc_cond_k=torch.from_numpy(dense(cc["ck"], 1.0).astype(np.float32)),
+        cc_cond_eta_pw=pw(cc["ceta"], 0.0),
+        cc_cond_k_pw=pw(cc["ck"], 1.0),
+        cc_cax=pad1(cc["cax"], 0.0),
+        cc_cay=pad1(cc["cay"], 0.0),
+        cc_thick=pad1(cc["thick"], 0.01),
+        cc_albedo=pad3(cc["albedo"], (0.0, 0.0, 0.0)),
+        cc_albedo_c4=a_c4(cc["albedo"], (0.0, 0.0, 0.0)),
+        cc_g=pad1(cc["g"], 0.0),
+        cdt_refl=pad3(cdt["refl"], (0.5, 0.5, 0.5)),
+        cdt_trans=pad3(cdt["trans"], (0.25, 0.25, 0.25)),
+        cdt_refl_c4=a_c4(cdt["refl"], (0.5, 0.5, 0.5)),
+        cdt_trans_c4=a_c4(cdt["trans"], (0.25, 0.25, 0.25)),
+        cdt_albedo_c4=a_c4(cdt["albedo"], (0.0, 0.0, 0.0)),
+        cdt_ax=pad1(cdt["ax"], 0.0),
+        cdt_ay=pad1(cdt["ay"], 0.0),
+        cdt_eta=pad1(cdt["eta"], 1.5),
+        cdt_thick=pad1(cdt["thick"], 0.01),
+        cdt_g=pad1(cdt["g"], 0.0),
     )
     return banks, tags, idxs, present

@@ -35,7 +35,7 @@ import torch
 
 from ..core.lookup import bank_lookup as _bl
 from ..core.vecmath import coordinate_system, normalize
-from ..sampling.hashes import MASK32, mix_bits, shr
+from ..sampling.hashes import f32_bits, mix_bits, shr
 from ..spectral.rgb2spec import coeff4_eval, rgb_unbounded_eval
 from .types import BRICK, BRICK_DIM, GRID, HOMOGENEOUS, MAJORANT_RES, RGBGRID, MediumBanks
 
@@ -59,17 +59,12 @@ _U32_UNIT = 2.0 ** -32
 # --- per-ray LCG ------------------------------------------------------------------
 
 
-def _bits(x: torch.Tensor) -> torch.Tensor:
-    """float32 -> its 32 bits, in an int64 tensor."""
-    return x.contiguous().view(torch.int32).long() & MASK32
-
-
 def lcg_init(o, d, t_max):
     """64-bit LCG state (int64 bit pattern) seeded from the bits of the ray
     o, d and t_max (inf seeds as 1e30)."""
-    ob = [_bits(o[..., i]) for i in range(3)]
-    db = [_bits(d[..., i]) for i in range(3)]
-    tm = _bits(torch.where(torch.isfinite(t_max), t_max, 1e30).float())
+    ob = [f32_bits(o[..., i]) for i in range(3)]
+    db = [f32_bits(d[..., i]) for i in range(3)]
+    tm = f32_bits(torch.where(torch.isfinite(t_max), t_max, 1e30).float())
     s1 = mix_bits((ob[0] ^ (ob[1] << 16)) ^ ((ob[2] << 32) ^ tm))
     s2 = mix_bits((db[0] ^ (db[1] << 16)) ^ (db[2] << 32))
     return s1 ^ s2

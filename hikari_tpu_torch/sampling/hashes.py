@@ -18,6 +18,12 @@ MASK32 = 0xFFFFFFFF
 _R = 47
 
 
+def f32_bits(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> its 32 bits (the JAX package's bitcast to uint32), in an
+    int64 tensor."""
+    return x.contiguous().view(torch.int32).long() & MASK32
+
+
 def as_i64(c: int) -> int:
     """Two's-complement int64 value of an unsigned 64-bit constant."""
     c &= (1 << 64) - 1

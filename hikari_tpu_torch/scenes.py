@@ -17,7 +17,10 @@ cloud under an emissive quad and a point light) and ``sparse_cloud_scene``
 (``examples/sparse_cloud_example.py``: a 96^3 cloud written to a NanoVDB
 file and read back as a sparse BrickGridMedium, under the sun and sky).
 ``lights_scene`` holds a spot, a distant, an ambient and an environment
-light.
+light. ``materials_scene`` (``bench.build_materials_scene``) is the default
+scene with its 16 spheres cycling through all ten BSDF-bearing materials,
+the layered ones included, and ``mix_scene`` a floor whose Mix picks red or
+green per hit (``tests/test_materials_ext.py``'s).
 ``transport_probe`` is the port of ``bench.transport_probe`` and
 ``check_transport`` holds it against the stored reference: the bench's
 surface and fog probes in ``tools/transport_ref.json``, with the
@@ -41,7 +44,9 @@ from .integrators.volpath import VolPath, render_lanes, render_lanes_segmented
 from .lights.sunsky import sunsky_environment
 from .lights.types import (AmbientLight, DistantLight, EnvironmentLight, PointLight,
                            SpotLight, equirect_to_equal_area)
-from .materials.types import Emissive, Glass, Gold, Interface, Matte, Mirror
+from .materials.types import (CoatedConductor, CoatedDiffuse, CoatedDiffuseTransmission,
+                              DiffuseTransmission, Emissive, Glass, Gold, Interface, Matte,
+                              Mirror, Mix, ThinDielectric)
 from .media.nanovdb import nanovdb_medium, save_nanovdb
 from .media.noise import generate_cloud_density
 from .media.types import CloudVolume, HomogeneousMedium
@@ -62,6 +67,8 @@ SCENE_DEFS = {
     "cloud_grid": (((0.0, 0.7, -3.0), (0.0, 0.9, 0.0), 50.0), (32, 12, 16, 0.10)),
     "lights": (((0.0, 1.5, -3.5), (0.0, 0.6, 1.0), 50.0), (64, 5, 1, 0.02)),
     "sparse_cloud": (((0.0, 1.1, -4.2), (0.0, 1.0, 0.0), 50.0), (32, 12, 16, 0.10)),
+    "materials": (((0.0, 1.6, -2.8), (0.0, 0.9, 2.0), 45.0), (64, 5, 1, 0.02)),
+    "mix": (((0.0, 2.5, -2.5), (0.0, 0.0, 0.0), 50.0), (32, 2, 4, 0.02)),
 }
 FILTER_NAMES = {BOX: "box", TRIANGLE: "triangle", GAUSSIAN: "gaussian",
                 MITCHELL: "mitchell", LANCZOS: "lanczos"}
@@ -105,6 +112,38 @@ def default_scene(sphere_res=(32, 64)) -> Scene:
     for k, c in enumerate(SPHERE_CENTRES):
         s.add(make_sphere(c, 0.42, *sphere_res), mats[k % len(mats)])
     _lights(s)
+    return s
+
+
+def _material_mats():
+    """bench.py build_materials_scene's ten sphere materials, in its order."""
+    return [Matte(kd=(0.3, 0.4, 0.8)), Mirror(), Glass(eta=1.5), Gold(roughness=0.15),
+            ThinDielectric(), DiffuseTransmission(), CoatedDiffuse(), CoatedConductor(),
+            CoatedDiffuseTransmission(), Glass(eta=1.33)]
+
+
+def materials_scene(sphere_res=(32, 64)) -> Scene:
+    """bench.py build_materials_scene: the default scene with its 16 spheres
+    cycling through the ten BSDF-bearing materials (spheres 6, 7 and 8 are
+    the three layered coats), the scene where per-type shading dispatch
+    dominates."""
+    s = Scene()
+    _room(s)
+    mats = _material_mats()
+    for k, c in enumerate(SPHERE_CENTRES):
+        s.add(make_sphere(c, 0.42, *sphere_res), mats[k % len(mats)])
+    _lights(s)
+    return s
+
+
+def mix_scene() -> Scene:
+    """tests/test_materials_ext.py's Mix floor: a 4 x 4 quad whose
+    Mix(red Matte, green Matte, amount 0.5) picks a child per hit, under a
+    point light."""
+    s = Scene()
+    s.add(make_quad((-2, 0, -2), (2, 0, -2), (2, 0, 2), (-2, 0, 2)),
+          Mix(m1=Matte(kd=(0.9, 0.05, 0.05)), m2=Matte(kd=(0.05, 0.9, 0.05)), amount=0.5))
+    s.add_light(PointLight(position=(0, 3, 0), intensity=(20, 20, 20)))
     return s
 
 
@@ -365,7 +404,8 @@ def lights_scene() -> Scene:
 
 BUILDERS = {"default": default_scene, "mesh": mesh_scene, "fog": fog_scene,
             "sphere": sphere_scene, "cloud": cloud_scene, "cloud_grid": cloud_grid_scene,
-            "lights": lights_scene, "sparse_cloud": sparse_cloud_scene}
+            "lights": lights_scene, "sparse_cloud": sparse_cloud_scene,
+            "materials": materials_scene, "mix": mix_scene}
 
 
 def scene_camera(which: str, res_px: int):

@@ -29,8 +29,9 @@ The stored "rays_traced" and "mean_rgb" are the means over the draws,
 beside the draws themselves and the relative spread of one draw
 ("draw_rel_std"); the per-sample spread is draw 0's.
 
-The scenes are built through the JAX API: the fog and the sun-sky cloud by
-bench.build_fog_scene / build_cloud_scene, and the grid cloud, the default
+The scenes are built through the JAX API: the fog, the sun-sky cloud and
+the materials scene by bench.build_fog_scene / build_cloud_scene /
+build_materials_scene, and the grid cloud, the default
 scene under a light sampler, the lights scene and the sparse cloud (written
 to a NanoVDB file by the JAX package and read back as its BrickGridMedium)
 by the jax_*_scene builders below (the same scenes as the port's scenes.py
@@ -72,6 +73,7 @@ PROBES = [
     ("sparse_cloud", "power", 32, 12, 16, 16),  # chip_smoke.py phase 4, tests (slow), 10%
     ("default", "power", 64, 5, 1, 1, 3),     # Mitchell: chip_smoke.py phase 4, tests (slow)
     ("default", "power", 64, 5, 1, 1, 4),     # Lanczos: the same
+    ("materials", "power", 64, 5, 1, 1),      # chip_smoke.py phase 4, tests (slow)
 ]
 MEDIUM_SCENES = ("fog", "cloud", "cloud_grid", "sparse_cloud")
 OUT = os.path.join(ROOT, "hikari_tpu_torch", "data", "probe_ref.json")
@@ -189,6 +191,8 @@ def jax_scene(which: str, sampler: str = "power"):
     assert sampler == "power", (which, sampler)
     if which == "fog":
         return bench.build_fog_scene()
+    if which == "materials":
+        return bench.build_materials_scene()
     if which == "cloud":
         return bench.build_cloud_scene()
     if which == "sparse_cloud":
