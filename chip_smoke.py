@@ -166,6 +166,15 @@ MEDIUM_DEPTH = {"fog": 5, "cloud_grid": 12, "cloud": 16, "sparse_cloud": 24}
 TWIN_RGB_TOL = 0.03
 # the filter probes: equal to the JAX package's, as the light probes are
 FILTER_RGB_TOL = 1e-4
+# this slice's paths: the textured scene (every texture source, image and
+# constant alpha) under each dispatch; the flagship Cornell example at its
+# depth, then its render_aux / denoise / postprocess / write_png; the foliage
+# stack's alpha closest hits over a main path's worth of rays, whose escape
+# share must be within tests/test_alpha_mix.py's bound of 0.7^8
+TEXTURED_MODES = ("none", "sorted")
+CORNELL_DEPTH = 6
+AUX_RTOL = 1e-4   # render_aux against the JAX package's (aux_check)
+OUT_DIR = ROOT / "chiprun_out"
 CROP = ((0.25, 0.25), (0.75, 0.75))
 # the materials paths: bench.py's materials scene under each material
 # dispatch; the three trace the same rays and agree in mean RGB to this
@@ -179,7 +188,8 @@ BAND_FRAC = 0.15    # banded closest hit: band = 0.15 x the world diagonal
 # the forest's K3 and K4 take 44 s and 27 s there); the call's kernel is
 # timed all the same. Left out at this limit: K3's calls past 20 s, the
 # instanced default scene's second and third bounces and the forest's
-# third, 26-35 s each.
+# third, 26-35 s each; K3 is held on a seeded subset of such a call's
+# tiles whose plain walk fits the same limit (inst_subset_compare).
 PLAIN_CALL_S = 20.0
 # phase 3's pre-test check: listed pairs of each wavefront, and treelets
 # whose triangles the grazing rays aim at (four triangles each)
@@ -795,6 +805,56 @@ def final_carry_tests(name, args, out):
     return None
 
 
+def inst_subset_compare(args, expected_s, seed=7):
+    """K3 against its plain version on a seeded subset of a call's ray
+    tiles, as many as fit PLAIN_CALL_S at the call's expected plain rate:
+    each tile's lanes depend on its own segment of the pair list only, so
+    the kernel's whole-call output on those tiles is held to the plain walk
+    of the sub-list with compare's rules (tri on >= AGREE_MIN of the live
+    lanes, t within T_RTOL and b1 / b2 within B_ATOL where tri agrees) and
+    bit for bit. Returns (ok, bit-equal, tiles checked, tiles, agree, ms
+    of the plain sub-walk)."""
+    import numpy as np
+    import torch
+    from hikari_tpu_torch.geometry import sweep_inst
+    from hikari_tpu_torch.geometry.sweep import RAY_TILE
+
+    o, d, t_in, tre, tn_bits, seg, ti_obj, ti_inst, coef, inst_a = args
+    seg_h = seg.cpu().numpy().astype(np.int64)
+    n_tiles = len(seg_h) - 1
+    pairs = np.diff(seg_h)
+    budget = PLAIN_CALL_S / expected_s * pairs.sum()
+    order = np.random.RandomState(seed).permutation(n_tiles)
+    take = order[np.cumsum(pairs[order]) <= budget]
+    take = np.sort(take if len(take) else order[:1])
+    dev = o.device
+    lanes = (torch.from_numpy(take).to(dev)[:, None] * RAY_TILE
+             + torch.arange(RAY_TILE, device=dev)).reshape(-1)
+    pidx = torch.from_numpy(np.concatenate(
+        [np.arange(seg_h[t], seg_h[t + 1]) for t in take]).astype(np.int64)).to(dev)
+    sub_seg = torch.from_numpy(np.concatenate([[0], np.cumsum(pairs[take])])).to(dev, seg.dtype)
+    out_k = sweep_inst.closest_inst(*args)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out_p = sweep_inst.closest_inst_plain(o[lanes], d[lanes], t_in[lanes], tre[pidx],
+                                          tn_bits[pidx], sub_seg, ti_obj, ti_inst, coef, inst_a)
+    end.record()
+    torch.cuda.synchronize()
+    t_k, tri_k, b1_k, b2_k = (x[lanes] for x in out_k)
+    t_p, tri_p, b1_p, b2_p = out_p
+    live = t_in[lanes] > 0.0
+    same = tri_k == tri_p
+    agree = float(same[live].float().mean()) if live.any() else 1.0
+    both = same & live & (tri_k >= 0)
+    t_ok = bool(((t_k - t_p).abs()[both] <= T_RTOL * t_p.abs()[both]).all())
+    b_err = (max(float((b1_k - b1_p).abs()[both].max()), float((b2_k - b2_p).abs()[both].max()))
+             if both.any() else 0.0)
+    exact = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in zip((t_k, tri_k, b1_k, b2_k), out_p))
+    ok = agree >= AGREE_MIN and t_ok and b_err <= B_ATOL and exact
+    return ok, exact, len(take), n_tiles, agree, start.elapsed_time(end)
+
+
 def time_kernels(cases, counts, smi, label="at main-path shape"):
     """Kernels vs plain on the recorded sweep calls of a main path's first
     wavefront, one per bounce; returns their JSON records: the depth-0 call's
@@ -804,7 +864,7 @@ def time_kernels(cases, counts, smi, label="at main-path shape"):
     records = []
     for name, replaces, calls, tl in cases:
         kernel, _ = kernel_and_plain(name)
-        results, kernel_ms, bounds = [], [], []
+        results, kernel_ms, bounds, subsets = [], [], [], []
         for i, args in enumerate(calls):
             where = f"{name} {label}, call {i + 1} of {len(calls)}"
             pairs = (args[3] if name == "closest_inst" else args[4]).numel()
@@ -822,6 +882,16 @@ def time_kernels(cases, counts, smi, label="at main-path shape"):
                     + ("" if b is None else
                        f"; bound {b:.3f} ms from the final carry's {tests} tests")
                     + f" [{smi}]")
+                if name == "closest_inst":
+                    ok, exact, k, n_tiles, agree, ms_sub = inst_subset_compare(args, expected_s)
+                    subsets.append(ok)
+                    log(f"[timing] {where}: K3 against its plain version on a seeded subset "
+                        f"of {k} of {n_tiles} ray tiles ({k / n_tiles * 100:.1f}% checked; "
+                        f"plain sub-walk {ms_sub / 1e3:.1f} s): agree {agree:.6f}, bit-equal "
+                        f"{'yes' if exact else 'no'} [{smi}] -> {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise SystemExit(f"{where}: the tile subset disagrees with its plain "
+                                         f"version")
                 continue
             r = compare(name, args, tl, reps=5 if i == 0 else 3)
             results.append(r)
@@ -860,6 +930,7 @@ def time_kernels(cases, counts, smi, label="at main-path shape"):
             "bit_equal": all(r["exact"] for r in results),
             "min_agree": min(r["agree"] for r in results),
             "calls_timed": len(calls), "calls_compared": len(results),
+            "calls_subset_compared": len(subsets),
             "ms_render": sum(kernel_ms), "plain_ms_render": plain_total,
             "bound_ms_render": bound_total, "bound_tests": counted,
         })
@@ -879,12 +950,14 @@ def hold_path(label, rec, cases, smi, partial=()):
         n_calls = r["calls_timed"]
         plain = r["plain_ms_render"]
         bound = r["bound_ms_render"]
+        subset = (f", and on a tile subset of the {r['calls_subset_compared']} others"
+                  if r["calls_subset_compared"] else "")
         log(f"[{label}] {r['name']} on the {n_calls} sweep calls of the path's warm-up "
             f"wavefront: kernel {r['ms_render']:.3f} ms, plain "
             + ("left out on some calls" if plain is None else f"{plain:.3f} ms")
             + ", bound " + ("not measured" if bound is None else f"{bound:.3f} ms")
             + f" ({r['bound_by']} at the first call); bit-equal with the plain version on "
-            f"{r['calls_compared']} of {n_calls} calls compared: "
+            f"{r['calls_compared']} of {n_calls} calls compared{subset}: "
             f"{'yes' if r['bit_equal'] else 'NO'} [{smi}]")
         needed = 1 if r["name"] in partial else n_calls
         if not (r["bit_equal"] and r["calls_compared"] >= needed):
@@ -893,49 +966,147 @@ def hold_path(label, rec, cases, smi, partial=()):
 
 
 class ShadingInstruments:
-    """Synchronising wrappers around the stages of a materials path, for
-    one instrumented render_lanes: the layered types' BSDF sampling and
-    NEE evaluation (the random walks), every other type's, and the
-    traversal (scene_closest_hit and scene_any_hit, the sweeps and their
-    drivers); per stage, the time between a synchronize before the call
-    and one after."""
+    """Synchronising, exclusive stage timers around the shading and
+    traversal functions of volpath, for one instrumented call. The caller
+    maps each stage to what it times (MATERIAL_STAGES, TEXTURE_STAGES):
+    "module.name" for a function of the port (volpath, bsdf), or
+    "samplers:layered" / "evaluators:other" and the like for the layered or
+    the other material types' entries of volpath's BSDF tables. A stage
+    that runs inside another (a lookup inside a walk) is counted in its
+    own stage only. Per bounce (one _bounce_core call) it counts the
+    closest-sweep calls of the camera path (_closest_hit_surface: the first
+    and one per alpha round) and of the shadow walk (_trace_shadow)."""
 
-    STAGES = ("layered sample", "layered eval", "other BSDFs", "traversal")
-
-    def __init__(self):
-        self.secs = dict.fromkeys(self.STAGES, 0.0)
+    def __init__(self, stages):
+        self.stages = stages
+        self.secs = dict.fromkeys(stages, 0.0)
+        self.stack = []   # [stage, start of its current stretch]
+        self.bounces = []
+        self.context = None
 
     def _timed(self, stage, fn):
         def wrapped(*args, **kw):
             import torch
 
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-            self.secs[stage] += time.perf_counter() - t0
+            now = time.perf_counter()
+            if self.stack:
+                self.secs[self.stack[-1][0]] += now - self.stack[-1][1]
+            self.stack.append([stage, now])
+            try:
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+            finally:
+                end = time.perf_counter()
+                self.secs[stage] += end - self.stack.pop()[1]
+                if self.stack:
+                    self.stack[-1][1] = end
             return out
+        return wrapped
+
+    def _within(self, context, fn):
+        def wrapped(*args, **kw):
+            outer, self.context = self.context, context
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.context = outer
         return wrapped
 
     def __enter__(self):
         from hikari_tpu_torch.integrators import volpath
+        from hikari_tpu_torch.materials import bsdf
 
-        self.saved = (dict(volpath._SAMPLERS), dict(volpath._EVALUATORS),
-                      volpath.scene_closest_hit, volpath.scene_any_hit)
-        for table, verb in ((volpath._SAMPLERS, "sample"), (volpath._EVALUATORS, "eval")):
-            for tag, fn in table.items():
-                layered = tag in volpath._LAYERED_TAGS
-                table[tag] = self._timed(f"layered {verb}" if layered else "other BSDFs", fn)
-        volpath.scene_closest_hit = self._timed("traversal", volpath.scene_closest_hit)
-        volpath.scene_any_hit = self._timed("traversal", volpath.scene_any_hit)
+        modules = {"volpath": volpath, "bsdf": bsdf}
+        tables = {"samplers": volpath._SAMPLERS, "evaluators": volpath._EVALUATORS}
+        self.saved = [(volpath, n, getattr(volpath, n)) for n in (
+            "scene_closest_hit", "_closest_hit_surface", "_trace_shadow", "_bounce_core")]
+        self.tables = {k: dict(t) for k, t in tables.items()}
+        for stage, targets in self.stages.items():
+            for target in targets:
+                if ":" in target:
+                    table, kind = target.split(":")
+                    for tag in tables[table]:
+                        if (tag in volpath._LAYERED_TAGS) == (kind == "layered"):
+                            tables[table][tag] = self._timed(stage, tables[table][tag])
+                else:
+                    module, name = target.split(".")
+                    m = modules[module]
+                    self.saved.append((m, name, getattr(m, name)))
+                    setattr(m, name, self._timed(stage, getattr(m, name)))
+        closest = volpath.scene_closest_hit
+
+        def counted(*args, **kw):
+            if self.bounces and self.context is not None:
+                self.bounces[-1][self.context] += 1
+            return closest(*args, **kw)
+
+        bounce = volpath._bounce_core
+
+        def bounce_counted(*args, **kw):
+            self.bounces.append(dict(surface=0, shadow=0))
+            return bounce(*args, **kw)
+
+        volpath.scene_closest_hit = counted
+        volpath._closest_hit_surface = self._within("surface", volpath._closest_hit_surface)
+        volpath._trace_shadow = self._within("shadow", volpath._trace_shadow)
+        volpath._bounce_core = bounce_counted
         return self
 
     def __exit__(self, *exc):
         from hikari_tpu_torch.integrators import volpath
 
-        samplers, evaluators, volpath.scene_closest_hit, volpath.scene_any_hit = self.saved
-        volpath._SAMPLERS.update(samplers)
-        volpath._EVALUATORS.update(evaluators)
+        for module, name, fn in reversed(self.saved):  # the first saved is the original
+            setattr(module, name, fn)
+        volpath._SAMPLERS.update(self.tables["samplers"])
+        volpath._EVALUATORS.update(self.tables["evaluators"])
+
+    def split(self, total) -> str:
+        parts = dict(self.secs, rest=total - sum(self.secs.values()))
+        return ", ".join(f"{name} {sec * 1e3:.1f} ms ({sec / total * 100:.1f}%)"
+                         for name, sec in parts.items())
+
+
+TRAVERSAL = ("volpath.scene_closest_hit", "volpath.scene_any_hit")
+# the materials paths' stages: the layered types' random walks (sample,
+# NEE evaluation), every other type's BSDF, the traversal
+MATERIAL_STAGES = {"layered sample": ("samplers:layered",),
+                   "layered eval": ("evaluators:layered",),
+                   "other BSDFs": ("samplers:other", "evaluators:other"),
+                   "traversal": TRAVERSAL}
+# the textured paths' stages: the atlas reads, uv footprints and per-lane
+# spectral uplift; the alpha tests; the layered walks; the traversal
+TEXTURE_STAGES = {"texture lookups and uplift": (
+                      "bsdf.eval_rgb", "bsdf.eval_scalar", "bsdf.rgb_albedo_eval",
+                      "bsdf.rgb_illuminant_eval", "volpath.eval_scalar",
+                      "volpath._uv_screen_derivatives"),
+                  "alpha tests": ("volpath._alpha_keep",),
+                  "layered walks": ("samplers:layered", "evaluators:layered"),
+                  "traversal": TRAVERSAL}
+
+
+def instrumented_lanes(sc, cam, vp, stages, names=None):
+    """One sample batch of vp through render_lanes under
+    ShadingInstruments(stages) (and a Recorder of the wavefront sweeps
+    `names`, when given): (stats, instruments, recorder or None, seconds)."""
+    import torch
+    import hikari_tpu_torch as hk
+    from hikari_tpu_torch.geometry import wavefront
+    from hikari_tpu_torch.integrators.volpath import render_lanes
+
+    w, h = cam.resolution
+    k = vp.sample_batch
+    lanes = torch.arange(w * h, device=sc.device)
+    record = Recorder(wavefront, names) if names else contextlib.nullcontext()
+    with record as rec, ShadingInstruments(stages) as ins:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, stats = render_lanes(vp, sc, cam, hk.make_filter(),
+                                   torch.arange(k, device=sc.device).repeat_interleave(w * h),
+                                   (lanes % w).repeat(k), (lanes // w).repeat(k))
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    return stats, ins, rec, total
 
 
 def materials_paths(sc, cam, smi):
@@ -947,33 +1118,18 @@ def materials_paths(sc, cam, smi):
     Then a warm-up render and two timed renders (timed_render's checks:
     K1 and K2 launched, no other sweep). The modes must trace the same
     rays and agree in mean RGB within MODES_RGB_RTOL."""
-    import torch
     import hikari_tpu_torch as hk
-    from hikari_tpu_torch.geometry import wavefront
-    from hikari_tpu_torch.integrators.volpath import render_lanes
 
     names = ("closest_tiles", "occlusion_tiles")
-    dev = sc.device
     w, h = cam.resolution
-    lanes = torch.arange(w * h, device=dev)
     rays, rgb = {}, {}
     for mode in MATERIAL_MODES:
         label = f"materials {mode}"
         vp = hk.VolPath(max_depth=5, samples_per_pixel=MAIN_SPP, material_coherence=mode)
-        k = vp.sample_batch
-        record = Recorder(wavefront, names) if mode == "none" else contextlib.nullcontext()
-        with record as rec, ShadingInstruments() as ins:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, _, stats = render_lanes(vp, sc, cam, hk.make_filter(),
-                                       torch.arange(k, device=dev).repeat_interleave(w * h),
-                                       (lanes % w).repeat(k), (lanes // w).repeat(k))
-            torch.cuda.synchronize()
-            total = time.perf_counter() - t0
-        split = dict(ins.secs, rest=total - sum(ins.secs.values()))
-        log(f"[{label}] stage split of one synchronised {w}x{h} {k}-sample wavefront, "
-            f"{total:.3f} s: " + ", ".join(f"{name} {sec * 1e3:.1f} ms ({sec / total * 100:.1f}%)"
-                                         for name, sec in split.items()) + f" [{smi}]")
+        stats, ins, rec, total = instrumented_lanes(sc, cam, vp, MATERIAL_STAGES,
+                                                    names if mode == "none" else None)
+        log(f"[{label}] stage split of one synchronised {w}x{h} {vp.sample_batch}-sample "
+            f"wavefront, {total:.3f} s: {ins.split(total)} [{smi}]")
         if rec is not None:
             hold_path(label, rec, [(n, sc.treelets) for n in names], smi)
             del rec  # the captured inputs stay out of the renders' peak memory
@@ -1043,6 +1199,182 @@ def mix_path(sc, cam, smi):
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the Mix floor does not show both children")
+
+
+def log_bounces(label, ins, smi):
+    for i, b in enumerate(ins.bounces):
+        log(f"[{label}] bounce {i}: {b['surface']} camera-path closest sweeps (1 + "
+            f"{max(b['surface'] - 1, 0)} alpha rounds), {b['shadow']} shadow-walk closest "
+            f"sweeps [{smi}]")
+
+
+def textured_paths(sc, cam, smi):
+    """Path A: the textured scene at full size, depth 5, under each
+    TEXTURED_MODES dispatch. Its alpha makes shadow rays walk closest hits,
+    so K1 alone launches. Per mode an instrumented wavefront prints the
+    alpha rounds and shadow-walk sweeps per bounce and the stage split;
+    under 'none' it also captures K1's calls (the alpha re-traces and
+    shadow walks among them), and K1 goes against its plain version on
+    every one, bit for bit (hold_path). Then a timed render
+    (timed_render's checks). The modes must trace the same rays and agree
+    in mean RGB within MODES_RGB_RTOL."""
+    import hikari_tpu_torch as hk
+
+    names = ("closest_tiles",)
+    rays, rgb = {}, {}
+    for mode in TEXTURED_MODES:
+        label = f"textured {mode}"
+        vp = hk.VolPath(max_depth=5, samples_per_pixel=MAIN_SPP, material_coherence=mode)
+        stats, ins, rec, total = instrumented_lanes(sc, cam, vp, TEXTURE_STAGES,
+                                                    names if mode == "none" else None)
+        log_bounces(label, ins, smi)
+        log(f"[{label}] stage split of one synchronised {cam.resolution[0]}x"
+            f"{cam.resolution[1]} {vp.sample_batch}-sample wavefront, {total:.3f} s: "
+            f"{ins.split(total)} [{smi}]")
+        if rec is not None:
+            hold_path(label, rec, [(names[0], sc.treelets)], smi)
+            del rec  # the captured inputs stay out of the render's peak memory
+        rays[mode] = float(stats["rays_traced"])
+        _, r = timed_render(label, sc, cam, vp, names, smi, rays[mode],
+                            float(stats["nonfinite_lanes"]))
+        rgb[mode] = r["mean_rgb"]
+        del r
+    err = abs(rgb["sorted"] / rgb["none"] - 1)
+    ok = rays["none"] == rays["sorted"] and err <= MODES_RGB_RTOL
+    log(f"[textured] the modes: rays {rays['none']:.0f} / {rays['sorted']:.0f}, mean RGB "
+        f"{rgb['none']:.7f} / {rgb['sorted']:.7f} ({err:.2e}, tolerance {MODES_RGB_RTOL:g}) "
+        f"[{smi}] -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the textured scene renders differently under the two dispatches")
+
+
+def cuda_secs(fn):
+    """(result, seconds) of fn() between two synchronisations."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def cornell_path(sc, cam, smi):
+    """Path B: examples/cornell_scene.py's pipeline at full size through the
+    public API: an instrumented wavefront (stage split; K1 and K2 against
+    their plain versions on every captured call, bit for bit), a
+    RenderMeter lap around render (timed_render's checks: K1 and K2
+    launched, no other sweep), then render_aux, denoise, postprocess with
+    ACES and write_png into chiprun_out/, each timed; the PNG must decode
+    (read_png) to a finite, not black image of the render's size."""
+    import numpy as np
+    import hikari_tpu_torch as hk
+
+    names = ("closest_tiles", "occlusion_tiles")
+    vp = hk.VolPath(max_depth=CORNELL_DEPTH, samples_per_pixel=MAIN_SPP)
+    stats, ins, rec, total = instrumented_lanes(sc, cam, vp, TEXTURE_STAGES, names)
+    log_bounces("cornell", ins, smi)
+    log(f"[cornell] stage split of one synchronised wavefront, {total:.3f} s: "
+        f"{ins.split(total)} [{smi}]")
+    hold_path("cornell", rec, [(n, sc.treelets) for n in names], smi)
+    del rec
+    rays = float(stats["rays_traced"])
+    meter = hk.RenderMeter().start()
+    _, r = timed_render("cornell", sc, cam, vp, names, smi, rays, float(stats["nonfinite_lanes"]))
+    lap = meter.lap(rays)
+    img = hk.framebuffer(r["film"])
+    (albedo, normal, depth), aux_s = cuda_secs(lambda: hk.render_aux(sc, cam))
+    den, den_s = cuda_secs(lambda: hk.denoise(img, albedo, normal, depth))
+    OUT_DIR.mkdir(exist_ok=True)
+    png = OUT_DIR / f"cornell_{cam.resolution[0]}.png"
+    t0 = time.perf_counter()
+    hk.write_png(png, hk.postprocess(den, tonemap="aces"))
+    png_s = time.perf_counter() - t0
+    back = hk.read_png(png)
+    ok = (back.shape == (cam.resolution[1], cam.resolution[0], 3) and np.isfinite(back).all()
+          and back.mean() > 0.0 and bool(den.isfinite().all()))
+    log(f"[cornell] RenderMeter {json.dumps(lap)}; render_aux {aux_s * 1e3:.1f} ms, denoise "
+        f"({hk.DenoiseConfig().iterations} passes) {den_s * 1e3:.1f} ms, postprocess + write_png "
+        f"{png_s * 1e3:.1f} ms -> {png.relative_to(ROOT)} ({png.stat().st_size} B, decodes to "
+        f"{back.shape}, mean {back.mean():.4f}; covered pixels "
+        f"{float((depth > 0).float().mean()):.4f}) "
+        f"[{smi}] -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the Cornell pipeline's PNG does not decode to a finite, lit image")
+
+
+def foliage_path(sc, smi):
+    """Path C: tests/test_alpha_mix.py's foliage stack; _closest_hit_surface
+    over MAIN_RES^2 x MAIN_SPP rays along +z from seeded origins over
+    [-3, 3]^2: its escape share within that test's bound of 0.7^8, the
+    closest sweeps it took (K1 only), the stage split, time and peak
+    memory."""
+    import torch
+    from hikari_tpu_torch.geometry import sweep
+    from hikari_tpu_torch.integrators import volpath
+    from hikari_tpu_torch.scenes import FOLIAGE_ALPHA, FOLIAGE_LAYERS
+
+    n = MAIN_RES * MAIN_RES * MAIN_SPP
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    o = torch.zeros(n, 3)
+    o[:, :2] = torch.rand(n, 2, generator=gen) * 6.0 - 3.0
+    o = o.to(sc.device)
+    d = torch.tensor([0.0, 0.0, 1.0], device=sc.device).expand(n, 3).contiguous()
+    t_max = torch.full((n,), float("inf"), device=sc.device)
+    active = torch.ones(n, dtype=torch.bool, device=sc.device)
+    volpath._closest_hit_surface(sc, o[:1024], d[:1024], t_max[:1024], active[:1024])  # warm
+    torch.cuda.reset_peak_memory_stats()
+    sweep.reset_counts()
+    with ShadingInstruments(TEXTURE_STAGES) as ins:
+        ins.bounces.append(dict(surface=0, shadow=0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = volpath._closest_hit_surface(sc, o, d, t_max, active)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = dict(sweep.launches)
+    escape = 1.0 - float(rec.hit.float().mean())
+    expect = (1.0 - FOLIAGE_ALPHA) ** FOLIAGE_LAYERS
+    rays = ins.bounces[0]["surface"]
+    ok = (abs(escape - expect) < 0.35 * expect + 0.01 and counts["closest_tiles"] > 0
+          and not any(v for k, v in counts.items() if k != "closest_tiles"))
+    log(f"[foliage] {n} rays through {FOLIAGE_LAYERS} alpha-{FOLIAGE_ALPHA} quads: "
+        f"{secs * 1e3:.1f} ms ({n / secs / 1e6:.1f} M of these rays/s), {rays} closest sweeps "
+        f"(1 + {rays - 1} alpha rounds), launches "
+        f"{counts}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; stage split "
+        f"{ins.split(secs)}; escape share {escape:.5f} (0.7^8 = {expect:.5f}, bound "
+        f"{0.35 * expect + 0.01:.5f}) [{smi}] -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the foliage stack's escape share or launches are off")
+
+
+def aux_check(which, sc, smi):
+    """Phase 4: a 64x64 render_aux of a scene against the JAX package's,
+    pixel for pixel (scenes.aux_against_reference; data/aux_ref.npz,
+    tools/gen_probe_ref.py --renders): every pixel keeps the reference's
+    face or sits on a verified tie (both faces hold the hit point, t
+    within AUX_TIE_RTOL); depth within AUX_RTOL relative on every pixel,
+    the shading normal within AUX_RTOL on the pixels of the same face, and
+    their mean albedo within AUX_RTOL relative. The means over every
+    pixel are printed beside the reference's for information (a tie
+    pixel's normal and albedo are another face's)."""
+    from hikari_tpu_torch.scenes import AUX_TIE_RTOL, aux_against_reference
+
+    r = aux_against_reference(sc, which)
+    ok = (r["unexplained"] == 0 and r["depth_err"] <= AUX_RTOL and r["normal_err"] <= AUX_RTOL
+          and r["albedo_mean_err"] <= AUX_RTOL)
+    (alb, nrm, dep), (ralb, rnrm, rdep) = r["means"], r["ref_means"]
+    log(f"[transport] {which} render_aux {r['res']}x{r['res']}: {r['same']} of {r['pixels']} "
+        f"pixels on the reference's face, {r['ties']} on a tie (t within {AUX_TIE_RTOL:g}; "
+        f"pixels and (port, reference) faces {list(zip(r['tie_pixels'], r['tie_faces']))}), "
+        f"{r['unexplained']} unexplained; largest differences: depth {r['depth_err']:.2e} "
+        f"(every pixel), normal {r['normal_err']:.2e}, mean albedo {r['albedo_mean_err']:.2e} "
+        f"(same face; per pixel {r['albedo_err']:.2e}), tolerance {AUX_RTOL:g}; means over "
+        f"every pixel: albedo {alb:.6f} vs {ralb:.6f}, normal "
+        f"{[round(x, 6) for x in nrm]} vs {[round(x, 6) for x in rnrm]}, depth {dep:.6f} vs "
+        f"{rdep:.6f} [{smi}] -> {'pass' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{which} render_aux differs from the JAX package's")
 
 
 def sparse_paths(sparse, cam, smi):
@@ -1227,11 +1559,12 @@ def main() -> int:
 
     from hikari_tpu_torch.film.filters import LANCZOS, MITCHELL
     from hikari_tpu_torch.scenes import (BUILDERS, check_transport, cloud_grid_scene,
-                                         cloud_scene, default_scene, fog_scene, forest_camera,
-                                         forest_scene, instanced_default_scene, lights_scene,
+                                         cloud_scene, cornell_scene, default_scene, fog_scene,
+                                         foliage_scene, forest_camera, forest_scene,
+                                         instanced_default_scene, lights_scene,
                                          materials_scene, mix_scene, probe_reference,
                                          scene_camera, sparse_cloud_scene, sphere_scene,
-                                         transport_probe)
+                                         textured_scene, transport_probe, triangle_scene)
 
     flat_names = ("closest_tiles", "occlusion_tiles")
     inst_names = ("closest_inst", "occlusion_inst")
@@ -1365,6 +1698,18 @@ def main() -> int:
         log(f"[transport] {mode} dispatch: {msg} -> {'pass' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"materials probe failed under {mode} dispatch: {msg}")
+    # textures, alpha and the flagship example: the triangle, textured and
+    # Cornell probes, and render_aux's means
+    for which, build in (("triangle", triangle_scene), ("textured", textured_scene),
+                         ("cornell", cornell_scene)):
+        scenes[which] = build().build(device=dev)
+        ok, msg = check_transport(scenes[which], which)
+        log(f"[transport] {msg} -> {'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{which} probe failed: {msg}")
+    aux_check("textured", scenes["textured"], smi)
+    aux_check("cornell", scenes["cornell"], smi)
+    del scenes["triangle"]
     log(f"[time] phases 1-4 done at {time.perf_counter() - t_start:.0f} s")
 
     # phase 5: the main paths at full size: flat (tile sweeps, pair grid,
@@ -1409,6 +1754,15 @@ def main() -> int:
     del scenes["materials"]
     mix_path(mix_scene().build(device=dev), scene_camera("mix", MAIN_RES), smi)
     torch.cuda.empty_cache()
+    # textures and alpha: the textured scene (K1 only), the Cornell example's
+    # pipeline (K1 and K2), the foliage stack's alpha closest hits
+    t0 = time.perf_counter()
+    textured_paths(scenes["textured"], scene_camera("textured", MAIN_RES), smi)
+    cornell_path(scenes["cornell"], scene_camera("cornell", MAIN_RES), smi)
+    foliage_path(foliage_scene().build(device=dev), smi)
+    del scenes["textured"], scenes["cornell"]
+    torch.cuda.empty_cache()
+    log(f"[time] the textured, Cornell and foliage paths took {time.perf_counter() - t0:.0f} s")
     log(f"[time] the flat, instanced, lights' and materials paths done at "
         f"{time.perf_counter() - t_start:.0f} s")
     # the medium paths: K1 (or K5) for camera rays and every shadow-walk

@@ -10,7 +10,9 @@ walks, Mix resolved per hit), participating media (homogeneous,
 density-grid, RGB-grid and sparse brick grids read from NanoVDB files,
 delta and ratio tracking), every light (point, spot, distant, sun, ambient,
 area, environment and the Hosek-Wilkie sun and sky) and the power, uniform
-and BVH light samplers are plain PyTorch. The Pallas sweep kernels of the
+and BVH light samplers, image and vertex-colour textures, stochastic alpha,
+the denoiser's aux pass, the a-trous denoiser, the tonemaps and the image
+and checkpoint I/O are plain PyTorch. The Pallas sweep kernels of the
 flat, pair-grid and instanced paths are hand-written CUDA (``csrc/sweep_tiles.cu``,
 ``csrc/sweep_pairs.cu``, ``csrc/sweep_inst.cu``), built with nvcc at first
 use. Entry points run on the first CUDA device unless given
@@ -33,9 +35,12 @@ __version__ = "0.1.0"
 from .camera.camera import PerspectiveCamera, make_matrix_camera, make_perspective_camera
 from .core.transform import (Transform, from_matrix, identity, look_at, perspective, rotate,
                              rotate_x, rotate_y, rotate_z, scale, translate)
-from .film.film import Film, framebuffer, make_film
+from .film.denoise import DenoiseConfig, denoise
+from .film.film import Film, aux_buffers, film_load, film_save, framebuffer, make_film
 from .film.filters import BOX, GAUSSIAN, LANCZOS, MITCHELL, TRIANGLE, make_filter
-from .integrators.volpath import (VolPath, render, render_lanes, scene_any_hit,
+from .film.imageio import load_image, read_pfm, read_png, write_pfm
+from .film.postprocess import FilmSensor, postprocess, write_png
+from .integrators.volpath import (VolPath, render, render_aux, render_lanes, scene_any_hit,
                                   scene_closest_hit)
 from .lights.sunsky import sunsky_environment
 from .lights.types import (AmbientLight, DistantLight, EnvironmentLight, PointLight,
@@ -52,6 +57,8 @@ from .media.types import (BrickGridMedium, CloudVolume, Fog, GridMedium, Homogen
 from .scene.mesh import (TriangleMesh, compute_vertex_normals, load_obj, make_box,
                          make_quad, make_sphere)
 from .scene.scene import Scene, SceneData
+from .textures.atlas import ImageTexture, VertexColorTexture
+from .utils.metrics import RenderMeter
 
 __all__ = [
     "Scene", "SceneData", "TriangleMesh", "make_box", "make_quad", "make_sphere",
@@ -73,4 +80,9 @@ __all__ = [
     "make_filter", "BOX", "TRIANGLE", "GAUSSIAN", "MITCHELL", "LANCZOS",
     "VolPath", "render", "render_lanes", "scene_closest_hit", "scene_any_hit",
     "Film", "make_film", "framebuffer",
+    "ImageTexture", "VertexColorTexture",
+    "render_aux", "aux_buffers", "film_save", "film_load",
+    "FilmSensor", "postprocess", "write_png", "DenoiseConfig", "denoise",
+    "read_png", "read_pfm", "write_pfm", "load_image",
+    "RenderMeter",
 ]

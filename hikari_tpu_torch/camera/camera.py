@@ -28,6 +28,8 @@ class PerspectiveCamera:
 
     camera_to_world: Transform
     raster_to_camera: Transform
+    dx_camera: torch.Tensor  # (3,) camera-space offset of one raster pixel in x
+    dy_camera: torch.Tensor  # (3,) and in y (texture filter footprints)
     lens_radius: float
     focal_distance: float
     resolution: tuple  # (W, H)
@@ -49,6 +51,14 @@ class PerspectiveCamera:
         return o_w, d_w
 
 
+def _pixel_steps(raster_to_camera: Transform) -> dict:
+    """dx_camera / dy_camera: the camera-space points of raster (1, 0) and
+    (0, 1) less that of the origin (perspective.jl:58-60)."""
+    pts = raster_to_camera.apply_point(torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0],
+                                                     [0.0, 0.0, 0.0]]))
+    return dict(dx_camera=pts[0] - pts[2], dy_camera=pts[1] - pts[2])
+
+
 def make_perspective_camera(eye, target, resolution, up=(0.0, 1.0, 0.0),
                             fov_deg: float = 55.0, lens_radius: float = 0.0,
                             focal_distance: float = 1e6) -> PerspectiveCamera:
@@ -68,7 +78,7 @@ def make_perspective_camera(eye, target, resolution, up=(0.0, 1.0, 0.0),
     raster_to_camera = cam_from_screen.compose(from_matrix(m))
     return PerspectiveCamera(
         camera_to_world=cam_to_world, raster_to_camera=raster_to_camera,
-        lens_radius=float(lens_radius), focal_distance=float(focal_distance),
+        **_pixel_steps(raster_to_camera), lens_radius=float(lens_radius), focal_distance=float(focal_distance),
         resolution=(w, h))
 
 
@@ -84,7 +94,8 @@ def make_matrix_camera(view, projection, resolution) -> PerspectiveCamera:
                                     [0.0, -2.0 / h, 0.0, 1.0],
                                     [0.0, 0.0, 1.0, 0.0],
                                     [0.0, 0.0, 0.0, 1.0]], dtype=torch.float32)
+    raster_to_camera = from_matrix(torch.linalg.inv(projection) @ screen_from_ndc)
     return PerspectiveCamera(
-        camera_to_world=from_matrix(torch.linalg.inv(view)),
-        raster_to_camera=from_matrix(torch.linalg.inv(projection) @ screen_from_ndc),
-        lens_radius=0.0, focal_distance=1e6, resolution=(w, h))
+        camera_to_world=from_matrix(torch.linalg.inv(view)), raster_to_camera=raster_to_camera,
+        **_pixel_steps(raster_to_camera), lens_radius=0.0, focal_distance=1e6,
+        resolution=(w, h))

@@ -31,8 +31,18 @@ Every material of the JAX package shades here, under each
 material_coherence mode: the layered ones through the random walks of
 ``materials/layered.py``, whose NEE evaluation draws ZSobol dimensions 7
 and 9, and Mix resolved per hit to one of its children (``mix_u``).
-Textures and alpha are not ported; scenes that need them raise
-``NotImplementedError`` instead of rendering a wrong image.
+
+Textures (``textures/atlas.py``): in a scene whose material banks have
+textures, each hit gathers its uv and vertex colour from one ``tex_rows``
+row and its uv screen derivatives from the camera's pixel footprint
+(``_uv_screen_derivatives``); every BSDF sample and evaluation then takes
+``tex`` = (atlas, TexCtx, RGB-to-spectrum table), permuted with the lanes
+under 'sorted' dispatch. A scene without textures passes ``tex=None`` and
+runs the constant-colour code alone. Stochastic alpha (``has_alpha``):
+camera paths re-trace past hits whose hashed alpha test fails, for at most
+ALPHA_ROUNDS rounds (``_closest_hit_surface``), and shadow rays walk
+closest hits, passing alpha-failed occluders. ``render_aux`` gives the
+denoiser's albedo, normal and depth images.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ from ..core.vecmath import dot, face_forward, make_frame, normalize, to_local, t
 from ..film.film import Film, film_add_weighted, make_film
 from ..film.filters import FilterSampler, filter_sample, make_filter
 from ..geometry import wavefront as wf
+from ..geometry.traverse import HitRecord
 from ..geometry.triangle import interpolate
 from ..geometry.instanced import any_hit_instanced, closest_hit_instanced
 from ..geometry.sweep import RAY_TILE, TREELET
@@ -64,8 +75,12 @@ from ..sampling.hashes import MASK32, f32_bits, hash_u32x2, shr
 from ..scene.scene import SceneData
 from ..spectral import spectrum as sp
 from ..spectral.cie import spectral_to_xyz, xyz_to_linear_srgb
+from ..textures.atlas import TexCtx, eval_scalar
 
 MAX_INTERFACE_CROSSINGS = 10  # shadow-ray boundary chain cap
+# stochastic alpha re-trace cap (intersection.jl:223): each round clears one
+# rejected hit per lane, so a deeper alpha stack renders opaque
+ALPHA_ROUNDS = 16
 
 
 def scene_closest_hit(scene: SceneData, o, d, t_max, active=None, presorted=False):
@@ -140,6 +155,13 @@ def _masked(m, new, old):
     return torch.where(m.view(m.shape + (1,) * (new.dim() - m.dim())), new, old)
 
 
+def _take(v, ix):
+    """Lanes `ix` of a per-lane input: a tensor, a TexCtx or None."""
+    if v is None:
+        return None
+    return v.take(ix) if isinstance(v, TexCtx) else v[ix]
+
+
 def _sorted_type_dispatch(mat_type, per_lane, out_init, present, run_type):
     """Material-sorted shading (the reference's _sorted_type_dispatch,
     ``volpath.py:192``): one stable sort of the lanes by tag, each present
@@ -147,19 +169,20 @@ def _sorted_type_dispatch(mat_type, per_lane, out_init, present, run_type):
     order. The reference's window ladder and clamped dynamic_slice give
     XLA static shapes; eager PyTorch slices the run exactly.
 
-    per_lane: dict of (N, ...) inputs (None entries pass through);
+    per_lane: dict of (N, ...) inputs (TexCtx entries are permuted field by
+    field; None entries pass through);
     out_init: list of (N, ...) outputs for lanes of no listed type;
     run_type(tag, sliced per_lane) -> list matching out_init."""
     order = torch.sort(mat_type, stable=True).indices
     mt_s = mat_type[order]
-    pl_s = {k: None if v is None else v[order] for k, v in per_lane.items()}
+    pl_s = {k: _take(v, order) for k, v in per_lane.items()}
     out = [x[order] for x in out_init]
     tags = torch.tensor(present, dtype=mt_s.dtype, device=mt_s.device)
     starts = torch.searchsorted(mt_s, tags).tolist()
     ends = torch.searchsorted(mt_s, tags, right=True).tolist()
     for tag, a, b in zip(present, starts, ends):
         if b > a:
-            res = run_type(tag, {k: None if v is None else v[a:b] for k, v in pl_s.items()})
+            res = run_type(tag, {k: _take(v, slice(a, b)) for k, v in pl_s.items()})
             for o, r in zip(out, res):
                 o[a:b] = r
     back = [torch.empty_like(x) for x in out]
@@ -173,33 +196,40 @@ _LAYERED_TAGS = (mt.COATED_DIFFUSE, mt.COATED_CONDUCTOR, mt.COATED_DIFFUSE_TRANS
 
 def _no_reg(fn):
     """A lobe that takes no regularize mask, under the dispatch's signature."""
-    return lambda banks, idx, wo, lam, u2, uc, reg: fn(banks, idx, wo, lam, u2, uc)
+    return lambda banks, idx, wo, lam, u2, uc, reg, tex: fn(banks, idx, wo, lam, u2, uc,
+                                                            tex=tex)
 
 
 def _walk_eval(fn):
     """A layered lobe's evaluation: no regularize mask, the walk's u2 / uc."""
-    return lambda banks, idx, wo, wi, lam, reg, u2, uc: fn(banks, idx, wo, wi, lam, u2, uc)
+    return lambda banks, idx, wo, wi, lam, reg, u2, uc, tex: fn(banks, idx, wo, wi, lam, u2,
+                                                                uc, tex=tex)
 
 
-# per BSDF-bearing tag: sample(banks, idx, wo, lam, u2, uc, reg)
+# per BSDF-bearing tag: sample(banks, idx, wo, lam, u2, uc, reg, tex)
 _SAMPLERS = {
     mt.MATTE: _no_reg(mb.sample_matte), mt.MIRROR: _no_reg(mb.sample_mirror),
-    mt.GLASS: mb.sample_glass, mt.CONDUCTOR: mb.sample_conductor,
+    mt.GLASS: lambda b, i, wo, lam, u2, uc, reg, tex: mb.sample_glass(
+        b, i, wo, lam, u2, uc, reg, tex=tex),
+    mt.CONDUCTOR: lambda b, i, wo, lam, u2, uc, reg, tex: mb.sample_conductor(
+        b, i, wo, lam, u2, uc, reg, tex=tex),
     mt.THIN_DIELECTRIC: _no_reg(mb.sample_thin_dielectric),
     mt.DIFFUSE_TRANSMISSION: _no_reg(mb.sample_diffuse_transmission),
     mt.COATED_DIFFUSE: _no_reg(ml.sample_coated_diffuse),
     mt.COATED_CONDUCTOR: _no_reg(ml.sample_coated_conductor),
     mt.COATED_DIFFUSE_TRANSMISSION: _no_reg(ml.sample_coated_diffuse_transmission),
 }
-# per tag with a non-delta lobe: eval(banks, idx, wo, wi, lam, reg, u2, uc) -> (f,
-# pdf); u2 / uc drive the layered walks
+# per tag with a non-delta lobe: eval(banks, idx, wo, wi, lam, reg, u2, uc, tex) ->
+# (f, pdf); u2 / uc drive the layered walks
 _EVALUATORS = {
-    mt.MATTE: lambda b, i, wo, wi, lam, reg, u2, uc: mb.eval_matte(b, i, wo, wi, lam),
-    mt.CONDUCTOR: lambda b, i, wo, wi, lam, reg, u2, uc: mb.eval_conductor(
-        b, i, wo, wi, lam, reg),
-    mt.GLASS: lambda b, i, wo, wi, lam, reg, u2, uc: mb.eval_glass(b, i, wo, wi, lam, reg),
-    mt.DIFFUSE_TRANSMISSION: lambda b, i, wo, wi, lam, reg, u2, uc: (
-        mb.eval_diffuse_transmission(b, i, wo, wi, lam)),
+    mt.MATTE: lambda b, i, wo, wi, lam, reg, u2, uc, tex: mb.eval_matte(
+        b, i, wo, wi, lam, tex=tex),
+    mt.CONDUCTOR: lambda b, i, wo, wi, lam, reg, u2, uc, tex: mb.eval_conductor(
+        b, i, wo, wi, lam, reg, tex=tex),
+    mt.GLASS: lambda b, i, wo, wi, lam, reg, u2, uc, tex: mb.eval_glass(
+        b, i, wo, wi, lam, reg, tex=tex),
+    mt.DIFFUSE_TRANSMISSION: lambda b, i, wo, wi, lam, reg, u2, uc, tex: (
+        mb.eval_diffuse_transmission(b, i, wo, wi, lam, tex=tex)),
     mt.COATED_DIFFUSE: _walk_eval(ml.eval_coated_diffuse),
     mt.COATED_CONDUCTOR: _walk_eval(ml.eval_coated_conductor),
     mt.COATED_DIFFUSE_TRANSMISSION: _walk_eval(ml.eval_coated_diffuse_transmission),
@@ -220,39 +250,47 @@ def _dispatch(mat_type, tags, per_lane, out, run_type, coherence):
     return out
 
 
+def _lane_tex(tex, ctx):
+    """The (atlas, lanes' TexCtx, table) of a dispatch run; None without
+    textures."""
+    return None if ctx is None else (tex[0], ctx, tex[2])
+
+
 def _sample_bsdf_dispatch(scene, mat_type, mat_idx, wo, lam, u2, uc, regularize,
-                          coherence="none"):
-    """Per-type BSDF sampling, selected by tag."""
+                          coherence="none", tex=None):
+    """Per-type BSDF sampling, selected by tag. tex: the surface's (atlas,
+    TexCtx, table), or None in a scene without textures."""
     banks = scene.materials
     init = mb.invalid_sample(tuple(mat_type.shape), mat_type.device)
     tags = [t for t in _SAMPLERS if t in scene.present_materials]
 
     def run(tag, pl):
         s = _SAMPLERS[tag](banks, pl["idx"], pl["wo"], pl["lam"], pl["u2"], pl["uc"],
-                           pl["reg"])
+                           pl["reg"], _lane_tex(tex, pl["ctx"]))
         return [getattr(s, f) for f in _SAMPLE_FIELDS]
 
     out = _dispatch(mat_type, tags,
-                    dict(idx=mat_idx, wo=wo, lam=lam, u2=u2, uc=uc, reg=regularize),
+                    dict(idx=mat_idx, wo=wo, lam=lam, u2=u2, uc=uc, reg=regularize,
+                         ctx=None if tex is None else tex[1]),
                     [getattr(init, f) for f in _SAMPLE_FIELDS], run, coherence)
     return mb.BSDFSample(**dict(zip(_SAMPLE_FIELDS, out)))
 
 
 def _eval_bsdf_dispatch(scene, mat_type, mat_idx, wo, wi, lam, regularize, coherence,
-                        eval_u2, eval_uc):
+                        eval_u2, eval_uc, tex=None):
     """(f, pdf) for NEE MIS; zero for specular-only materials. eval_u2 /
     eval_uc (the ZSobol dimensions 7 and 9) drive the layered walks (None
-    in a scene without layered materials)."""
+    in a scene without layered materials); tex as in _sample_bsdf_dispatch."""
     banks = scene.materials
     tags = [t for t in _EVALUATORS if t in scene.present_materials]
 
     def run(tag, pl):
         return _EVALUATORS[tag](banks, pl["idx"], pl["wo"], pl["wi"], pl["lam"], pl["reg"],
-                                pl["u2"], pl["uc"])
+                                pl["u2"], pl["uc"], _lane_tex(tex, pl["ctx"]))
 
     f, pdf = _dispatch(mat_type, tags,
                        dict(idx=mat_idx, wo=wo, wi=wi, lam=lam, reg=regularize, u2=eval_u2,
-                            uc=eval_uc),
+                            uc=eval_uc, ctx=None if tex is None else tex[1]),
                        [torch.zeros_like(lam), torch.zeros(mat_type.shape, device=lam.device)],
                        run, coherence)
     return f, pdf
@@ -275,6 +313,69 @@ def _inst_xform_normal(scene: SceneData, inst, n_obj):
     return (scene.inst_nrm[inst] * n_obj[..., None, :]).sum(-1)
 
 
+def _inst_xform_point(scene: SceneData, inst, p_obj):
+    """Object -> world point by the instance's [linear | translation] rows."""
+    m = scene.inst_l2w[inst]
+    return (m[..., :3] * p_obj[..., None, :]).sum(-1) + m[..., 3]
+
+
+def _uv_screen_derivatives(camera: PerspectiveCamera, p, p0, p1, p2, uv0, uv1, uv2):
+    """Texture-filter derivatives from the camera: pbrt's Approximate_dp_dxy
+    (a one-pixel footprint scaled by the hit's camera depth) solved against
+    the triangle's dp/duv (surface-eval.jl:32-141). The world-to-camera
+    matrix is the camera's stored inverse, computed once with it."""
+    w2c = camera.camera_to_world.inverse()
+    z = torch.abs(w2c.apply_point(p)[..., 2:3])
+    c2w = camera.camera_to_world
+    dpdx = c2w.apply_vector(camera.dx_camera.to(p.device))[None, :] * z
+    dpdy = c2w.apply_vector(camera.dy_camera.to(p.device))[None, :] * z
+    return _solve_duv(p0, p1, p2, uv0, uv1, uv2, dpdx, dpdy)
+
+
+def _uv_diff_derivatives(diff, p, ng, p0, p1, p2, uv0, uv1, uv2):
+    """Ray-differential texture derivatives: the +x / +y auxiliary camera
+    rays (diff.rx_o, rx_d, ry_o, ry_d) moved to the hit plane (p, ng), their
+    offsets solved against the triangle's dp/duv
+    (surface_interaction.jl:136-174)."""
+
+    def transfer(ro, rd):
+        den = (ng * rd).sum(-1)
+        ok = torch.abs(den) > 1e-12
+        t = ((p - ro) * ng).sum(-1) / torch.where(ok, den, 1.0)
+        dp = ro + t[..., None] * rd - p
+        return torch.where((ok & torch.isfinite(t))[..., None], dp, 0.0)
+
+    return _solve_duv(p0, p1, p2, uv0, uv1, uv2, transfer(diff.rx_o, diff.rx_d),
+                      transfer(diff.ry_o, diff.ry_d))
+
+
+def _solve_duv(p0, p1, p2, uv0, uv1, uv2, dpdx, dpdy):
+    """Least-squares (duvdx, duvdy) of world-space footprint vectors against
+    the triangle's dp/duv (pbrt-v4 SurfaceInteraction::ComputeDifferentials);
+    zero where the uv or the normal equations are degenerate."""
+    dp1, dp2 = p1 - p0, p2 - p0
+    duv1, duv2 = uv1 - uv0, uv2 - uv0
+    det = duv1[..., 0] * duv2[..., 1] - duv1[..., 1] * duv2[..., 0]
+    ok_uv = torch.abs(det) > 1e-12
+    inv = 1.0 / torch.where(ok_uv, det, 1.0)
+    dpdu = (duv2[..., 1:2] * dp1 - duv1[..., 1:2] * dp2) * inv[..., None]
+    dpdv = (-duv2[..., 0:1] * dp1 + duv1[..., 0:1] * dp2) * inv[..., None]
+    a00 = (dpdu * dpdu).sum(-1)
+    a01 = (dpdu * dpdv).sum(-1)
+    a11 = (dpdv * dpdv).sum(-1)
+    det_a = a00 * a11 - a01 * a01
+    ok = ok_uv & (torch.abs(det_a) > 1e-20)
+    inv_a = 1.0 / torch.where(ok, det_a, 1.0)
+
+    def solve(dp):
+        b0 = (dpdu * dp).sum(-1)
+        b1 = (dpdv * dp).sum(-1)
+        duv = torch.stack([(a11 * b0 - a01 * b1) * inv_a, (a00 * b1 - a01 * b0) * inv_a], -1)
+        return torch.where(ok[..., None], duv, 0.0)
+
+    return solve(dpdx), solve(dpdy)
+
+
 def _volumetric(scene: SceneData) -> bool:
     """The scene has media or Interface faces: paths carry a medium and
     shadow rays walk through interfaces."""
@@ -289,20 +390,33 @@ def mix_u(b1, b2, tri):
     return shr(h, 32).to(torch.float32) * 2.0 ** -32
 
 
-def _resolve_mix(banks, mat_type, mat_idx, tri, rec):
+def _resolve_mix(scene: SceneData, mat_type, mat_idx, tri, rec, uv, vcol):
     """Mix lanes -> the child that the hit's mix_u picks (the first where
-    mix_u < amount)."""
-    mi = torch.clamp(mat_idx, min=0).long()
-    use1 = mix_u(rec.b1, rec.b2, tri) < banks.mix_amount[mi]
+    mix_u < amount; a textured amount reads its texture at the hit's uv,
+    level 0)."""
+    banks = scene.materials
+    # other tags' indices may pass the Mix rows: clamped, as XLA's gather does
+    mi = torch.clamp(mat_idx, 0, banks.mix_amount.shape[0] - 1).long()
+    amount = banks.mix_amount[mi]
+    if banks.has_textures:
+        amount = eval_scalar(scene.atlas, banks.mix_amount_tex[mi], amount,
+                             TexCtx(uv=uv, vcolor=vcol))
+    use1 = mix_u(rec.b1, rec.b2, tri) < amount
     is_mix = mat_type == mt.MIX
     child_t = torch.where(use1, banks.mix_m1_type[mi], banks.mix_m2_type[mi])
     child_i = torch.where(use1, banks.mix_m1_idx[mi], banks.mix_m2_idx[mi])
     return torch.where(is_mix, child_t, mat_type), torch.where(is_mix, child_i, mat_idx)
 
 
-def _surface_data(scene: SceneData, rec, o, d):
-    """Hit-point attributes from one (F, 17) face-row gather."""
+def _surface_data(scene: SceneData, rec, o, d, camera=None, diff=None):
+    """Hit-point attributes from one (F, 17) face-row gather; in a scene
+    with textures also uv and vertex colour from one tex_rows gather and,
+    given the camera, the uv screen derivatives, or given true ray
+    differentials `diff` (rx_o, rx_d, ry_o, ry_d: Whitted's primary hits in
+    the JAX package) the derivatives they transfer (entry "tex": (atlas,
+    TexCtx, table), else None)."""
     tri, inst = _face_decode(scene, rec.tri)
+    p_hit = o + rec.t[..., None] * d
     rows = scene.face_rows[tri]
     ng_raw = rows[..., 0:3]
     ns = normalize(interpolate(rec.b1, rec.b2, rows[..., 3:6], rows[..., 6:9],
@@ -314,15 +428,34 @@ def _surface_data(scene: SceneData, rec, o, d):
         ns = normalize(_inst_xform_normal(scene, inst, ns))
         override = scene.inst_mat_packed[inst]  # per-instance material
         packed = torch.where(override >= 0, override, packed)
+    tex = uv = vcol = None
+    if scene.materials.has_textures:
+        trows = scene.tex_rows[tri]
+        uvs = trows[..., 0:2], trows[..., 2:4], trows[..., 4:6]
+        uv = interpolate(rec.b1, rec.b2, *uvs)
+        vcol = interpolate(rec.b1, rec.b2, trows[..., 6:9], trows[..., 9:12],
+                           trows[..., 12:15])
+        duvdx = duvdy = None
+        if camera is not None or diff is not None:
+            corners = scene.tri_p[tri]
+            q = [corners[..., 3 * k:3 * k + 3] for k in range(3)]
+            if inst is not None:
+                q = [_inst_xform_point(scene, inst, c) for c in q]
+            if diff is not None:
+                duvdx, duvdy = _uv_diff_derivatives(diff, p_hit, ng_raw, *q, *uvs)
+            else:
+                duvdx, duvdy = _uv_screen_derivatives(camera, p_hit, *q, *uvs)
+        tex = (scene.atlas, TexCtx(uv=uv, vcolor=vcol, duvdx=duvdx, duvdy=duvdy),
+               scene.rgb2spec)
     mat_type, mat_idx = packed >> 24, packed & 0xFFFFFF
     if mt.MIX in scene.present_materials:
-        mat_type, mat_idx = _resolve_mix(scene.materials, mat_type, mat_idx, tri, rec)
+        mat_type, mat_idx = _resolve_mix(scene, mat_type, mat_idx, tri, rec, uv, vcol)
     if mt.EMISSIVE in scene.present_materials:
         arealight = rows[..., 14].to(torch.int32) - 1
     else:
         arealight = torch.full_like(packed, -1)
-    sd = dict(p=o + rec.t[..., None] * d, ng=face_forward(ng_raw, ns), ns=ns,
-              mat_type=mat_type, mat_idx=mat_idx, arealight=arealight)
+    sd = dict(p=p_hit, ng=face_forward(ng_raw, ns), ns=ns, mat_type=mat_type,
+              mat_idx=mat_idx, arealight=arealight, tex=tex)
     if _volumetric(scene):
         sd.update(ng_raw=ng_raw, inside_med=rows[..., 15].to(torch.int32) - 1,
                   outside_med=rows[..., 16].to(torch.int32) - 1)
@@ -336,16 +469,62 @@ def _crossing_medium(sd, direction):
     return torch.where(entering_inside, sd["inside_med"], sd["outside_med"])
 
 
+def _alpha_keep(scene: SceneData, rec, p_hit, u_salt: int = 0):
+    """Stochastic alpha test of a hit: kept with probability alpha (the
+    face's constant, or its alpha texture at the hit's uv), by a hash of the
+    bits of the world hit point and the face row, salted per round, so the
+    decision is stable per point and independent across the lanes of a
+    packet (intersection.jl:223-252). Misses are kept."""
+    tri, _ = _face_decode(scene, rec.tri)
+    trows = scene.tex_rows[tri]
+    uv = interpolate(rec.b1, rec.b2, trows[..., 0:2], trows[..., 2:4], trows[..., 4:6])
+    ctx = TexCtx(uv=uv, vcolor=torch.ones(uv.shape[:-1] + (3,), device=uv.device))
+    a = eval_scalar(scene.atlas, trows[..., 16].to(torch.int32) - 1, trows[..., 15], ctx)
+    hx, hy, hz = (f32_bits(p_hit[..., k]) for k in range(3))
+    salt = (0x9E3779B9 * (u_salt + 1)) & MASK32
+    h = hash_u32x2(hx ^ (((hy << 16) & MASK32) | (hy >> 16)), hz ^ (tri & MASK32) ^ salt)
+    u = shr(h, 32).to(torch.float32) * 2.0 ** -32
+    return ~rec.hit | (u < a)
+
+
+def _closest_hit_surface(scene: SceneData, o, d, t_max, active, presorted=False):
+    """The closest hit that passes the stochastic alpha test: lanes whose
+    hit fails it re-trace past it, for at most ALPHA_ROUNDS rounds, and then
+    keep whatever they stand on (the reference's 16-try cap). A round in
+    which no lane re-traces ends the loop: every later round would change
+    nothing. The returned t is from the original origin."""
+    rec = scene_closest_hit(scene, o, d, t_max, active=active, presorted=presorted)
+    if not scene.has_alpha:
+        return rec
+    o_cur, t_off, live = o, torch.zeros_like(rec.t), active
+    for k in range(ALPHA_ROUNDS):
+        keep = _alpha_keep(scene, rec, o_cur + rec.t[..., None] * d, u_salt=k)
+        retrace = live & rec.hit & ~keep
+        if not bool(retrace.any()):
+            break
+        t_adv = rec.t + 1e-4
+        o_cur = torch.where(retrace[..., None], o_cur + t_adv[..., None] * d, o_cur)
+        t_off = torch.where(retrace, t_off + t_adv, t_off)
+        rec2 = scene_closest_hit(scene, o_cur, d, torch.clamp(t_max - t_off, min=0.0),
+                                 active=retrace, presorted=presorted)
+        rec = HitRecord(*(torch.where(retrace, new, old) for new, old in (
+            (rec2.hit, rec.hit), (rec2.t, rec.t), (rec2.tri, rec.tri), (rec2.b1, rec.b1),
+            (rec2.b2, rec.b2))))
+        live = retrace
+    return HitRecord(hit=rec.hit, t=rec.t + t_off, tri=rec.tri, b1=rec.b1, b2=rec.b2)
+
+
 def _trace_shadow(scene: SceneData, o_sh, wi, t_max, medium_sh, lam, active,
                   light_group=None):
     """Shadow transmittance (T_ray, r_l multiplier, r_u multiplier), each
-    (N, 4); T_ray 0 where blocked. Without media and interfaces one
+    (N, 4); T_ray 0 where blocked. Without media, interfaces and alpha one
     occlusion sweep decides. Otherwise the ray walks up to
-    MAX_INTERFACE_CROSSINGS closest hits: Interface faces are crossed
-    (switching medium), any other face blocks, and each segment inside a
-    medium is ratio-tracked. The walk stops early once no lane runs."""
+    MAX_INTERFACE_CROSSINGS closest hits: Interface faces and alpha-failed
+    hits are crossed (an interface switching medium), any other face
+    blocks, and each segment inside a medium is ratio-tracked. The walk
+    stops early once no lane runs."""
     ones4 = torch.ones_like(lam)
-    if not _volumetric(scene):
+    if not _volumetric(scene) and not scene.has_alpha:
         occluded = scene_any_hit(scene, o_sh, wi, t_max, active=active, group=light_group)
         return torch.where(occluded[..., None], 0.0, ones4), ones4, ones4
     T_ray = r_l_m = r_u_m = ones4
@@ -369,12 +548,16 @@ def _trace_shadow(scene: SceneData, o_sh, wi, t_max, medium_sh, lam, active,
             packed = torch.where(override >= 0, override, packed)
             ng_raw = _inst_xform_normal(scene, inst, ng_raw)
         passthrough = (packed >> 24) == mt.INTERFACE
+        if scene.has_alpha:
+            passthrough = passthrough | ~_alpha_keep(scene, rec, o_cur + rec.t[..., None] * wi,
+                                                     u_salt=7)
         T_ray = torch.where((hit_something & ~passthrough)[..., None], 0.0, T_ray)
         crossing = hit_something & passthrough
-        entering_inside = (wi * ng_raw).sum(-1) < 0.0
-        new_med = torch.where(entering_inside, rows[..., 15].to(torch.int32) - 1,
-                              rows[..., 16].to(torch.int32) - 1)
-        med = torch.where(crossing, new_med, med)
+        if med is not None:  # an alpha-only scene's shadow rays carry no medium
+            entering_inside = (wi * ng_raw).sum(-1) < 0.0
+            new_med = torch.where(entering_inside, rows[..., 15].to(torch.int32) - 1,
+                                  rows[..., 16].to(torch.int32) - 1)
+            med = torch.where(crossing, new_med, med)
         p_hit = o_cur + rec.t[..., None] * wi
         o_cur = torch.where(crossing[..., None], p_hit + 1e-4 * wi, o_cur)
         t_rem = torch.where(crossing, t_rem - rec.t - 1e-4, t_rem)
@@ -395,11 +578,12 @@ def _mis_denominator(vp: VolPath, specular, r_u, r_l_hat):
 
 
 def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays_traced,
-                 presorted: bool = False):
+                 presorted: bool = False, camera: PerspectiveCamera | None = None):
     """One bounce over an arbitrary lane subset: the state dict `st` of
     render_lanes (the whole wavefront, or the resident loop's sorted live
     prefix) -> (new state, rays_traced). px, py and si ride in the state,
-    so permuted lanes draw their own ZSobol samples."""
+    so permuted lanes draw their own ZSobol samples. camera: the texture
+    filter footprints' (JAX volpath.py:1236)."""
     o, d, beta, r_u, r_l, L = st["o"], st["d"], st["beta"], st["r_u"], st["r_l"], st["L"]
     alive, specular, eta_scale = st["alive"], st["spec"], st["eta"]
     any_nonspec, disp_term = st["anyns"], st["disp"]
@@ -411,7 +595,7 @@ def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays
 
     rays_traced = rays_traced + alive.float().sum()
     t_inf = torch.full((o.shape[0],), float("inf"), device=o.device)
-    rec = scene_closest_hit(scene, o, d, t_inf, active=alive, presorted=presorted)
+    rec = _closest_hit_surface(scene, o, d, t_inf, alive, presorted=presorted)
 
     # the medium segment up to the surface: delta tracking
     scattered = torch.zeros_like(alive)
@@ -454,7 +638,7 @@ def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays
         le_amb = lt.illuminant(scene.rgb2spec, lights.ambient_l.sum(0), lam)
         contrib = beta * le_amb / torch.clamp(r_u.mean(-1)[..., None], min=1e-12)
         L = L + torch.where(escaped[..., None], contrib, 0.0)
-    sd = _surface_data(scene, rec, o, d)
+    sd = _surface_data(scene, rec, o, d, camera)
     wo = -d
     frame = make_frame(sd["ns"])
     wo_l = to_local(*frame, wo)
@@ -465,7 +649,7 @@ def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays
     if mt.EMISSIVE in scene.present_materials:
         is_emitter = hit & (sd["arealight"] >= 0)
         le = mb.emitted_radiance(scene.materials, torch.clamp(sd["mat_idx"], min=0),
-                                 lam, dot(sd["ng"], wo))
+                                 lam, dot(sd["ng"], wo), tex=sd["tex"])
         area_flat = torch.clamp(lights.area_flat_base + sd["arealight"], 0,
                                 lights.pmf.shape[0] - 1)
         pmf_area = (bvh_pmf(scene.light_bvh, prev_p, prev_ns, area_flat) if bvh
@@ -496,7 +680,8 @@ def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays
             u2e = torch.stack(sb.path_sample_2d(zcfg, px, py, si, depth, 7), -1)
             uce = sb.path_sample_1d(zcfg, px, py, si, depth, 9)
         f_s, pdf_b = _eval_bsdf_dispatch(scene, sd["mat_type"], sd["mat_idx"],
-                                         wo_l, wi_l, lam, reg, coherence, u2e, uce)
+                                         wo_l, wi_l, lam, reg, coherence, u2e, uce,
+                                         tex=sd["tex"])
         f_hat = f_s * torch.abs(wi_l[..., 2])[..., None]
         nee_lanes = hit
         o_sh = spawn_ray(sd["p"], sd["ng"], ls.wi)
@@ -526,7 +711,7 @@ def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays
     ub = torch.stack(sb.path_sample_2d(zcfg, px, py, si, depth, 3), -1)
     uc = sb.path_sample_1d(zcfg, px, py, si, depth, 5)
     bs = _sample_bsdf_dispatch(scene, sd["mat_type"], sd["mat_idx"], wo_l, lam,
-                               ub, uc, reg, coherence)
+                               ub, uc, reg, coherence, tex=sd["tex"])
     wi_surf = to_world(*frame, bs.wi)
     thr = bs.f * (torch.abs(bs.wi[..., 2]) / torch.clamp(bs.pdf, min=1e-12))[..., None]
     go = hit & bs.valid & (bs.pdf > 0.0) & (thr > 0.0).any(-1)
@@ -676,7 +861,8 @@ def render_lanes(vp: VolPath, scene: SceneData, camera: PerspectiveCamera,
     rays_traced = torch.zeros((), device=dev)
 
     def bounce(depth, st_, rays):
-        return _bounce_core(vp, scene, zcfg, depth, st_, rays, presorted=resident)
+        return _bounce_core(vp, scene, zcfg, depth, st_, rays, presorted=resident,
+                            camera=camera)
 
     if resident:
         L, disp_term, rays_traced = _resident_bounce_loop(vp, scene, st, rays_traced,
@@ -706,6 +892,78 @@ def render_lanes(vp: VolPath, scene: SceneData, camera: PerspectiveCamera,
     rgb = torch.nan_to_num(rgb, nan=0.0, posinf=0.0, neginf=0.0)
     return rgb, filter_w, {"rays_traced": rays_traced,
                            "nonfinite_lanes": bad.float().sum()}
+
+
+def _albedo_rgb_dispatch(scene: SceneData, mat_type, mat_idx, tex):
+    """Approximate RGB albedo per lane (get_albedo_spectral's analogue) for
+    the denoiser's aux buffers: textured where the field is; 0.5 for tags
+    without one."""
+    b = scene.materials
+    idx = torch.clamp(mat_idx, min=0).long()
+    out = torch.full(mat_type.shape + (3,), 0.5, device=mat_type.device)
+    present = scene.present_materials
+
+    def rgb(field, tex_field):
+        return mb._tex_rgb(field, tex_field, idx, tex)
+
+    def put(tag, value):
+        nonlocal out
+        out = torch.where((mat_type == tag)[..., None], value, out)
+
+    if mt.MATTE in present:
+        put(mt.MATTE, rgb(b.matte_kd, b.matte_kd_tex))
+    if mt.MIRROR in present:
+        put(mt.MIRROR, rgb(b.mirror_kr, b.mirror_kr_tex))
+    if mt.GLASS in present:
+        put(mt.GLASS, torch.ones_like(out))
+    if mt.CONDUCTOR in present:
+        # normal-incidence Fresnel at ~(610, 550, 465) nm
+        li = torch.tensor([250, 190, 105], device=idx.device)  # offsets from 360 nm
+        ci = torch.clamp(idx, max=b.cond_eta.shape[0] - 1)  # other tags' rows clamp, as XLA's
+        eta = b.cond_eta[ci][..., li]
+        k = b.cond_k[ci][..., li]
+        put(mt.CONDUCTOR, ((eta - 1.0) ** 2 + k * k) / ((eta + 1.0) ** 2 + k * k))
+    if mt.COATED_DIFFUSE in present:
+        put(mt.COATED_DIFFUSE, rgb(b.cd_refl, b.cd_refl_tex))
+    if mt.COATED_DIFFUSE_TRANSMISSION in present:
+        put(mt.COATED_DIFFUSE_TRANSMISSION,
+            rgb(b.cdt_refl, b.cdt_refl_tex) + rgb(b.cdt_trans, b.cdt_trans_tex))
+    if mt.DIFFUSE_TRANSMISSION in present:
+        put(mt.DIFFUSE_TRANSMISSION,
+            rgb(b.dt_refl, b.dt_refl_tex) + rgb(b.dt_trans, b.dt_trans_tex))
+    if mt.EMISSIVE in present:
+        put(mt.EMISSIVE, rgb(b.emissive_le, b.emissive_le_tex))
+    return out
+
+
+def pixel_centre_rays(camera: PerspectiveCamera, device):
+    """(o, d), each (H * W, 3): the camera ray through the centre of every
+    pixel, row by row, with the lens at its centre (render_aux's rays)."""
+    w, h = camera.resolution
+    n = w * h
+    lanes = torch.arange(n, device=device)
+    p_film = torch.stack([(lanes % w).float(), (lanes // w).float()], -1) + 0.5
+    return camera.generate_rays(CameraSample(
+        p_film=p_film, lens=torch.zeros((n, 2), device=device),
+        time=torch.zeros(n, device=device), filter_weight=torch.ones(n, device=device)))
+
+
+def render_aux(scene: SceneData, camera: PerspectiveCamera):
+    """Primary-visibility pass for the denoiser (fill_aux_buffers!,
+    film.jl:410-483): (albedo (H, W, 3), shading normal (H, W, 3), depth
+    (H, W)) at each pixel's centre, zero where the ray escapes. As in the
+    JAX package, the pass takes the plain closest hit (no alpha test) and
+    reads textures at level 0."""
+    w, h = camera.resolution
+    o, d = pixel_centre_rays(camera, scene.device)
+    rec = scene_closest_hit(scene, o, d, torch.full((w * h,), float("inf"), device=scene.device))
+    sd = _surface_data(scene, rec, o, d)
+    albedo = _albedo_rgb_dispatch(scene, sd["mat_type"], sd["mat_idx"], sd["tex"])
+    hit = rec.hit
+    albedo = torch.where(hit[..., None], albedo, 0.0)
+    normal = torch.where(hit[..., None], sd["ns"], 0.0)
+    depth = torch.where(hit, rec.t, 0.0)
+    return albedo.reshape(h, w, 3), normal.reshape(h, w, 3), depth.reshape(h, w)
 
 
 def render_lanes_segmented(vp: VolPath, scene: SceneData, camera: PerspectiveCamera,

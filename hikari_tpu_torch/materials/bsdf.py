@@ -5,8 +5,9 @@ Conductor, ThinDielectric and DiffuseTransmission lobes, the colourless
 dielectric interface that the layered walk (``layered.py``) samples, and
 the emission. Everything runs on whole wavefronts in the local shading
 frame (z = shading normal); spectra are (..., 4) hero-wavelength tensors.
-Constant colours evaluate their precomputed sigmoid coefficients (textures
-are not ported).
+Constant colours evaluate their precomputed sigmoid coefficients; textured
+ones (``tex`` = (atlas, TexCtx, RGB-to-spectrum table), only in a scene
+whose banks have textures) are uplifted per lane.
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ from ..core.vecmath import (
 from ..sampling.distributions import cosine_sample_hemisphere
 from ..spectral.cie import D65_PHOTOMETRIC
 from ..spectral.piecewise_poly import piecewise_eval_banked
-from ..spectral.rgb2spec import coeff4_eval, coeff4_illuminant_eval
+from ..spectral.rgb2spec import (coeff4_eval, coeff4_illuminant_eval, rgb_albedo_eval,
+                                 rgb_illuminant_eval)
+from ..textures.atlas import CONST_TEX, eval_rgb, eval_scalar
 from .fresnel import fresnel_conductor, fresnel_dielectric
 from .microfacet import effectively_smooth, regularize_alpha, tr_d, tr_g, tr_pdf, tr_sample_wm
 from .types import MaterialBanks
@@ -58,6 +61,41 @@ def _spec(c4_field, idx, lam):
     return coeff4_eval(_bl(c4_field, idx), lam)
 
 
+def _tex_rgb(banks_field, tex_field, idx, tex):
+    """A possibly textured RGB field. tex = (atlas, ctx, table) or None."""
+    const = _bl(banks_field, idx)
+    if tex is None:
+        return const
+    atlas, ctx, _ = tex
+    return eval_rgb(atlas, _bl(tex_field, idx), const, ctx)
+
+
+def _albedo_spec(banks, c4_field, rgb_field, tex_field, idx, tex, lam):
+    """Spectral reflectance of a possibly textured RGB field: constant lanes
+    evaluate their sigmoid coefficients, textured lanes uplift their RGB
+    (clipped to [0, 1]) through the table; the uplift runs only in scenes
+    whose banks have textures."""
+    spec = _spec(c4_field, idx, lam)
+    if tex is None or not banks.has_textures:
+        return spec
+    atlas, ctx, table = tex
+    t = _bl(tex_field, idx)
+    rgb_t = eval_rgb(atlas, t, _bl(rgb_field, idx), ctx)
+    spec_t = rgb_albedo_eval(table, torch.clamp(rgb_t, 0.0, 1.0), lam)
+    return torch.where((t == CONST_TEX)[..., None], spec, spec_t)
+
+
+def _tex_alpha(base_alpha, tex_field, idx, tex):
+    """Textured roughness: the texture's value, sqrt-remapped, replaces the
+    baked alpha where a texture is bound."""
+    if tex is None:
+        return base_alpha
+    atlas, ctx, _ = tex
+    t = _bl(tex_field, idx)
+    r = eval_scalar(atlas, t, torch.zeros_like(base_alpha), ctx)
+    return torch.where(t >= 0, torch.sqrt(torch.clamp(r, 0.0, 1.0)), base_alpha)
+
+
 # --- Matte (Lambert / Oren-Nayar) --------------------------------------------------
 
 
@@ -76,27 +114,28 @@ def _oren_nayar_factor(sigma, wo, wi):
     return a + b * cos_dphi * sin_alpha * tan_beta
 
 
-def _matte_f(banks, idx, wo, wi, lam):
-    f = _spec(banks.matte_kd_c4, idx, lam) * INV_PI
+def _matte_f(banks, idx, wo, wi, lam, tex):
+    f = _albedo_spec(banks, banks.matte_kd_c4, banks.matte_kd, banks.matte_kd_tex, idx, tex,
+                     lam) * INV_PI
     sigma = _bl(banks.matte_sigma, idx)
     return f * torch.where(sigma > 0.0, _oren_nayar_factor(sigma, wo, wi), 1.0)[..., None]
 
 
-def sample_matte(banks: MaterialBanks, idx, wo, lam, u2, uc) -> BSDFSample:
+def sample_matte(banks: MaterialBanks, idx, wo, lam, u2, uc, tex=None) -> BSDFSample:
     wi = cosine_sample_hemisphere(u2)
     flip = torch.tensor([1.0, 1.0, -1.0], device=wi.device)
     wi = torch.where(wo[..., 2:3] < 0.0, wi * flip, wi)
     pdf = abs_cos_theta(wi) * INV_PI
-    f = _matte_f(banks, idx, wo, wi, lam)
+    f = _matte_f(banks, idx, wo, wi, lam, tex)
     no = torch.zeros_like(pdf, dtype=torch.bool)
     return BSDFSample(wi=wi, f=f, pdf=pdf, specular=no, transmission=no,
                       eta_scale=torch.ones_like(pdf),
                       valid=(pdf > 0.0) & (torch.abs(wo[..., 2]) > 1e-6))
 
 
-def eval_matte(banks, idx, wo, wi, lam):
+def eval_matte(banks, idx, wo, wi, lam, tex=None):
     same = same_hemisphere(wo, wi)
-    f = torch.where(same[..., None], _matte_f(banks, idx, wo, wi, lam), 0.0)
+    f = torch.where(same[..., None], _matte_f(banks, idx, wo, wi, lam, tex), 0.0)
     pdf = torch.where(same, abs_cos_theta(wi) * INV_PI, 0.0)
     return f, pdf
 
@@ -108,10 +147,12 @@ def _mirror_dir(wo):
     return torch.stack([-wo[..., 0], -wo[..., 1], wo[..., 2]], -1)
 
 
-def sample_mirror(banks, idx, wo, lam, u2, uc) -> BSDFSample:
+def sample_mirror(banks, idx, wo, lam, u2, uc, tex=None) -> BSDFSample:
     wi = _mirror_dir(wo)
     cos_i = torch.clamp(abs_cos_theta(wi), min=1e-6)
-    f = _spec(banks.mirror_kr_c4, idx, lam) / cos_i[..., None]
+    kr = _albedo_spec(banks, banks.mirror_kr_c4, banks.mirror_kr, banks.mirror_kr_tex, idx,
+                      tex, lam)
+    f = kr / cos_i[..., None]
     yes = torch.ones_like(cos_i, dtype=torch.bool)
     return BSDFSample(wi=wi, f=f, pdf=torch.ones_like(cos_i), specular=yes,
                       transmission=~yes, eta_scale=torch.ones_like(cos_i),
@@ -121,8 +162,9 @@ def sample_mirror(banks, idx, wo, lam, u2, uc) -> BSDFSample:
 # --- Glass: smooth + rough dielectric ---------------------------------------------------
 
 
-def _glass_alpha(banks, idx, regularize):
-    ax, ay = _bl(banks.glass_ax, idx), _bl(banks.glass_ay, idx)
+def _glass_alpha(banks, idx, regularize, tex):
+    ax = _tex_alpha(_bl(banks.glass_ax, idx), banks.glass_rough_tex, idx, tex)
+    ay = _tex_alpha(_bl(banks.glass_ay, idx), banks.glass_rough_tex, idx, tex)
     if regularize is not None:
         ax = torch.where(regularize, regularize_alpha(ax), ax)
         ay = torch.where(regularize, regularize_alpha(ay), ay)
@@ -142,11 +184,17 @@ def glass_eta_hero(banks, idx, lam):
     return torch.where(sell[..., 0] > 0.0, eta_sell, cauchy)
 
 
-def sample_glass(banks, idx, wo, lam, u2, uc, regularize=None) -> BSDFSample:
-    kr = _spec(banks.glass_kr_c4, idx, lam)
-    kt = _spec(banks.glass_kt_c4, idx, lam)
+def _glass_kr_kt(banks, idx, tex, lam):
+    return (_albedo_spec(banks, banks.glass_kr_c4, banks.glass_kr, banks.glass_kr_tex, idx,
+                         tex, lam),
+            _albedo_spec(banks, banks.glass_kt_c4, banks.glass_kt, banks.glass_kt_tex, idx,
+                         tex, lam))
+
+
+def sample_glass(banks, idx, wo, lam, u2, uc, regularize=None, tex=None) -> BSDFSample:
+    kr, kt = _glass_kr_kt(banks, idx, tex, lam)
     eta = glass_eta_hero(banks, idx, lam)
-    ax, ay = _glass_alpha(banks, idx, regularize)
+    ax, ay = _glass_alpha(banks, idx, regularize, tex)
     smooth = effectively_smooth(ax, ay)
     cos_o = wo[..., 2]
     eta_p = torch.where(cos_o > 0.0, eta, 1.0 / eta)
@@ -207,12 +255,11 @@ def sample_glass(banks, idx, wo, lam, u2, uc, regularize=None) -> BSDFSample:
                       valid=valid)
 
 
-def eval_glass(banks, idx, wo, wi, lam, regularize=None):
+def eval_glass(banks, idx, wo, wi, lam, regularize=None, tex=None):
     """(f, pdf) of the rough dielectric lobe; zero where effectively smooth."""
-    kr = _spec(banks.glass_kr_c4, idx, lam)
-    kt = _spec(banks.glass_kt_c4, idx, lam)
+    kr, kt = _glass_kr_kt(banks, idx, tex, lam)
     eta = glass_eta_hero(banks, idx, lam)
-    ax, ay = _glass_alpha(banks, idx, regularize)
+    ax, ay = _glass_alpha(banks, idx, regularize, tex)
     smooth = effectively_smooth(ax, ay)
     cos_o, cos_i = wo[..., 2], wi[..., 2]
     is_reflect = cos_o * cos_i > 0.0
@@ -249,8 +296,9 @@ def eval_glass(banks, idx, wo, wi, lam, regularize=None):
 # --- Conductor ---------------------------------------------------------------------------
 
 
-def _conductor_alpha(banks, idx, regularize):
-    ax, ay = _bl(banks.cond_ax, idx), _bl(banks.cond_ay, idx)
+def _conductor_alpha(banks, idx, regularize, tex):
+    ax = _tex_alpha(_bl(banks.cond_ax, idx), banks.cond_rough_tex, idx, tex)
+    ay = _tex_alpha(_bl(banks.cond_ay, idx), banks.cond_rough_tex, idx, tex)
     if regularize is not None:
         ax = torch.where(regularize, regularize_alpha(ax), ax)
         ay = torch.where(regularize, regularize_alpha(ay), ay)
@@ -263,9 +311,9 @@ def _cond_eta_k(banks, idx, lam):
     return eta, k
 
 
-def sample_conductor(banks, idx, wo, lam, u2, uc, regularize=None) -> BSDFSample:
+def sample_conductor(banks, idx, wo, lam, u2, uc, regularize=None, tex=None) -> BSDFSample:
     eta, k = _cond_eta_k(banks, idx, lam)
-    ax, ay = _conductor_alpha(banks, idx, regularize)
+    ax, ay = _conductor_alpha(banks, idx, regularize, tex)
     smooth = effectively_smooth(ax, ay)
     wi_s = _mirror_dir(wo)
     cos_s = torch.clamp(abs_cos_theta(wi_s), min=1e-6)
@@ -288,9 +336,9 @@ def sample_conductor(banks, idx, wo, lam, u2, uc, regularize=None) -> BSDFSample
                       eta_scale=torch.ones_like(pdf), valid=valid)
 
 
-def eval_conductor(banks, idx, wo, wi, lam, regularize=None):
+def eval_conductor(banks, idx, wo, wi, lam, regularize=None, tex=None):
     eta, k = _cond_eta_k(banks, idx, lam)
-    ax, ay = _conductor_alpha(banks, idx, regularize)
+    ax, ay = _conductor_alpha(banks, idx, regularize, tex)
     smooth = effectively_smooth(ax, ay)
     same = same_hemisphere(wo, wi)
     wm = wo + wi
@@ -403,9 +451,11 @@ def dielectric_interface_f(wo, wi, eta, ax, ay):
 # --- ThinDielectric (thin-dielectric.jl:45) ----------------------------------------------
 
 
-def sample_thin_dielectric(banks, idx, wo, lam, u2, uc) -> BSDFSample:
+def sample_thin_dielectric(banks, idx, wo, lam, u2, uc, tex=None) -> BSDFSample:
     """Reflect with R' = 2R / (1 + R), else pass straight through: both
-    faces of the slab are crossed, so the ray stays in its medium."""
+    faces of the slab are crossed, so the ray stays in its medium. Its
+    colours are constants (tex is accepted and unused, as in the JAX
+    package)."""
     kr = _spec(banks.thin_kr_c4, idx, lam)
     kt = _spec(banks.thin_kt_c4, idx, lam)
     eta = _bl(banks.thin_eta, idx)
@@ -428,17 +478,18 @@ def sample_thin_dielectric(banks, idx, wo, lam, u2, uc) -> BSDFSample:
 # --- DiffuseTransmission (diffuse-transmission.jl:39) -------------------------------------
 
 
-def _dt_albedos(banks, idx, lam):
+def _dt_albedos(banks, idx, lam, tex):
     """(reflectance, transmittance, probability of the reflection lobe)."""
-    r = _spec(banks.dt_refl_c4, idx, lam)
-    t = _spec(banks.dt_trans_c4, idx, lam)
+    r = _albedo_spec(banks, banks.dt_refl_c4, banks.dt_refl, banks.dt_refl_tex, idx, tex, lam)
+    t = _albedo_spec(banks, banks.dt_trans_c4, banks.dt_trans, banks.dt_trans_tex, idx, tex,
+                     lam)
     pr = torch.clamp(r.amax(-1), min=1e-9)
     pt = torch.clamp(t.amax(-1), min=0.0)
     return r, t, pr / (pr + pt)
 
 
-def sample_diffuse_transmission(banks, idx, wo, lam, u2, uc) -> BSDFSample:
-    r, t, p_refl = _dt_albedos(banks, idx, lam)
+def sample_diffuse_transmission(banks, idx, wo, lam, u2, uc, tex=None) -> BSDFSample:
+    r, t, p_refl = _dt_albedos(banks, idx, lam, tex)
     choose_r = uc < p_refl
     wi = cosine_sample_hemisphere(u2)
     # reflection stays on wo's side; transmission flips
@@ -451,8 +502,8 @@ def sample_diffuse_transmission(banks, idx, wo, lam, u2, uc) -> BSDFSample:
                       valid=(pdf > 1e-9) & (torch.abs(wo[..., 2]) > 1e-6))
 
 
-def eval_diffuse_transmission(banks, idx, wo, wi, lam):
-    r, t, p_refl = _dt_albedos(banks, idx, lam)
+def eval_diffuse_transmission(banks, idx, wo, wi, lam, tex=None):
+    r, t, p_refl = _dt_albedos(banks, idx, lam, tex)
     same = same_hemisphere(wo, wi)
     f = torch.where(same[..., None], r, t) * INV_PI
     pdf = abs_cos_theta(wi) * INV_PI * torch.where(same, p_refl, 1.0 - p_refl)
@@ -462,9 +513,16 @@ def eval_diffuse_transmission(banks, idx, wo, wi, lam):
 # --- emission ------------------------------------------------------------------------------
 
 
-def emitted_radiance(banks, idx, lam, cos_wo):
-    """Le(lambda) of emissive faces; zero on the back unless two-sided."""
+def emitted_radiance(banks, idx, lam, cos_wo, tex=None):
+    """Le(lambda) of emissive faces; zero on the back unless two-sided. A
+    textured emission uplifts its RGB (clamped at 0) as an illuminant."""
     le = coeff4_illuminant_eval(_bl(banks.emissive_le_c4, idx), lam)
+    if tex is not None and banks.has_textures:
+        atlas, ctx, table = tex
+        t_id = _bl(banks.emissive_le_tex, idx)
+        rgb_t = eval_rgb(atlas, t_id, _bl(banks.emissive_le, idx), ctx)
+        le_t = rgb_illuminant_eval(table, torch.clamp(rgb_t, min=0.0), lam)
+        le = torch.where((t_id == CONST_TEX)[..., None], le, le_t)
     le = le * (_bl(banks.emissive_scale, idx) / D65_PHOTOMETRIC)[..., None]
     front = (cos_wo > 0.0) | _bl(banks.emissive_two_sided, idx)
     return torch.where(front[..., None], le, 0.0)

@@ -34,7 +34,8 @@ from ..sampling.distributions import cosine_sample_hemisphere
 from ..sampling.hashes import MASK32, f32_bits
 from ..spectral.piecewise_poly import piecewise_eval_banked
 from ..spectral.rgb2spec import coeff4_eval
-from .bsdf import INV_PI, BSDFSample, dielectric_interface_f, dielectric_interface_sample
+from .bsdf import (INV_PI, BSDFSample, _albedo_spec, dielectric_interface_f,
+                   dielectric_interface_sample)
 from .fresnel import fresnel_conductor
 from .microfacet import effectively_smooth, tr_d, tr_g, tr_pdf, tr_sample_wm
 
@@ -425,9 +426,11 @@ def layered_f(wo, wi, lam, u2, uc, top_eta, top_ax, top_ay, thick, albedo4, g,
 # --- material-bank entry points --------------------------------------------------------
 
 
-def _coated_diffuse(banks, idx, lam):
-    """Walk arguments and bottom of a CoatedDiffuse row."""
-    refl = coeff4_eval(_bl(banks.cd_refl_c4, idx), lam)
+def _coated_diffuse(banks, idx, lam, tex):
+    """Walk arguments and bottom of a CoatedDiffuse row; a texture enters
+    the walk through the base's albedo only."""
+    refl = _albedo_spec(banks, banks.cd_refl_c4, banks.cd_refl, banks.cd_refl_tex, idx, tex,
+                        lam)
     top = (_bl(banks.cd_eta, idx), _bl(banks.cd_ax, idx), _bl(banks.cd_ay, idx),
            _bl(banks.cd_thick, idx), coeff4_eval(_bl(banks.cd_albedo_c4, idx), lam),
            _bl(banks.cd_g, idx))
@@ -439,13 +442,13 @@ def _coated_diffuse(banks, idx, lam):
     return top, refl, bottom
 
 
-def sample_coated_diffuse(banks, idx, wo, lam, u2, uc) -> BSDFSample:
-    top, _, bottom = _coated_diffuse(banks, idx, lam)
+def sample_coated_diffuse(banks, idx, wo, lam, u2, uc, tex=None) -> BSDFSample:
+    top, _, bottom = _coated_diffuse(banks, idx, lam, tex)
     return layered_sample(wo, lam, u2, uc, *top, bottom, _bottom_diffuse_pdf)
 
 
-def eval_coated_diffuse(banks, idx, wo, wi, lam, u2, uc):
-    top, refl, bottom = _coated_diffuse(banks, idx, lam)
+def eval_coated_diffuse(banks, idx, wo, wi, lam, u2, uc, tex=None):
+    top, refl, bottom = _coated_diffuse(banks, idx, lam, tex)
     return layered_f(wo, wi, lam, u2, uc, *top, bottom,
                      lambda w_down, wi_up: refl * INV_PI, _bottom_diffuse_pdf)
 
@@ -469,13 +472,14 @@ def _coated_conductor(banks, idx, lam):
     return top, (eta4, k4, cax, cay), bottom, bottom_pdf
 
 
-def sample_coated_conductor(banks, idx, wo, lam, u2, uc) -> BSDFSample:
+def sample_coated_conductor(banks, idx, wo, lam, u2, uc, tex=None) -> BSDFSample:
+    """tex is accepted and unused: no field of the coat is textured."""
     top, (_, _, cax, cay), bottom, bottom_pdf = _coated_conductor(banks, idx, lam)
     return layered_sample(wo, lam, u2, uc, *top, bottom, bottom_pdf,
                           bottom_smooth=effectively_smooth(cax, cay))
 
 
-def eval_coated_conductor(banks, idx, wo, wi, lam, u2, uc):
+def eval_coated_conductor(banks, idx, wo, wi, lam, u2, uc, tex=None):
     top, (eta4, k4, cax, cay), bottom, bottom_pdf = _coated_conductor(banks, idx, lam)
 
     def bottom_f(w_down, wi_up):
@@ -485,11 +489,13 @@ def eval_coated_conductor(banks, idx, wo, wi, lam, u2, uc):
                      bottom_smooth=effectively_smooth(cax, cay))
 
 
-def _coated_dt(banks, idx, lam):
+def _coated_dt(banks, idx, lam, tex):
     """Walk arguments and the diffuse-transmission bottom of a
     CoatedDiffuseTransmission row: (top, bottom, bottom_f, bottom_pdf)."""
-    refl = coeff4_eval(_bl(banks.cdt_refl_c4, idx), lam)
-    trans = coeff4_eval(_bl(banks.cdt_trans_c4, idx), lam)
+    refl = _albedo_spec(banks, banks.cdt_refl_c4, banks.cdt_refl, banks.cdt_refl_tex, idx,
+                        tex, lam)
+    trans = _albedo_spec(banks, banks.cdt_trans_c4, banks.cdt_trans, banks.cdt_trans_tex, idx,
+                         tex, lam)
     top = (_bl(banks.cdt_eta, idx), _bl(banks.cdt_ax, idx), _bl(banks.cdt_ay, idx),
            _bl(banks.cdt_thick, idx), coeff4_eval(_bl(banks.cdt_albedo_c4, idx), lam),
            _bl(banks.cdt_g, idx))
@@ -499,14 +505,15 @@ def _coated_dt(banks, idx, lam):
             lambda w_down, wi_q: _bottom_dt_pdf(refl, trans, w_down, wi_q))
 
 
-def sample_coated_diffuse_transmission(banks, idx, wo, lam, u2, uc) -> BSDFSample:
+def sample_coated_diffuse_transmission(banks, idx, wo, lam, u2, uc,
+                                       tex=None) -> BSDFSample:
     """The walk may leave through the transmitting bottom
     (coated-diffuse-transmission.jl:12)."""
-    top, bottom, _, bottom_pdf = _coated_dt(banks, idx, lam)
+    top, bottom, _, bottom_pdf = _coated_dt(banks, idx, lam, tex)
     return layered_sample(wo, lam, u2, uc, *top, bottom, bottom_pdf, bottom_exits=True)
 
 
-def eval_coated_diffuse_transmission(banks, idx, wo, wi, lam, u2, uc):
-    top, bottom, bottom_f, bottom_pdf = _coated_dt(banks, idx, lam)
+def eval_coated_diffuse_transmission(banks, idx, wo, wi, lam, u2, uc, tex=None):
+    top, bottom, bottom_f, bottom_pdf = _coated_dt(banks, idx, lam, tex)
     return layered_f(wo, wi, lam, u2, uc, *top, bottom, bottom_f, bottom_pdf,
                      bottom_exits=True)

@@ -9,8 +9,10 @@ DiffuseTransmission, the layered CoatedDiffuse (alias Plastic),
 CoatedConductor and CoatedDiffuseTransmission, and Mix (resolved to one of
 its two children per hit). Materials are pushed into per-type banks and
 referenced per face by a (type tag, index) pair; the tags, the bank field
-names and the packing order equal the JAX package's. Every field is a
-constant: textured fields (ROADMAP A10) raise ``NotImplementedError``.
+names and the packing order equal the JAX package's. A field that the JAX
+package textures may be a constant, an ``ImageTexture`` (packed into the
+scene's atlas) or a ``VertexColorTexture``; its ``*_tex`` column holds the
+reference (``textures/atlas.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import torch
 from ..spectral.piecewise import metal_eta_k
 from ..spectral.piecewise_poly import fit_piecewise_poly
 from ..spectral.rgb2spec import albedo_coeff4, srgb_table, unbounded_coeff4
+from ..textures.atlas import (CONST_TEX, VERTEX_TEX, AtlasBuilder, ImageTexture,
+                              VertexColorTexture)
 
 # material type tags (the JAX package's numbering)
 MATTE = 0
@@ -246,13 +250,17 @@ Metal = Conductor
 
 @dataclass
 class MaterialBanks:
-    """Per-type parameter banks, each padded to at least one row."""
+    """Per-type parameter banks, each padded to at least one row. A
+    ``*_tex`` column holds each row's texture reference: an atlas id >= 0,
+    CONST_TEX (-1) or VERTEX_TEX (-2)."""
 
     matte_kd: torch.Tensor        # (Nm, 3)
     matte_sigma: torch.Tensor     # (Nm,)
     matte_kd_c4: torch.Tensor     # (Nm, 4) sigmoid coefficients + scale
+    matte_kd_tex: torch.Tensor    # (Nm,) int32
     mirror_kr: torch.Tensor       # (Nr, 3)
     mirror_kr_c4: torch.Tensor    # (Nr, 4)
+    mirror_kr_tex: torch.Tensor   # (Nr,) int32
     glass_kr: torch.Tensor        # (Ng, 3)
     glass_kt: torch.Tensor        # (Ng, 3)
     glass_eta: torch.Tensor       # (Ng,)
@@ -262,16 +270,21 @@ class MaterialBanks:
     glass_ay: torch.Tensor        # (Ng,)
     glass_kr_c4: torch.Tensor     # (Ng, 4)
     glass_kt_c4: torch.Tensor     # (Ng, 4)
+    glass_kr_tex: torch.Tensor    # (Ng,) int32
+    glass_kt_tex: torch.Tensor    # (Ng,) int32
+    glass_rough_tex: torch.Tensor  # (Ng,) int32 (replaces ax / ay)
     cond_eta: torch.Tensor        # (Nc, 471) dense spectral eta
     cond_k: torch.Tensor          # (Nc, 471)
     cond_eta_pw: torch.Tensor     # (Nc, 16, 4) piecewise-cubic fits
     cond_k_pw: torch.Tensor       # (Nc, 16, 4)
     cond_ax: torch.Tensor         # (Nc,)
     cond_ay: torch.Tensor         # (Nc,)
+    cond_rough_tex: torch.Tensor  # (Nc,) int32 (replaces ax / ay)
     emissive_le: torch.Tensor     # (Ne, 3)
     emissive_scale: torch.Tensor  # (Ne,)
     emissive_two_sided: torch.Tensor  # (Ne,) bool
     emissive_le_c4: torch.Tensor  # (Ne, 4) unbounded coefficients
+    emissive_le_tex: torch.Tensor  # (Ne,) int32
     thin_kr: torch.Tensor         # (Nt, 3) thin dielectric
     thin_kt: torch.Tensor         # (Nt, 3)
     thin_eta: torch.Tensor        # (Nt,)
@@ -281,13 +294,17 @@ class MaterialBanks:
     dt_trans: torch.Tensor        # (Nd, 3)
     dt_refl_c4: torch.Tensor      # (Nd, 4)
     dt_trans_c4: torch.Tensor     # (Nd, 4)
+    dt_refl_tex: torch.Tensor     # (Nd,) int32
+    dt_trans_tex: torch.Tensor    # (Nd,) int32
     mix_m1_type: torch.Tensor     # (Nx,) int32 child (type, index) pairs
     mix_m1_idx: torch.Tensor      # (Nx,) int32
     mix_m2_type: torch.Tensor     # (Nx,) int32
     mix_m2_idx: torch.Tensor      # (Nx,) int32
     mix_amount: torch.Tensor      # (Nx,) probability of the first child
+    mix_amount_tex: torch.Tensor  # (Nx,) int32
     cd_refl: torch.Tensor         # (Ncd, 3) coated diffuse
     cd_refl_c4: torch.Tensor      # (Ncd, 4)
+    cd_refl_tex: torch.Tensor     # (Ncd,) int32
     cd_ax: torch.Tensor           # (Ncd,) coating alpha
     cd_ay: torch.Tensor           # (Ncd,)
     cd_eta: torch.Tensor          # (Ncd,)
@@ -312,16 +329,22 @@ class MaterialBanks:
     cdt_trans: torch.Tensor       # (Nct, 3)
     cdt_refl_c4: torch.Tensor     # (Nct, 4)
     cdt_trans_c4: torch.Tensor    # (Nct, 4)
+    cdt_refl_tex: torch.Tensor    # (Nct,) int32
+    cdt_trans_tex: torch.Tensor   # (Nct,) int32
     cdt_albedo_c4: torch.Tensor   # (Nct, 4)
     cdt_ax: torch.Tensor          # (Nct,)
     cdt_ay: torch.Tensor          # (Nct,)
     cdt_eta: torch.Tensor         # (Nct,)
     cdt_thick: torch.Tensor       # (Nct,)
     cdt_g: torch.Tensor           # (Nct,)
+    # static: some field is an image or vertex colour (False: shading skips
+    # the per-lane uplift entirely)
+    has_textures: bool = False
 
     def to(self, device) -> "MaterialBanks":
         return MaterialBanks(**{f.name: getattr(self, f.name).to(device)
-                                for f in fields(self)})
+                                for f in fields(self) if f.name != "has_textures"},
+                             has_textures=self.has_textures)
 
 
 def _alpha(rough: float, remap: bool) -> float:
@@ -329,21 +352,39 @@ def _alpha(rough: float, remap: bool) -> float:
 
 
 def _rgb(field, what: str):
-    try:
-        return tuple(float(x) for x in np.broadcast_to(np.asarray(field, np.float32), (3,)))
-    except (TypeError, ValueError) as e:
-        raise NotImplementedError(
-            f"{what}: only constant RGB values are ported; textures and vertex "
-            "colours are not (ROADMAP A10)") from e
+    """A constant RGB field; a texture here raises TypeError, as the JAX
+    package takes none for it."""
+    if isinstance(field, (ImageTexture, VertexColorTexture)):
+        raise TypeError(f"{what} takes a constant colour, not a texture")
+    return tuple(float(x) for x in np.broadcast_to(np.asarray(field, np.float32), (3,)))
 
 
 def _scalar(field, what: str) -> float:
-    try:
-        return float(field)
-    except (TypeError, ValueError) as e:
-        raise NotImplementedError(
-            f"{what}: only constant values are ported; textures are not "
-            "(ROADMAP A10)") from e
+    if isinstance(field, (ImageTexture, VertexColorTexture)):
+        raise TypeError(f"{what} takes a constant value, not a texture")
+    return float(field)
+
+
+class _Resolver:
+    """The JAX package's resolve_rgb / resolve_scalar: a field -> (constant,
+    texture reference), images going into the atlas builder. A textured
+    field's constant is the default."""
+
+    def __init__(self, atlas_builder: AtlasBuilder):
+        self.atlas = atlas_builder
+
+    def _ref(self, field):
+        if isinstance(field, ImageTexture):
+            return self.atlas.add(field)
+        return VERTEX_TEX if isinstance(field, VertexColorTexture) else CONST_TEX
+
+    def rgb(self, field, what: str, default=(1.0, 1.0, 1.0)):
+        ref = self._ref(field)
+        return (tuple(default) if ref != CONST_TEX else _rgb(field, what)), ref
+
+    def scalar(self, field, what: str, default=0.0):
+        ref = self._ref(field)
+        return (float(default) if ref != CONST_TEX else _scalar(field, what)), ref
 
 
 def _dense_eta_k(metal, eta, k):
@@ -377,12 +418,17 @@ def _with_mix_children(materials: list) -> list:
     return work
 
 
-def pack_materials(materials: list):
+def pack_materials(materials: list, atlas_builder: AtlasBuilder | None = None):
     """Pack host materials into banks. Mix children that are not in the
     list themselves get rows after it (the tags and indices then cover
-    them too), as the JAX package packs them. Returns (banks, type tags
+    them too), as the JAX package packs them. Images of textured fields go
+    into atlas_builder (a new one when None). Returns (banks, type tags
     (M,), bank indices (M,), present type set)."""
+    res = _Resolver(AtlasBuilder() if atlas_builder is None else atlas_builder)
     matte_kd, matte_sigma, mirror_kr = [], [], []
+    tex = {k: [] for k in ("matte_kd", "mirror_kr", "glass_kr", "glass_kt", "glass_rough",
+                           "cond_rough", "emissive_le", "dt_refl", "dt_trans", "mix_amount",
+                           "cd_refl", "cdt_refl", "cdt_trans")}
     glass = {k: [] for k in ("kr", "kt", "eta", "cauchy", "sell", "ax", "ay")}
     cond_eta, cond_k, cond_ax, cond_ay = [], [], [], []
     emis_le, emis_scale, emis_two = [], [], []
@@ -390,6 +436,11 @@ def pack_materials(materials: list):
     dt_refl, dt_trans = [], []
     cd = {k: [] for k in ("refl", "ax", "ay", "eta", "thick", "albedo", "g")}
     cdt = {k: [] for k in ("refl", "trans", "ax", "ay", "eta", "thick", "albedo", "g")}
+
+    def put(column, rows, resolved):
+        """Append a resolved (constant, reference) to its rows and column."""
+        rows.append(resolved[0])
+        tex[column].append(resolved[1])
     cc = {k: [] for k in ("iax", "iay", "eta", "ceta", "ck", "cax", "cay", "thick",
                           "albedo", "g")}
     mixes = []
@@ -401,17 +452,18 @@ def pack_materials(materials: list):
         name = type(m).__name__
         if isinstance(m, Matte):
             tags[i], idxs[i] = MATTE, len(matte_kd)
-            matte_kd.append(_rgb(m.kd, "Matte.kd"))
+            put("matte_kd", matte_kd, res.rgb(m.kd, "Matte.kd", (0.5, 0.5, 0.5)))
             matte_sigma.append(_scalar(m.sigma, "Matte.sigma"))
         elif isinstance(m, Mirror):
             tags[i], idxs[i] = MIRROR, len(mirror_kr)
-            mirror_kr.append(_rgb(m.kr, "Mirror.kr"))
+            put("mirror_kr", mirror_kr, res.rgb(m.kr, "Mirror.kr"))
         elif isinstance(m, Glass):
             tags[i], idxs[i] = GLASS, len(glass["kr"])
-            ur = _scalar(m.u_roughness, "Glass.u_roughness")
-            vr = _scalar(m.v_roughness, "Glass.v_roughness")
-            glass["kr"].append(_rgb(m.kr, "Glass.kr"))
-            glass["kt"].append(_rgb(m.kt, "Glass.kt"))
+            put("glass_kr", glass["kr"], res.rgb(m.kr, "Glass.kr"))
+            put("glass_kt", glass["kt"], res.rgb(m.kt, "Glass.kt"))
+            ur, rough_tex = res.scalar(m.u_roughness, "Glass.u_roughness")
+            tex["glass_rough"].append(rough_tex)
+            vr = ur if rough_tex >= 0 else _scalar(m.v_roughness, "Glass.v_roughness")
             glass["eta"].append(m.eta)
             glass["cauchy"].append(m.cauchy_b)
             glass["sell"].append(tuple(m.sellmeier))
@@ -422,13 +474,14 @@ def pack_materials(materials: list):
             eta_d, k_d = _dense_eta_k(m.metal, m.eta, m.k)
             cond_eta.append(eta_d)
             cond_k.append(k_d)
-            rough = _scalar(m.roughness, "Conductor.roughness")
+            rough, rough_tex = res.scalar(m.roughness, "Conductor.roughness")
+            tex["cond_rough"].append(rough_tex)
             vr = rough if m.v_roughness is None else m.v_roughness
             cond_ax.append(_alpha(rough, m.remap_roughness))
             cond_ay.append(_alpha(vr, m.remap_roughness))
         elif isinstance(m, Emissive):
             tags[i], idxs[i] = EMISSIVE, len(emis_le)
-            emis_le.append(_rgb(m.le, "Emissive.le"))
+            put("emissive_le", emis_le, res.rgb(m.le, "Emissive.le"))
             emis_scale.append(m.scale)
             emis_two.append(m.two_sided)
         elif isinstance(m, Interface):
@@ -440,15 +493,19 @@ def pack_materials(materials: list):
             thin_eta.append(m.eta)
         elif isinstance(m, DiffuseTransmission):
             tags[i], idxs[i] = DIFFUSE_TRANSMISSION, len(dt_refl)
-            dt_refl.append(_rgb(m.reflectance, f"{name}.reflectance"))
-            dt_trans.append(_rgb(m.transmittance, f"{name}.transmittance"))
+            quarter = (0.25, 0.25, 0.25)
+            put("dt_refl", dt_refl, res.rgb(m.reflectance, f"{name}.reflectance", quarter))
+            put("dt_trans", dt_trans, res.rgb(m.transmittance, f"{name}.transmittance", quarter))
         elif isinstance(m, (CoatedDiffuse, CoatedDiffuseTransmission)):
             rows = cd if isinstance(m, CoatedDiffuse) else cdt
             tags[i] = COATED_DIFFUSE if rows is cd else COATED_DIFFUSE_TRANSMISSION
             idxs[i] = len(rows["refl"])
-            rows["refl"].append(_rgb(m.reflectance, f"{name}.reflectance"))
+            pre = "cd" if rows is cd else "cdt"
+            put(f"{pre}_refl", rows["refl"],
+                res.rgb(m.reflectance, f"{name}.reflectance", (0.5, 0.5, 0.5)))
             if rows is cdt:
-                rows["trans"].append(_rgb(m.transmittance, f"{name}.transmittance"))
+                put("cdt_trans", rows["trans"],
+                    res.rgb(m.transmittance, f"{name}.transmittance", (0.25, 0.25, 0.25)))
             a = _alpha(_scalar(m.roughness, f"{name}.roughness"), m.remap_roughness)
             rows["ax"].append(a)
             rows["ay"].append(a)
@@ -489,13 +546,15 @@ def pack_materials(materials: list):
         mix["m1i"].append(int(idxs[j1]))
         mix["m2t"].append(int(tags[j2]))
         mix["m2i"].append(int(idxs[j2]))
-        mix["amount"].append(_scalar(m.amount, "Mix.amount"))
+        put("mix_amount", mix["amount"], res.scalar(m.amount, "Mix.amount", 0.5))
 
     def pad3(rows, default):
         return torch.tensor(rows or [default], dtype=torch.float32)
 
     def pad1(rows, default, dtype=torch.float32):
         return torch.tensor(rows or [default], dtype=dtype)
+
+    tex_cols = {f"{k}_tex": pad1(v, CONST_TEX, torch.int32) for k, v in tex.items()}
 
     def dense(rows, fill):
         return np.stack(rows) if rows else np.full((1, len(_LAM_GRID)), fill, np.float32)
@@ -580,5 +639,7 @@ def pack_materials(materials: list):
         cdt_eta=pad1(cdt["eta"], 1.5),
         cdt_thick=pad1(cdt["thick"], 0.01),
         cdt_g=pad1(cdt["g"], 0.0),
+        **tex_cols,
+        has_textures=any(r != CONST_TEX for col in tex.values() for r in col),
     )
     return banks, tags, idxs, present

@@ -8,6 +8,9 @@ leaf order and triangle indices.
 Keys of ``arrays``: ``face_rows``, ``mat_type``, ``mat_idx``,
 ``world_lo``, ``world_hi``, ``scene_radius``, ``present_materials``,
 ``materials.<field>`` for every field of the port's ``MaterialBanks``,
+``tex_rows``, ``alpha_const``, ``alpha_tex``, ``tri_p`` (the JAX package's
+``bvh.p0 | p1 | p2``, concatenated), ``atlas.<field>`` for every field of
+the ``TextureAtlas``,
 ``lights.<field>`` for every field of its ``LightBanks`` (the environment's
 distribution as ``lights.env_dist.<field>``), ``light_bvh.<field>`` for
 every field of the JAX package's ``LightBVH``, ``light_sampler``, and
@@ -21,7 +24,9 @@ either
 ``camera_medium`` and ``has_media``; without them the scene has no media.
 Every ``bw`` is converted to
 float32 by the caller; the instanced BLAS blocks always use the 3-way
-split (``hikari_tpu/geometry/instanced.py:70-73``).
+split (``hikari_tpu/geometry/instanced.py:70-73``). ``has_alpha`` is the
+port's own, from the real faces' alpha (the JAX package also counts the
+zero alpha of an instanced BLAS's padding rows).
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ from ..lights.types import LightBanks
 from ..sampling.distributions import Distribution2D
 from ..materials.types import MaterialBanks
 from ..media.types import RGBGRID, MediumBanks, pack_media
-from .scene import SceneData
+from ..textures.atlas import TextureAtlas
+from .scene import SceneData, surface_has_alpha
 
 
 def coef_from_bw(bw: np.ndarray) -> np.ndarray:
@@ -77,7 +83,15 @@ def scene_from_numpy(arrays: dict, device) -> SceneData:
             coef=torch.from_numpy(coef_from_bw(arrays["treelets.bw"])),
             tri=t("treelets.tri"))
     materials = MaterialBanks(**{f.name: t(f"materials.{f.name}")
-                                 for f in fields(MaterialBanks)})
+                                 for f in fields(MaterialBanks) if f.name != "has_textures"},
+                              has_textures=bool(arrays["materials.has_textures"]))
+    alpha_const, alpha_tex = t("alpha_const"), t("alpha_tex", torch.int32)
+    surface = dict(
+        tex_rows=t("tex_rows"), alpha_const=alpha_const, alpha_tex=alpha_tex,
+        tri_p=t("tri_p"),
+        atlas=TextureAtlas(**{f.name: t(f"atlas.{f.name}") for f in fields(TextureAtlas)}),
+        has_alpha=surface_has_alpha(alpha_const.numpy(), alpha_tex.numpy(),
+                                    np.asarray(arrays["face_rows"])[:, 12] >= 0))
     light_kw = {}
     for f in fields(LightBanks):
         if f.name == "env_dist":
@@ -109,7 +123,7 @@ def scene_from_numpy(arrays: dict, device) -> SceneData:
         world_hi=t("world_hi"), scene_radius=float(arrays["scene_radius"]),
         present_materials=tuple(int(x) for x in arrays["present_materials"]),
         n_lights=lights.n_flat, n_faces=int(arrays["face_rows"].shape[0]), **inst_kw,
-        light_sampler=str(arrays["light_sampler"]), **media_kw)
+        light_sampler=str(arrays["light_sampler"]), **media_kw, **surface)
     return scene.to(device)
 
 

@@ -10,9 +10,14 @@ per instanced mesh plus BLAS 0 holding every non-instanced mesh under an
 identity instance. A mesh may bound participating media (``add(...,
 inside_medium=, outside_medium=)``): each face row carries the word
 ``(inside + 1) << 16 | (outside + 1)`` of its medium ids (-1 is vacuum) and
-the media are packed into ``SceneData.media`` (``media/types.py``).
-Stochastic alpha and textures are not ported and raise
-``NotImplementedError``.
+the media are packed into ``SceneData.media`` (``media/types.py``). Images
+of textured material fields and alpha textures go into one atlas
+(``SceneData.atlas``); per-face uv, vertex colours and surface alpha ride
+in the (F, 17) ``tex_rows``. A mesh's ``alpha`` (a constant in [0, 1] or
+an ``ImageTexture``) keeps a hit with that probability (stochastic alpha,
+``integrators/volpath.py``); ``has_alpha`` counts real faces only, so the
+padding of an instanced BLAS (alpha 0 in the tables, as in the JAX
+package) does not turn it on.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from ..lights.types import LightBanks, pack_lights
 from ..materials.types import EMISSIVE, MaterialBanks, pack_materials
 from ..media.types import MediumBanks, pack_media
 from ..spectral.rgb2spec import RGBToSpectrumTable, srgb_table
+from ..textures.atlas import AtlasBuilder, ImageTexture, TextureAtlas
 from .mesh import TriangleMesh, compute_vertex_normals
 
 
@@ -51,6 +57,28 @@ def pack_face_rows(ng_raw, n0, n1, n2, mat_packed, med_packed, arealight_idx):
             (arealight_idx.astype(np.int64) + 1)[:, None],
             (med >> 16)[:, None], (med & 0xFFFF)[:, None]]
     return np.concatenate([np.asarray(c, np.float32) for c in cols], axis=1)
+
+
+def pack_tex_rows(uv0, uv1, uv2, c0, c1, c2, alpha_const, alpha_tex):
+    """(F, 17) f32 rows [uv0 uv1 uv2 | c0 c1 c2 | alpha | alpha_tex+1] for
+    the textured and stochastic-alpha paths: one row gather."""
+    cols = [uv0, uv1, uv2, c0, c1, c2, np.asarray(alpha_const)[:, None],
+            (np.asarray(alpha_tex).astype(np.int64) + 1)[:, None]]
+    return np.concatenate([np.asarray(c, np.float32) for c in cols], axis=1)
+
+
+def surface_has_alpha(alpha_const, alpha_tex, real) -> bool:
+    """Whether a real face (not BLAS padding) has alpha below 1 or an alpha
+    texture."""
+    return bool((((alpha_tex >= 0) | (alpha_const < 1.0)) & real).any())
+
+
+def _face_alpha(alpha, n_faces: int, atlas: AtlasBuilder):
+    """Per-face (alpha constant, alpha texture id) of a mesh's `alpha`."""
+    if isinstance(alpha, ImageTexture):
+        return np.ones(n_faces, np.float32), np.full(n_faces, atlas.add(alpha), np.int32)
+    a = 1.0 if alpha is None else float(alpha)
+    return np.full(n_faces, a, np.float32), np.full(n_faces, -1, np.int32)
 
 
 @dataclass
@@ -85,6 +113,15 @@ class SceneData:
     # scene's device
     rgb2spec: RGBToSpectrumTable = field(default_factory=srgb_table)
     light_sampler: str = "power"  # 'power' | 'uniform' | 'bvh'
+    # textures and stochastic alpha: per-face rows (pack_tex_rows), surface
+    # alpha, the corners of each face row (object space on an instanced
+    # scene; the uv derivatives solve against them) and the image atlas
+    tex_rows: torch.Tensor | None = None     # (F, 17)
+    alpha_const: torch.Tensor | None = None  # (F,) 1 = opaque
+    alpha_tex: torch.Tensor | None = None    # (F,) int32 atlas id; -1 constant
+    tri_p: torch.Tensor | None = None        # (F, 9) [p0 | p1 | p2]
+    atlas: TextureAtlas | None = None
+    has_alpha: bool = False
 
     @property
     def has_instances(self) -> bool:
@@ -105,8 +142,9 @@ _GEOMETRY = ("p0", "p1", "p2")
 
 
 def _mesh_face_arrays(mesh: TriangleMesh) -> dict:
-    """Per-face corner positions and vertex normals, the mesh's own
-    transform baked in (hikari_tpu/scene/scene.py:511-536)."""
+    """Per-face corner positions, vertex normals, uvs (zero without) and
+    colours (one without), the mesh's own transform baked in
+    (hikari_tpu/scene/scene.py:511-536)."""
     v = mesh.vertices
     if mesh.transform is not None:
         m = np.asarray(mesh.transform, np.float32)
@@ -118,9 +156,15 @@ def _mesh_face_arrays(mesh: TriangleMesh) -> dict:
     elif mesh.transform is not None:
         n = n @ np.linalg.inv(m[:3, :3])
         n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+    uv = mesh.uvs if mesh.uvs is not None else np.zeros((len(v), 2), np.float32)
+    col = mesh.colors if mesh.colors is not None else np.ones((len(v), 3), np.float32)
     return {k: a[f[:, c]].astype(np.float32)
-            for a, names in ((v, _GEOMETRY), (n, ("n0", "n1", "n2")))
+            for a, names in ((v, _GEOMETRY), (n, ("n0", "n1", "n2")),
+                             (uv, ("uv0", "uv1", "uv2")), (col, ("c0", "c1", "c2")))
             for c, k in enumerate(names)}
+
+
+_TEX_KEYS = ("uv0", "uv1", "uv2", "c0", "c1", "c2")
 
 
 def _concat_meshes(meshes, mat_ids, med_words):
@@ -141,10 +185,19 @@ def _medium_word(inside: int, outside: int) -> int:
     return ((inside + 1) << 16) | (outside + 1)
 
 
+def _baked_le(mat) -> np.ndarray:
+    """An emissive material's light colour: a textured emission is baked to
+    its image's mean for NEE (camera hits still see the texture)."""
+    le = mat.le
+    if isinstance(le, ImageTexture):
+        le = np.asarray(le.image, np.float32).reshape(-1, 3).mean(0)
+    return np.asarray(le, np.float32) * mat.scale
+
+
 def _area_tris(materials, slot, p0, p1, p2, which):
     """Emissive faces `which` -> the per-face area lights (build_face_meta)."""
     mats = [materials[slot[i]] for i in which]
-    a_le = np.stack([np.asarray(m.le, np.float32) * m.scale for m in mats])
+    a_le = np.stack([_baked_le(m) for m in mats])
     a_two = np.array([m.two_sided for m in mats], bool)
     return p0[which], p1[which], p2[which], a_le, a_two
 
@@ -165,9 +218,11 @@ def _instanced_bounds(blas_boxes, instances):
     return lo, hi
 
 
-def _check_surface(alpha) -> None:
-    if alpha is not None:
-        raise NotImplementedError("stochastic alpha is not ported yet")
+def _check_alpha(alpha):
+    """A mesh's alpha: None (opaque), a number or an ImageTexture."""
+    if alpha is not None and not isinstance(alpha, ImageTexture):
+        alpha = float(alpha)
+    return alpha
 
 
 def _check_transforms(transforms) -> np.ndarray:
@@ -193,13 +248,15 @@ class Scene:
         self._meshes: list[TriangleMesh] = []
         self._mesh_mat: list[int] = []
         self._mesh_media: list[tuple[int, int]] = []  # (inside, outside) ids
+        self._mesh_alpha: list = []
         self._materials: list = []
         self._media: list = []
         self._camera_medium = -1
         self._lights: list = []
         self._light_sampler = "power"
         # instanced groups: (mesh, transforms (I, 4, 4), material slot,
-        # per-instance material slots or None, (inside, outside) medium ids)
+        # per-instance material slots or None, (inside, outside) medium ids,
+        # alpha)
         self._instanced: list = []
 
     def _material_id(self, material) -> int:
@@ -227,8 +284,10 @@ class Scene:
             outside_medium=None, alpha=None) -> int:
         """push!(scene, mesh, material), optionally bounding media: rays
         crossing a face against its winding normal enter inside_medium,
-        along it outside_medium (None: vacuum)."""
-        _check_surface(alpha)
+        along it outside_medium (None: vacuum). alpha: surface opacity in
+        [0, 1] or an ImageTexture; a hit is kept with probability alpha
+        (stochastic alpha testing, intersection.jl:223-252)."""
+        self._mesh_alpha.append(_check_alpha(alpha))
         self._meshes.append(mesh)
         self._mesh_mat.append(self._material_id(material))
         self._mesh_media.append(self._media_pair(inside_medium, outside_medium))
@@ -240,8 +299,9 @@ class Scene:
         """Many placements of one mesh sharing a single BLAS: memory scales
         with the unique mesh, not the instance count. transforms: (I, 4, 4)
         world-from-object matrices; materials: optional per-instance list
-        overriding `material`. Returns a handle for set_instance_transforms."""
-        _check_surface(alpha)
+        overriding `material`; alpha as in add. Returns a handle for
+        set_instance_transforms."""
+        alpha = _check_alpha(alpha)
         tr = _check_transforms(transforms)
         mat_id = self._material_id(material)
         per_inst = None
@@ -250,17 +310,17 @@ class Scene:
                 raise ValueError(f"{len(materials)} materials for {len(tr)} instances")
             per_inst = [self._material_id(m) for m in materials]
         self._instanced.append((mesh, tr, mat_id, per_inst,
-                                self._media_pair(inside_medium, outside_medium)))
+                                self._media_pair(inside_medium, outside_medium), alpha))
         return len(self._instanced) - 1
 
     def set_instance_transforms(self, handle: int, transforms) -> None:
         """Re-place an instanced group; takes effect at the next build()."""
-        mesh, _, mat_id, per_inst, media = self._instanced[handle]
+        mesh, _, mat_id, per_inst, media, alpha = self._instanced[handle]
         tr = _check_transforms(transforms)
         if per_inst is not None and len(per_inst) != len(tr):
             raise ValueError(f"{len(tr)} transforms for {len(per_inst)} per-instance "
                              "materials")
-        self._instanced[handle] = (mesh, tr, mat_id, per_inst, media)
+        self._instanced[handle] = (mesh, tr, mat_id, per_inst, media, alpha)
 
     def set_camera_medium(self, medium) -> None:
         """The medium the camera sits in (None: vacuum)."""
@@ -302,7 +362,10 @@ class Scene:
         arrs, mat_of_face, med_of_face = _concat_meshes(
             self._meshes, self._mesh_mat, [_medium_word(*m) for m in self._mesh_media])
         p0, p1, p2 = (arrs[k] for k in _GEOMETRY)
-        banks, tags, idxs, present = pack_materials(self._materials)
+        atlas = AtlasBuilder()
+        banks, tags, idxs, present = pack_materials(self._materials, atlas)
+        alpha_c, alpha_t = (np.concatenate(x) for x in zip(*(
+            _face_alpha(a, m.n_faces, atlas) for m, a in zip(self._meshes, self._mesh_alpha))))
         face_type = tags[mat_of_face]
         face_idx = idxs[mat_of_face]
 
@@ -339,14 +402,18 @@ class Scene:
             materials=banks, lights=lights, light_bvh=light_bvh,
             world_lo=torch.from_numpy(world_lo), world_hi=torch.from_numpy(world_hi),
             scene_radius=radius, present_materials=tuple(sorted(present)),
-            n_lights=lights.n_flat, n_faces=int(len(p0)))
+            n_lights=lights.n_flat, n_faces=int(len(p0)),
+            **_surface_fields([arrs[k][order] for k in _TEX_KEYS], alpha_c[order],
+                              alpha_t[order], [p0[order], p1[order], p2[order]], atlas,
+                              np.ones(len(p0), bool)))
 
     def _build_instanced(self) -> SceneData:
         """Two-level build (scene.py:561-777): one BLAS per instanced mesh,
         BLAS 0 for every non-instanced mesh under an identity instance."""
-        banks, tags, idxs, present = pack_materials(self._materials)
+        atlas = AtlasBuilder()
+        banks, tags, idxs, present = pack_materials(self._materials, atlas)
         packed_of = (tags.astype(np.int32) << 24) | idxs.astype(np.int32)
-        for _, _, mat_id, per_inst, _ in self._instanced:
+        for _, _, mat_id, per_inst, _, _ in self._instanced:
             if any(tags[m] == EMISSIVE for m in [mat_id] + (per_inst or [])):
                 raise ValueError(
                     "emissive materials on instanced meshes are not supported (one "
@@ -354,38 +421,46 @@ class Scene:
 
         blas_tris, blas_boxes, chunks, instances, inst_mat = [], [], [], [], []
 
-        def finish_blas(arrs, slot, med):
+        def finish_blas(arrs, slot, med, alpha_c, alpha_t):
             """BVH leaf order, then padding to a TREELET multiple: far-away
-            degenerate corners (never hit), slot -1 and medium word -1 (the
-            reference's fill for int fields)."""
+            degenerate corners (never hit), zero attributes and alpha, slot
+            -1, medium word -1 and alpha texture -1 (the reference's fill
+            for int fields)."""
             tri_lo = np.minimum(np.minimum(arrs["p0"], arrs["p1"]), arrs["p2"])
             tri_hi = np.maximum(np.maximum(arrs["p0"], arrs["p1"]), arrs["p2"])
             order = build_bvh(tri_lo, tri_hi).prim_order
             blas_boxes.append((tri_lo.min(axis=0), tri_hi.max(axis=0)))
             pad = (-len(order)) % TREELET
             arrs = {k: np.concatenate([a[order], np.full(
-                (pad, 3), 3.0e37 if k in _GEOMETRY else 0.0, np.float32)])
+                (pad,) + a.shape[1:], 3.0e37 if k in _GEOMETRY else 0.0, np.float32)])
                 for k, a in arrs.items()}
-            chunks.append((arrs, *(np.concatenate([x[order], np.full(pad, -1, np.int32)])
-                                   for x in (slot, med))))
+            chunks.append((arrs, *(np.concatenate([x[order], np.full(pad, fill, x.dtype)])
+                                   for x, fill in ((slot, -1), (med, -1), (alpha_c, 0.0),
+                                                   (alpha_t, -1)))))
             blas_tris.append(tuple(arrs[k] for k in _GEOMETRY))
             return len(blas_tris) - 1
 
+        def alphas(meshes, alpha_of):
+            return tuple(np.concatenate(x) for x in zip(*(
+                _face_alpha(a, m.n_faces, atlas) for m, a in zip(meshes, alpha_of))))
+
         if self._meshes:
             bid = finish_blas(*_concat_meshes(
-                self._meshes, self._mesh_mat, [_medium_word(*m) for m in self._mesh_media]))
+                self._meshes, self._mesh_mat, [_medium_word(*m) for m in self._mesh_media]),
+                *alphas(self._meshes, self._mesh_alpha))
             instances.append((bid, np.eye(4, dtype=np.float32)))
             inst_mat.append(-1)
-        for mesh, tr, mat_id, per_inst, media in self._instanced:
-            bid = finish_blas(*_concat_meshes([mesh], [mat_id], [_medium_word(*media)]))
+        for mesh, tr, mat_id, per_inst, media, alpha in self._instanced:
+            bid = finish_blas(*_concat_meshes([mesh], [mat_id], [_medium_word(*media)]),
+                              *alphas([mesh], [alpha]))
             for k, m in enumerate(tr):
                 instances.append((bid, m))
                 inst_mat.append(-1 if per_inst is None else int(packed_of[per_inst[k]]))
         inst_tl = build_instanced_treelets(blas_tris, instances)
 
         arrs = {k: np.concatenate([c[0][k] for c in chunks]) for k in chunks[0][0]}
-        slot = np.concatenate([c[1] for c in chunks])
-        med_packed = np.concatenate([c[2] for c in chunks])
+        slot, med_packed, alpha_c, alpha_t = (np.concatenate([c[j] for c in chunks])
+                                              for j in range(1, 5))
         p0, p1, p2 = (arrs[k] for k in _GEOMETRY)
         real = slot >= 0
         face_packed = np.where(real, packed_of[np.maximum(slot, 0)], -1).astype(np.int32)
@@ -427,4 +502,16 @@ class Scene:
             inst_nrm=torch.from_numpy(np.ascontiguousarray(
                 np.transpose(inv_lin, (0, 2, 1)), np.float32)),
             inst_l2w=torch.from_numpy(np.ascontiguousarray(mats44[:, :3, :4], np.float32)),
-            inst_mat_packed=torch.from_numpy(np.asarray(inst_mat, np.int32)))
+            inst_mat_packed=torch.from_numpy(np.asarray(inst_mat, np.int32)),
+            **_surface_fields([arrs[k] for k in _TEX_KEYS], alpha_c, alpha_t, [p0, p1, p2],
+                              atlas, real))
+
+
+def _surface_fields(tex_cols, alpha_c, alpha_t, corners, atlas: AtlasBuilder, real) -> dict:
+    """SceneData's texture and alpha fields from per-face-row arrays."""
+    return dict(
+        tex_rows=torch.from_numpy(pack_tex_rows(*tex_cols, alpha_c, alpha_t)),
+        alpha_const=torch.from_numpy(np.ascontiguousarray(alpha_c, np.float32)),
+        alpha_tex=torch.from_numpy(np.ascontiguousarray(alpha_t, np.int32)),
+        tri_p=torch.from_numpy(np.concatenate(corners, axis=1).astype(np.float32)),
+        atlas=atlas.build(), has_alpha=surface_has_alpha(alpha_c, alpha_t, real))

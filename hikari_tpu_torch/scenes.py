@@ -21,6 +21,18 @@ light. ``materials_scene`` (``bench.build_materials_scene``) is the default
 scene with its 16 spheres cycling through all ten BSDF-bearing materials,
 the layered ones included, and ``mix_scene`` a floor whose Mix picks red or
 green per hit (``tests/test_materials_ext.py``'s).
+``triangle_scene`` is bench.py's single Matte triangle under a point
+light. ``textured_scene`` is the default scene's geometry with every
+texture source bound (an image floor, a vertex-coloured back wall,
+textured sphere materials, a textured Mix amount, image and constant
+alpha), ``cornell_scene`` the flagship example
+(``examples/cornell_scene.py``), and ``foliage_scene`` eight stacked
+alpha-0.3 quads (``tests/test_alpha_mix.py``'s). These four build through
+either package's API (``api``: a module exposing its public names;
+the port's by default), so ``tools/gen_probe_ref.py`` builds the JAX twin
+from the same arrays.
+``aux_against_reference`` holds ``render_aux`` pixel for pixel against
+the JAX package's, stored in ``data/aux_ref.npz``.
 ``transport_probe`` is the port of ``bench.transport_probe`` and
 ``check_transport`` holds it against the stored reference: the bench's
 surface and fog probes in ``tools/transport_ref.json``, with the
@@ -31,6 +43,7 @@ with the JAX package by ``tools/gen_probe_ref.py``.
 
 from __future__ import annotations
 
+import importlib
 import json
 import tempfile
 from pathlib import Path
@@ -40,13 +53,12 @@ import torch
 
 from .camera.camera import make_perspective_camera
 from .film.filters import BOX, GAUSSIAN, LANCZOS, MITCHELL, TRIANGLE, make_filter
-from .integrators.volpath import VolPath, render_lanes, render_lanes_segmented
+from .integrators.volpath import (VolPath, pixel_centre_rays, render_aux, render_lanes,
+                                  render_lanes_segmented, scene_closest_hit)
 from .lights.sunsky import sunsky_environment
 from .lights.types import (AmbientLight, DistantLight, EnvironmentLight, PointLight,
                            SpotLight, equirect_to_equal_area)
-from .materials.types import (CoatedConductor, CoatedDiffuse, CoatedDiffuseTransmission,
-                              DiffuseTransmission, Emissive, Glass, Gold, Interface, Matte,
-                              Mirror, Mix, ThinDielectric)
+from .materials.types import Emissive, Glass, Gold, Interface, Matte, Mirror, Mix
 from .media.nanovdb import nanovdb_medium, save_nanovdb
 from .media.noise import generate_cloud_density
 from .media.types import CloudVolume, HomogeneousMedium
@@ -55,6 +67,9 @@ from .scene.scene import Scene
 
 TRANSPORT_REF = Path(__file__).resolve().parent.parent / "tools" / "transport_ref.json"
 PROBE_REF = Path(__file__).resolve().parent / "data" / "probe_ref.json"
+AUX_REF = Path(__file__).resolve().parent / "data" / "aux_ref.npz"
+# two faces tie for a ray where both hold its hit point within this share of t
+AUX_TIE_RTOL = 1e-6
 
 # camera (eye, look-at, fov) and transport probe (res, depth, spp, rgb
 # tolerance): bench.py SCENE_DEFS; cloud_grid takes the bench cloud's
@@ -69,27 +84,40 @@ SCENE_DEFS = {
     "sparse_cloud": (((0.0, 1.1, -4.2), (0.0, 1.0, 0.0), 50.0), (32, 12, 16, 0.10)),
     "materials": (((0.0, 1.6, -2.8), (0.0, 0.9, 2.0), 45.0), (64, 5, 1, 0.02)),
     "mix": (((0.0, 2.5, -2.5), (0.0, 0.0, 0.0), 50.0), (32, 2, 4, 0.02)),
+    "triangle": (((0.0, 0.3, -2.2), (0.0, 0.3, 0.0), 45.0), (64, 5, 1, 0.02)),
+    "textured": (((0.0, 1.6, -2.8), (0.0, 0.9, 2.0), 45.0), (64, 5, 4, 0.02)),
+    "cornell": (((0.0, 1.0, -2.6), (0.0, 1.0, 1.0), 50.0), (64, 6, 1, 0.02)),
+    "foliage": (((0.0, 0.0, -1.0), (0.0, 0.0, 1.0), 50.0), (32, 2, 4, 0.02)),
+    "swatch": (((0.0, 0.0, -2.0), (0.0, 0.0, 1.0), 60.0), (32, 3, 4, 0.02)),
 }
 FILTER_NAMES = {BOX: "box", TRIANGLE: "triangle", GAUSSIAN: "gaussian",
                 MITCHELL: "mitchell", LANCZOS: "lanczos"}
 PROBE_BATCH = 16  # samples a transport_probe renders in one wavefront
 
 
-def _room(s: Scene):
-    white = Matte(kd=(0.73, 0.73, 0.73))
-    s.add(make_quad((-3, 0, -1), (3, 0, -1), (3, 0, 5), (-3, 0, 5)), white)
-    s.add(make_quad((-3, 0, 5), (3, 0, 5), (3, 4, 5), (-3, 4, 5)), white)
-    s.add(make_quad((-3, 0, -1), (-3, 0, 5), (-3, 4, 5), (-3, 4, -1)),
-          Matte(kd=(0.65, 0.05, 0.05)))
-    s.add(make_quad((3, 0, -1), (3, 4, -1), (3, 4, 5), (3, 0, 5)),
-          Matte(kd=(0.12, 0.45, 0.15)))
+def _api(api):
+    """The module whose public names build a scene: the port unless given
+    (the JAX package's twin passes its own)."""
+    return importlib.import_module(__package__) if api is None else api
 
 
-def _lights(s: Scene):
-    s.add(make_quad((-1.0, 3.99, 1.0), (1.0, 3.99, 1.0), (1.0, 3.99, 3.0),
-                    (-1.0, 3.99, 3.0)),
-          Emissive(le=(1.0, 0.95, 0.85), scale=25.0))
-    s.add_light(PointLight(position=(0.0, 3.0, -0.5), intensity=(8.0, 8.0, 8.0)))
+def _room(s, m=None):
+    m = _api(m)
+    white = m.Matte(kd=(0.73, 0.73, 0.73))
+    s.add(m.make_quad((-3, 0, -1), (3, 0, -1), (3, 0, 5), (-3, 0, 5)), white)
+    s.add(m.make_quad((-3, 0, 5), (3, 0, 5), (3, 4, 5), (-3, 4, 5)), white)
+    s.add(m.make_quad((-3, 0, -1), (-3, 0, 5), (-3, 4, 5), (-3, 4, -1)),
+          m.Matte(kd=(0.65, 0.05, 0.05)))
+    s.add(m.make_quad((3, 0, -1), (3, 4, -1), (3, 4, 5), (3, 0, 5)),
+          m.Matte(kd=(0.12, 0.45, 0.15)))
+
+
+def _lights(s, m=None):
+    m = _api(m)
+    s.add(m.make_quad((-1.0, 3.99, 1.0), (1.0, 3.99, 1.0), (1.0, 3.99, 3.0),
+                      (-1.0, 3.99, 3.0)),
+          m.Emissive(le=(1.0, 0.95, 0.85), scale=25.0))
+    s.add_light(m.PointLight(position=(0.0, 3.0, -0.5), intensity=(8.0, 8.0, 8.0)))
 
 
 def _sphere_mats():
@@ -115,24 +143,25 @@ def default_scene(sphere_res=(32, 64)) -> Scene:
     return s
 
 
-def _material_mats():
+def _material_mats(m):
     """bench.py build_materials_scene's ten sphere materials, in its order."""
-    return [Matte(kd=(0.3, 0.4, 0.8)), Mirror(), Glass(eta=1.5), Gold(roughness=0.15),
-            ThinDielectric(), DiffuseTransmission(), CoatedDiffuse(), CoatedConductor(),
-            CoatedDiffuseTransmission(), Glass(eta=1.33)]
+    return [m.Matte(kd=(0.3, 0.4, 0.8)), m.Mirror(), m.Glass(eta=1.5), m.Gold(roughness=0.15),
+            m.ThinDielectric(), m.DiffuseTransmission(), m.CoatedDiffuse(),
+            m.CoatedConductor(), m.CoatedDiffuseTransmission(), m.Glass(eta=1.33)]
 
 
-def materials_scene(sphere_res=(32, 64)) -> Scene:
+def materials_scene(sphere_res=(32, 64), api=None):
     """bench.py build_materials_scene: the default scene with its 16 spheres
     cycling through the ten BSDF-bearing materials (spheres 6, 7 and 8 are
     the three layered coats), the scene where per-type shading dispatch
     dominates."""
-    s = Scene()
-    _room(s)
-    mats = _material_mats()
+    m = _api(api)
+    s = m.Scene()
+    _room(s, m)
+    mats = _material_mats(m)
     for k, c in enumerate(SPHERE_CENTRES):
-        s.add(make_sphere(c, 0.42, *sphere_res), mats[k % len(mats)])
-    _lights(s)
+        s.add(m.make_sphere(c, 0.42, *sphere_res), mats[k % len(mats)])
+    _lights(s, m)
     return s
 
 
@@ -402,10 +431,163 @@ def lights_scene() -> Scene:
     return s
 
 
+def triangle_scene(api=None):
+    """bench.py build_triangle_scene: one Matte triangle facing the camera
+    under a point light (single_triangle_test.jl)."""
+    m = _api(api)
+    s = m.Scene()
+    v = np.asarray([[-0.8, -0.4, 0.0], [0.8, -0.4, 0.0], [0.0, 0.9, 0.0]], np.float32)
+    s.add(m.TriangleMesh(vertices=v, faces=np.asarray([[0, 1, 2]], np.int32)),
+          m.Matte(kd=(0.7, 0.3, 0.2)))
+    s.add_light(m.PointLight(position=(0.0, 1.0, -2.0), intensity=(10.0,) * 3))
+    return s
+
+
+def checker_image(n: int, c0=(0.85, 0.85, 0.85), c1=(0.2, 0.3, 0.55),
+                  cells: int = 16) -> np.ndarray:
+    """(n, n, 3) float32 checkerboard of cells x cells squares, colours c0
+    and c1 (examples/cornell_scene.py's at n = cells = 16)."""
+    idx = (np.arange(n) * cells) // n
+    odd = (idx[:, None] + idx[None, :]) % 2 == 1
+    return np.where(odd[..., None], np.asarray(c1, np.float32),
+                    np.asarray(c0, np.float32)).astype(np.float32)
+
+
+def stripes_mask(n: int, stripes: int = 8, duty: float = 0.5) -> np.ndarray:
+    """(n, n) float32 mask of `stripes` vertical bands, 1 over the first
+    `duty` of each band and 0 elsewhere (an alpha cut-out or Mix amount)."""
+    phase = (np.arange(n) + 0.5) * stripes / n % 1.0
+    return np.broadcast_to((phase < duty).astype(np.float32), (n, n)).copy()
+
+
+# the textured scene's images: the floor's 1024^2 checker (11 mip levels)
+# also textures the Matte spheres at another uv scale; sharing one array
+# lets Scene's material deduplication tell the two Mattes apart by their uv
+# scale without comparing images (equal-shaped arrays would not compare)
+FLOOR_CHECKER = 1024
+
+
+def textured_scene(sphere_res=(32, 64), api=None):
+    """default_scene's geometry (61,450 triangles at the default sphere_res)
+    with every texture source bound: the floor a Matte whose kd is a
+    checker_image(1024) at uv scale (4, 4), the back wall a Matte of
+    per-vertex colours, and the 16 spheres cycling through eight variants:
+    image kd, image CoatedDiffuse reflectance, Gold with
+    an image roughness, Glass with an image kt, DiffuseTransmission with an
+    image reflectance, a Mix of two Mattes with an image amount, and two
+    Mattes with alpha (a stripes_mask(256) texture, and 0.5)."""
+    m = _api(api)
+    s = m.Scene()
+    checker = checker_image(FLOOR_CHECKER)
+    s.add(m.make_quad((-3, 0, -1), (3, 0, -1), (3, 0, 5), (-3, 0, 5)),
+          m.Matte(kd=m.ImageTexture(checker, uv_scale=(4.0, 4.0))))
+    wall = m.make_quad((-3, 0, 5), (3, 0, 5), (3, 4, 5), (-3, 4, 5))
+    wall.colors = np.asarray([[0.9, 0.2, 0.2], [0.2, 0.9, 0.2], [0.2, 0.2, 0.9],
+                              [0.9, 0.9, 0.3]], np.float32)
+    s.add(wall, m.Matte(kd=m.VertexColorTexture()))
+    s.add(m.make_quad((-3, 0, -1), (-3, 0, 5), (-3, 4, 5), (-3, 4, -1)),
+          m.Matte(kd=(0.65, 0.05, 0.05)))
+    s.add(m.make_quad((3, 0, -1), (3, 4, -1), (3, 4, 5), (3, 0, 5)),
+          m.Matte(kd=(0.12, 0.45, 0.15)))
+    warm = checker_image(64, (0.9, 0.6, 0.2), (0.2, 0.5, 0.8), cells=8)
+    variants = [
+        (m.Matte(kd=m.ImageTexture(checker, uv_scale=(2.0, 1.0))), None),
+        (m.CoatedDiffuse(reflectance=m.ImageTexture(warm), roughness=0.1), None),
+        (m.Gold(roughness=m.ImageTexture(checker_image(64, (0.05,) * 3, (0.5,) * 3, 8))),
+         None),
+        (m.Glass(eta=1.5, kt=m.ImageTexture(checker_image(64, (1.0,) * 3,
+                                                            (0.6, 0.8, 1.0), 8))), None),
+        (m.DiffuseTransmission(reflectance=m.ImageTexture(warm)), None),
+        (m.Mix(m1=m.Matte(kd=(0.9, 0.1, 0.1)), m2=m.Matte(kd=(0.1, 0.1, 0.9)),
+               amount=m.ImageTexture(stripes_mask(64))), None),
+        (m.Matte(kd=(0.8, 0.6, 0.2)), m.ImageTexture(stripes_mask(256))),
+        (m.Matte(kd=(0.3, 0.4, 0.8)), 0.5),
+    ]
+    for k, c in enumerate(SPHERE_CENTRES):
+        mat, alpha = variants[k % len(variants)]
+        s.add(m.make_sphere(c, 0.42, *sphere_res), mat, alpha=alpha)
+    _lights(s, m)
+    return s
+
+
+def cornell_scene(sphere_res=(24, 48), api=None):
+    """examples/cornell_scene.py as it stands: a 2 x 2 x 2 Cornell box whose
+    floor is a Matte of the 16 x 16 checker image, a Gold (roughness 0.15),
+    a BK7 and a Plastic sphere, under an emissive ceiling quad (the only
+    light)."""
+    m = _api(api)
+    s = m.Scene()
+    white = m.Matte(kd=(0.73, 0.73, 0.73))
+    s.add(m.make_quad((-1, 0, 0), (1, 0, 0), (1, 0, 2), (-1, 0, 2)),
+          m.Matte(kd=m.ImageTexture(checker_image(16))))
+    s.add(m.make_quad((-1, 2, 0), (-1, 2, 2), (1, 2, 2), (1, 2, 0)), white)
+    s.add(m.make_quad((-1, 0, 2), (1, 0, 2), (1, 2, 2), (-1, 2, 2)), white)
+    s.add(m.make_quad((-1, 0, 0), (-1, 0, 2), (-1, 2, 2), (-1, 2, 0)),
+          m.Matte(kd=(0.65, 0.05, 0.05)))
+    s.add(m.make_quad((1, 0, 0), (1, 2, 0), (1, 2, 2), (1, 0, 2)),
+          m.Matte(kd=(0.12, 0.45, 0.15)))
+    s.add(m.make_sphere((-0.45, 0.4, 1.3), 0.4, *sphere_res), m.Gold(roughness=0.15))
+    s.add(m.make_sphere((0.45, 0.35, 0.9), 0.35, *sphere_res), m.BK7())
+    s.add(m.make_sphere((0.0, 1.2, 1.4), 0.25, *sphere_res),
+          m.Plastic(kd=(0.2, 0.3, 0.8), roughness=0.1))
+    s.add(m.make_quad((-0.3, 1.99, 0.7), (0.3, 1.99, 0.7), (0.3, 1.99, 1.3),
+                      (-0.3, 1.99, 1.3)), m.Emissive(le=(1.0, 0.9, 0.7), scale=18.0))
+    return s
+
+
+FOLIAGE_ALPHA = 0.3
+FOLIAGE_LAYERS = 8
+
+
+def foliage_scene(api=None):
+    """tests/test_alpha_mix.py's dense alpha "foliage": FOLIAGE_LAYERS
+    10 x 10 Matte quads at z = 1, 1.1, ... of alpha FOLIAGE_ALPHA, so a ray
+    along +z escapes with probability (1 - alpha)^8 ~ 5.8%; a point light
+    in front of the stack lights its probe."""
+    m = _api(api)
+    s = m.Scene()
+    for i in range(FOLIAGE_LAYERS):
+        z = 1.0 + 0.1 * i
+        s.add(m.make_quad((-5, -5, z), (5, -5, z), (5, 5, z), (-5, 5, z)), m.Matte(),
+              alpha=FOLIAGE_ALPHA)
+    s.add_light(m.PointLight(position=(0.0, 0.0, 0.0), intensity=(2.0, 2.0, 2.0)))
+    return s
+
+
+SWATCH_BANDS = ("vertex colours", "textured Mix amount", "alpha 0", "alpha 0.5")
+
+
+def swatch_scene(api=None):
+    """Four 0.9 x 1.8 quads side by side before a grey wall, one a band
+    of a square probe each (SWATCH_BANDS, left to right): per-vertex
+    colours, a Mix of red and blue Mattes whose amount is a
+    stripes_mask(64), a white Matte of alpha 0 (the wall shows through) and
+    one of alpha 0.5 (half the hits pass), under a point light."""
+    m = _api(api)
+    s = m.Scene()
+    s.add(m.make_quad((-3, -2, 1.5), (3, -2, 1.5), (3, 2, 1.5), (-3, 2, 1.5)),
+          m.Matte(kd=(0.4, 0.4, 0.4)))
+    x0 = (-1.95, -0.95, 0.05, 1.05)
+    quads = [m.make_quad((x, -0.9, 1.0), (x + 0.9, -0.9, 1.0), (x + 0.9, 0.9, 1.0),
+                         (x, 0.9, 1.0)) for x in x0]
+    quads[0].colors = np.asarray([[0.9, 0.1, 0.1], [0.1, 0.9, 0.1], [0.1, 0.1, 0.9],
+                                  [0.9, 0.9, 0.1]], np.float32)
+    s.add(quads[0], m.Matte(kd=m.VertexColorTexture()))
+    s.add(quads[1], m.Mix(m1=m.Matte(kd=(0.9, 0.1, 0.1)), m2=m.Matte(kd=(0.1, 0.1, 0.9)),
+                          amount=m.ImageTexture(stripes_mask(64))))
+    white = m.Matte(kd=(0.9, 0.9, 0.9))
+    s.add(quads[2], white, alpha=0.0)
+    s.add(quads[3], white, alpha=0.5)
+    s.add_light(m.PointLight(position=(0.0, 0.0, -1.5), intensity=(6.0, 6.0, 6.0)))
+    return s
+
+
 BUILDERS = {"default": default_scene, "mesh": mesh_scene, "fog": fog_scene,
             "sphere": sphere_scene, "cloud": cloud_scene, "cloud_grid": cloud_grid_scene,
             "lights": lights_scene, "sparse_cloud": sparse_cloud_scene,
-            "materials": materials_scene, "mix": mix_scene}
+            "materials": materials_scene, "mix": mix_scene, "triangle": triangle_scene,
+            "textured": textured_scene, "cornell": cornell_scene, "foliage": foliage_scene,
+            "swatch": swatch_scene}
 
 
 def scene_camera(which: str, res_px: int):
@@ -498,3 +680,81 @@ def check_transport(scene, which: str = "default", rgb_tol=None, **probe_kw):
            f"{mean_rgb:.7f} vs {ref['mean_rgb']:.7f} ({dc * 100:.3f}%, tolerance "
            f"{tol * 100:g}%)")
     return (dr <= 0.005 and dc <= tol), msg
+
+
+def face_hits(tl, faces, o, d):
+    """Moller-Trumbore in float64 of each ray (o, d) against the leaf-order
+    face faces[i] of flat Treelets -> (t, hit), each (n,); hit where the
+    face holds the hit point within 1e-6 in its barycentrics, t > 0."""
+    slots = torch.full((int(tl.tri[:, 9].max()) + 1,), -1, dtype=torch.int64,
+                       device=tl.tri.device)
+    real = (tl.tri[:, 9] >= 0).nonzero().squeeze(1)
+    slots[tl.tri[real, 9].long()] = real
+    rows = tl.tri[slots[faces.long()]].double()
+    p0, e1, e2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+    o, d = o.double(), d.double()
+    pvec = torch.linalg.cross(d, e2)
+    inv = 1.0 / (e1 * pvec).sum(-1)
+    tvec = o - p0
+    u = (tvec * pvec).sum(-1) * inv
+    qvec = torch.linalg.cross(tvec, e1)
+    v = (d * qvec).sum(-1) * inv
+    t = (e2 * qvec).sum(-1) * inv
+    return t, (u >= -1e-6) & (v >= -1e-6) & (u + v <= 1.0 + 1e-6) & (t > 0.0)
+
+
+def aux_reference(which: str) -> dict:
+    """The JAX package's render_aux of a scene through SCENE_DEFS's camera,
+    stored by tools/gen_probe_ref.py --renders: albedo (H, W, 3), normal
+    (H, W, 3), depth (H, W) and face (H, W), the leaf-order face of each
+    pixel's closest hit (-1 where the ray escapes)."""
+    with np.load(AUX_REF) as z:
+        return {k: z[f"{which}_{k}"] for k in ("albedo", "normal", "depth", "face")}
+
+
+def aux_against_reference(scene, which: str) -> dict:
+    """render_aux of a flat scene at the stored size against the JAX
+    package's (aux_reference), pixel for pixel. A pixel keeps the same face
+    as the reference, or sits on a tie: its ray meets the shared edge of
+    two faces, both faces hold the hit point and their t differ by at most
+    AUX_TIE_RTOL (face_hits, float64), and each traversal keeps one of them
+    by its own rule (the port's and the JAX package's treelet sweeps the
+    smaller of (t rounded to 24 bits, column); the skip-link walk the first
+    smaller t). Every other pixel is unexplained. Returns the counts, the
+    tie pixels' (row, column) and faces, and the largest differences:
+    albedo and normal (absolute) on the pixels of the same face, depth
+    (relative to max(depth, 1)) on every pixel; and the relative
+    difference of the mean albedo over the pixels of the same face, which
+    a Mix's child, picked per hit by a hash of the barycentrics' bits
+    (rounded apart by the two packages), and a texel edge (where a uv
+    that differs in its last bits reads another texel) move pixel by pixel
+    but not in the mean."""
+    ref = aux_reference(which)
+    res = ref["depth"].shape[0]
+    cam = scene_camera(which, res)
+    albedo, normal, depth = (x.cpu().numpy() for x in render_aux(scene, cam))
+    o, d = pixel_centre_rays(cam, scene.device)
+    rec = scene_closest_hit(scene, o, d, torch.full((res * res,), float("inf"),
+                                                     device=scene.device))
+    face = torch.where(rec.hit, rec.tri, -1)
+    ref_face = torch.as_tensor(ref["face"].reshape(-1), device=face.device)
+    other = ((face != ref_face) & (face >= 0) & (ref_face >= 0)).nonzero().squeeze(1)
+    t_a, hit_a = face_hits(scene.treelets, face[other], o[other], d[other])
+    t_b, hit_b = face_hits(scene.treelets, ref_face[other], o[other], d[other])
+    tie = hit_a & hit_b & ((t_a - t_b).abs() <= AUX_TIE_RTOL * torch.maximum(t_a, t_b))
+    same = (face == ref_face).cpu().numpy().reshape(res, res)
+    ties = other[tie].cpu().numpy()
+    return {"which": which, "res": res, "pixels": res * res, "same": int(same.sum()),
+            "ties": len(ties), "unexplained": res * res - int(same.sum()) - len(ties),
+            "tie_pixels": [divmod(int(i), res) for i in ties],
+            "tie_faces": list(zip(face[other[tie]].tolist(), ref_face[other[tie]].tolist())),
+            "albedo_err": float(np.abs(albedo - ref["albedo"])[same].max()),
+            "albedo_mean_err": float(abs(albedo[same].mean(dtype=np.float64)
+                                         / ref["albedo"][same].mean(dtype=np.float64) - 1)),
+            "normal_err": float(np.abs(normal - ref["normal"])[same].max()),
+            "depth_err": float((np.abs(depth - ref["depth"])
+                                / np.maximum(ref["depth"], 1.0)).max()),
+            "means": [float(albedo.mean()), normal.reshape(-1, 3).mean(0).tolist(),
+                      float(depth.mean())],
+            "ref_means": [float(ref["albedo"].mean()), ref["normal"].reshape(-1, 3).mean(0).tolist(),
+                          float(ref["depth"].mean())]}

@@ -1,8 +1,9 @@
-"""CIE colorimetry: XYZ matching functions, D65, XYZ -> linear sRGB.
+"""CIE colorimetry: XYZ matching functions, D65, XYZ <-> linear sRGB, the
+sRGB gamma and Bradford white balance.
 
-Port of the parts of ``hikari_tpu/spectral/cie.py`` on the render path. The
-matching functions and D65 are evaluated through the same piecewise-cubic
-fits as the JAX package.
+Port of ``hikari_tpu/spectral/cie.py`` on the render and postprocess
+paths. The matching functions and D65 are evaluated through the same
+piecewise-cubic fits as the JAX package.
 """
 
 from __future__ import annotations
@@ -81,5 +82,80 @@ _SRGB_FROM_XYZ = (
 
 
 def xyz_to_linear_srgb(xyz: torch.Tensor) -> torch.Tensor:
-    m = torch.tensor(_SRGB_FROM_XYZ, dtype=torch.float32, device=xyz.device)
-    return (m * xyz[..., None, :]).sum(-1)
+    return _apply(_SRGB_FROM_XYZ, xyz)
+
+
+_XYZ_FROM_SRGB = (
+    (0.4124564, 0.3575761, 0.1804375),
+    (0.2126729, 0.7151522, 0.0721750),
+    (0.0193339, 0.1191920, 0.9503041),
+)
+
+
+def _apply(m, v: torch.Tensor) -> torch.Tensor:
+    """(..., 3) vectors through a 3x3 matrix."""
+    m = torch.as_tensor(m, dtype=torch.float32, device=v.device)
+    return (m * v[..., None, :]).sum(-1)
+
+
+def linear_srgb_to_xyz(rgb: torch.Tensor) -> torch.Tensor:
+    return _apply(_XYZ_FROM_SRGB, rgb)
+
+
+
+def linear_to_srgb_gamma(c: torch.Tensor) -> torch.Tensor:
+    c = torch.clamp(c, min=0.0)
+    return torch.where(c <= 0.0031308, 12.92 * c, 1.055 * torch.pow(c, 1.0 / 2.4) - 0.055)
+
+
+# Bradford chromatic adaptation (color.jl:448-553)
+_LMS_FROM_XYZ = np.array([[0.8951, 0.2664, -0.1614], [-0.7502, 1.7135, 0.0367],
+                          [0.0389, -0.0685, 1.0296]], np.float32)
+_XYZ_FROM_LMS = np.array([[0.9869929, -0.1470543, 0.1599627],
+                          [0.4323053, 0.5183603, 0.0492912],
+                          [-0.0085287, 0.0400428, 0.9684867]], np.float32)
+D65_WHITE_XY = (0.31272, 0.32903)
+
+
+def _xy_to_xyz(x, y) -> np.ndarray:
+    x, y = np.float32(x), np.float32(y)
+    return np.array([x / y, 1.0, (np.float32(1.0) - x - y) / y], np.float32)
+
+
+def planckian_xy(temp: float):
+    """CIE xy of a blackbody radiator, 1667 K - 25000 K (color.jl:470-520)."""
+    t = np.float32(temp)
+    t2, t3 = t * t, t * t * t
+    if t < 4000.0:
+        x = -0.2661239e9 / t3 - 0.2343589e6 / t2 + 0.8776956e3 / t + 0.179910
+    else:
+        x = -3.0258469e9 / t3 + 2.1070379e6 / t2 + 0.2226347e3 / t + 0.240390
+    x = np.float32(x)
+    x2, x3 = x * x, x * x * x
+    if t < 2222.0:
+        y = -1.1063814 * x3 - 1.34811020 * x2 + 2.18555832 * x - 0.20219683
+    elif t < 4000.0:
+        y = -0.9549476 * x3 - 1.37418593 * x2 + 2.09137015 * x - 0.16748867
+    else:
+        y = 3.0817580 * x3 - 5.87338670 * x2 + 3.75112997 * x - 0.37001483
+    return x, np.float32(y)
+
+
+def _fma_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """float32 a @ b with each dot product a chain of fused multiply-adds
+    in column order, as XLA computes the JAX package's 3x3 products on the
+    CPU (a float64 product of two float32 values is exact)."""
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    acc = (a64[:, :1] * b64[:1]).astype(np.float32)
+    for k in range(1, a.shape[1]):
+        acc = (a64[:, k:k + 1] * b64[k:k + 1] + acc).astype(np.float32)
+    return acc
+
+
+def compute_white_balance_matrix(src_temp: float) -> torch.Tensor:
+    """Bradford matrix from a source colour temperature's white to D65
+    (color.jl:522-553), (3, 3) on the CPU."""
+    src = _fma_matmul(_LMS_FROM_XYZ, _xy_to_xyz(*planckian_xy(src_temp))[:, None])[:, 0]
+    dst = _fma_matmul(_LMS_FROM_XYZ, _xy_to_xyz(*D65_WHITE_XY)[:, None])[:, 0]
+    scale = np.diag((dst / src).astype(np.float32))
+    return torch.from_numpy(_fma_matmul(_fma_matmul(_XYZ_FROM_LMS, scale), _LMS_FROM_XYZ))

@@ -38,7 +38,7 @@ import hikari_tpu_torch as hk
 from hikari_tpu_torch.geometry import instanced as tinst
 from hikari_tpu_torch.geometry import sweep_inst
 from hikari_tpu_torch.geometry import wavefront as twf
-from test_torch_scene import jax_light_arrays
+from test_torch_scene import jax_light_arrays, jax_surface_arrays
 from hikari_tpu_torch.materials.types import MaterialBanks
 from hikari_tpu_torch.scene.bridge import coef_from_bw, scene_from_numpy
 
@@ -108,6 +108,7 @@ def jax_instanced_arrays(js) -> dict:
     for f in fields(MaterialBanks):
         out[f"materials.{f.name}"] = np.asarray(getattr(js.materials, f.name))
     out.update(jax_light_arrays(js))
+    out.update(jax_surface_arrays(js))
     return out
 
 

@@ -232,14 +232,18 @@ def test_pack_materials_matches_jax():
 
 
 def test_pack_materials_refusals():
-    """Nested Mix is refused; a textured field names ROADMAP A10."""
+    """Nested Mix is refused; a field that is neither a constant nor a
+    texture raises TypeError, and so does a texture on a field that the JAX
+    package takes only as a constant (textures are ported: ROADMAP A10)."""
     with pytest.raises(ValueError, match="nested Mix"):
         tmt.pack_materials([tmt.Mix(m1=tmt.Mix(m1=tmt.Matte(), m2=tmt.Mirror()),
                                     m2=tmt.Matte())])
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError):
         tmt.pack_materials([tmt.CoatedDiffuse(reflectance=object())])
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError):
         tmt.pack_materials([tmt.Mix(m1=tmt.Matte(), m2=tmt.Mirror(), amount=object())])
+    with pytest.raises(TypeError, match="constant"):
+        tmt.pack_materials([tmt.ThinDielectric(kr=tmt.ImageTexture(np.ones((2, 2, 3))))])
 
 
 def test_new_names_are_exported():

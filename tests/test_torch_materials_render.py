@@ -3,7 +3,8 @@
 * bench.py's materials scene (the default scene's 16 spheres cycling
   through the ten BSDF-bearing materials, the three layered coats among
   them) with coarse spheres at 32x32, 1 spp, depth 5: the JAX package's
-  render (the file's one JAX compile) against the port's, rays within 0.5%
+  render (stored in hikari_tpu_torch/data/probe_ref.json by
+  tools/gen_probe_ref.py --renders) against the port's, rays within 0.5%
   and mean RGB within 2% (the transport probe's tolerances) and >= 97% of
   pixels within 1e-3 relative + 1e-5 absolute (a layered walk that takes
   the other side of a comparison walks on differently, see
@@ -35,6 +36,7 @@
   :182).
 """
 
+import json
 from types import SimpleNamespace
 
 import jax
@@ -52,9 +54,9 @@ from hikari_tpu_torch.integrators.volpath import mix_u
 from hikari_tpu_torch.materials import layered as tl
 from hikari_tpu_torch.materials import types as tmt
 from hikari_tpu_torch.scene.bridge import scene_from_numpy
-from hikari_tpu_torch.scenes import (SCENE_DEFS, materials_scene, mix_scene, probe_reference,
-                                     transport_probe)
-from test_torch_lights_render import _assert_invariants, _jax_renderer
+from hikari_tpu_torch.scenes import (PROBE_REF, SCENE_DEFS, materials_scene, mix_scene,
+                                     probe_reference, transport_probe)
+from test_torch_lights_render import _assert_invariants
 from test_torch_scene import SPHERE_RES, jax_scene_arrays
 
 RES = 32
@@ -123,9 +125,13 @@ def _assert_modes_agree(results):
 
 
 def test_coarse_scene_matches_jax(coarse, port_modes):
+    """Against the JAX package's render of the same scene and samples,
+    stored by tools/gen_probe_ref.py --renders (its render_lanes at 32x32,
+    depth 5, sample 0)."""
     js, ts = coarse
-    jrgb, _, jst = _jax_renderer(js, CAMERA, 5)(5)
-    jrgb, jrays = np.asarray(jrgb), float(jst["rays_traced"])
+    ref = json.loads(PROBE_REF.read_text())["renders"]["materials coarse"]
+    assert (ref["res"], ref["depth"], ref["spp"]) == (RES, 5, 1)
+    jrgb, jrays = np.asarray(ref["rgb"], np.float32), float(ref["rays_traced"])
     trgb, trays = port_modes["none"]
     _assert_invariants(jrgb, jrays, trgb, trays)
     close = (np.abs(trgb - jrgb) <= 1e-3 * np.abs(jrgb) + 1e-5).all(-1)
@@ -229,6 +235,24 @@ def test_mix_with_emissive_child_is_no_light():
         bad.build(device="cpu")
     rgb, _ = _render(ts, depth=3, res=16, camera=((0.0, 2.0, -3.0), (0.0, 0.3, 0.0), 45.0))
     assert rgb.mean() > 0.0
+
+
+def test_mix_beside_more_rows_of_other_types():
+    """A Mix whose scene holds more rows of another type than of Mix: the
+    other tags' indices pass the Mix bank and are clamped, as XLA's gather
+    clamps them (they indexed past it and raised before)."""
+    s = hk.Scene()
+    for k, kd in enumerate(((0.7, 0.2, 0.2), (0.2, 0.7, 0.2), (0.2, 0.2, 0.7))):
+        x = -1.5 + k
+        s.add(hk.make_quad((x, 0, -1), (x + 1, 0, -1), (x + 1, 0, 1), (x, 0, 1)),
+              hk.Matte(kd=kd))
+    s.add(hk.make_quad((-1.5, 0, 1), (1.5, 0, 1), (1.5, 1, 1), (-1.5, 1, 1)),
+          hk.Mix(m1=hk.Matte(kd=(0.9, 0.9, 0.1)), m2=hk.Mirror(), amount=0.5))
+    s.add_light(hk.PointLight(position=(0, 2, -1), intensity=(8, 8, 8)))
+    ts = s.build(device="cpu")
+    assert int(ts.materials.mix_amount.shape[0]) == 1 and int(ts.mat_idx.max()) >= 2
+    rgb, rays = _render(ts, depth=2, res=16, camera=((0.0, 1.0, -3.0), (0.0, 0.3, 0.5), 50.0))
+    assert np.isfinite(rgb).all() and rgb.mean() > 0.0 and rays > 0
 
 
 def test_quickstart_plastic_sphere_renders():

@@ -81,6 +81,18 @@ def jax_scene_arrays(js) -> dict:
     for f in fields(MaterialBanks):
         out[f"materials.{f.name}"] = np.asarray(getattr(js.materials, f.name))
     out.update(jax_light_arrays(js))
+    out.update(jax_surface_arrays(js))
+    return out
+
+
+def jax_surface_arrays(js) -> dict:
+    """The texture and alpha arrays of a JAX SceneData, as scene_from_numpy
+    takes them."""
+    out = {k: np.asarray(getattr(js, k)) for k in ("tex_rows", "alpha_const", "alpha_tex")}
+    out["tri_p"] = np.concatenate([np.asarray(getattr(js.bvh, k)) for k in ("p0", "p1", "p2")],
+                                  axis=1)
+    for k in ("data", "offset", "width", "height", "uv_scale", "uv_offset"):
+        out[f"atlas.{k}"] = np.asarray(getattr(js.atlas, k))
     return out
 
 
@@ -148,7 +160,7 @@ def test_lights(scenes):
 def test_material_banks(scenes):
     js, ts, arr = scenes
     for f in fields(MaterialBanks):
-        got = getattr(ts.materials, f.name).numpy()
+        got = np.asarray(getattr(ts.materials, f.name))  # has_textures is a bool
         want = arr[f"materials.{f.name}"]
         if got.dtype == np.bool_:
             np.testing.assert_array_equal(got, want, err_msg=f.name)

@@ -81,3 +81,13 @@ def test_full_default_scene_transport_probe():
 
     ok, msg = check_transport(default_scene().build(device="cpu"), "default")
     assert ok, msg
+
+
+def test_triangle_probe_against_jax():
+    """bench.py's triangle scene (scenes.triangle_scene): its 64x64 depth-5
+    1-spp probe against the JAX package's in hikari_tpu_torch/data/
+    probe_ref.json, rays within 0.5% and mean RGB within 2%."""
+    from hikari_tpu_torch.scenes import check_transport, triangle_scene
+
+    ok, msg = check_transport(triangle_scene().build(device="cpu"), "triangle")
+    assert ok, msg

@@ -2,6 +2,7 @@
 """Compute the JAX package's probes of the port's scenes, on the CPU.
 
     python tools/gen_probe_ref.py [--only KEY ...] [--reseeds N]
+    python tools/gen_probe_ref.py --renders [KEY ...]
 
 (KEY as hikari_tpu_torch.scenes.probe_key writes it, e.g. "sparse_cloud 32x32
 depth 12 16 spp" or "default 64x64 depth 5 1 spp, mitchell filter".)
@@ -28,6 +29,11 @@ is the probe as is; media_check reseeds the port with the same salts).
 The stored "rays_traced" and "mean_rgb" are the means over the draws,
 beside the draws themselves and the relative spread of one draw
 ("draw_rel_std"); the per-sample spread is draw 0's.
+
+--renders stores instead the JAX results that the quick tests compare
+with (RENDERS below: whole renders, per-band means, an escape share), so
+that those tests compile no JAX render, and the JAX package's render_aux
+images, pixel for pixel, in hikari_tpu_torch/data/aux_ref.npz.
 
 The scenes are built through the JAX API: the fog, the sun-sky cloud and
 the materials scene by bench.build_fog_scene / build_cloud_scene /
@@ -74,9 +80,17 @@ PROBES = [
     ("default", "power", 64, 5, 1, 1, 3),     # Mitchell: chip_smoke.py phase 4, tests (slow)
     ("default", "power", 64, 5, 1, 1, 4),     # Lanczos: the same
     ("materials", "power", 64, 5, 1, 1),      # chip_smoke.py phase 4, tests (slow)
+    ("triangle", "power", 64, 5, 1, 1),       # chip_smoke.py phase 4, tests
+    ("textured", "power", 64, 5, 4, 4),       # chip_smoke.py phase 4, tests (slow)
+    ("cornell", "power", 64, 6, 1, 1),        # chip_smoke.py phase 4, tests (slow)
 ]
+# scenes the port's scenes.py builds through either package's API
+API_SCENES = ("triangle", "textured", "cornell", "foliage", "swatch", "materials")
+# the coarse spheres (n_theta, n_phi) of the quick tests' scenes
+COARSE = (8, 16)
 MEDIUM_SCENES = ("fog", "cloud", "cloud_grid", "sparse_cloud")
 OUT = os.path.join(ROOT, "hikari_tpu_torch", "data", "probe_ref.json")
+AUX_OUT = os.path.join(ROOT, "hikari_tpu_torch", "data", "aux_ref.npz")
 
 
 def jax_cloud_grid_scene():
@@ -183,7 +197,11 @@ def jax_sparse_cloud_scene():
 def jax_scene(which: str, sampler: str = "power"):
     """The JAX package's build of a scene of the port's SCENE_DEFS."""
     import bench
+    import hikari_tpu
+    from hikari_tpu_torch.scenes import BUILDERS
 
+    if which in API_SCENES and which != "materials":
+        return BUILDERS[which](api=hikari_tpu).build()
     if which == "default":
         return jax_default_scene(sampler)
     if which == "lights":
@@ -250,6 +268,145 @@ def jax_probe(js, which: str, res: int, depth: int, spp: int, batch: int, ftype:
     return rays / spp, float(means.mean()), means
 
 
+def jax_lanes(js, which: str, res: int, depth: int, spp: int):
+    """The JAX package's render_lanes of samples 0 .. spp-1 of a scene at
+    res x res through SCENE_DEFS's camera, in one compiled call through
+    depth segment [0, depth) as the tests' JAX renders run: (rgb (spp *
+    res^2, 3), rays traced per sample)."""
+    from hikari_tpu.camera.camera import make_perspective_camera
+    from hikari_tpu.film.filters import make_filter
+    from hikari_tpu.integrators.volpath import VolPath, render_lanes
+    from hikari_tpu_torch.scenes import SCENE_DEFS
+
+    (eye, at, fov), _ = SCENE_DEFS[which]
+    camera = make_perspective_camera(eye, at, (res, res), fov_deg=fov)
+    lanes = jnp.arange(res * res, dtype=jnp.uint32)
+    si = jnp.repeat(jnp.arange(spp, dtype=jnp.uint32), res * res)
+    rgb, _, stats = jax.jit(lambda: render_lanes(
+        VolPath(max_depth=depth, samples_per_pixel=spp), js, camera, make_filter(), si,
+        jnp.tile(lanes % res, spp), jnp.tile(lanes // res, spp), depth_lo=jnp.int32(0),
+        depth_hi=jnp.int32(depth)))()
+    return np.asarray(rgb, np.float64), float(stats["rays_traced"]) / spp
+
+
+def render_materials_coarse():
+    """tests/test_torch_materials_render.py's JAX render: the materials scene
+    with coarse spheres, 32x32, depth 5, sample 0 (every pixel's RGB)."""
+    import hikari_tpu
+    from hikari_tpu_torch.scenes import materials_scene
+
+    rgb, rays = jax_lanes(materials_scene(COARSE, api=hikari_tpu).build(), "materials", 32, 5,
+                          1)
+    return {"res": 32, "depth": 5, "spp": 1, "rays_traced": rays,
+            "rgb": np.asarray(rgb, np.float32).tolist()}
+
+
+def render_textured_coarse():
+    """tests/test_torch_textures.py: the textured scene with coarse spheres,
+    32x32, depth 5, samples 0-3: rays per sample and mean RGB."""
+    import hikari_tpu
+    from hikari_tpu_torch.scenes import textured_scene
+
+    rgb, rays = jax_lanes(textured_scene(COARSE, api=hikari_tpu).build(), "textured", 32, 5, 4)
+    return {"res": 32, "depth": 5, "spp": 4, "rays_traced": rays,
+            "mean_rgb": float(rgb.mean())}
+
+
+def render_swatch():
+    """tests/test_torch_textures.py and test_torch_alpha.py: the swatch
+    scene's probe (SCENE_DEFS), the mean RGB of each of its four bands of
+    columns (scenes.SWATCH_BANDS) over the samples, and the spread of a
+    band's pixel-sample means (the standard error of the band mean)."""
+    import hikari_tpu
+    from hikari_tpu_torch.scenes import SWATCH_BANDS, probe_config, swatch_scene
+
+    res, depth, spp = probe_config("swatch")
+    rgb, rays = jax_lanes(swatch_scene(api=hikari_tpu).build(), "swatch", res, depth, spp)
+    px = rgb.reshape(spp, res, res, 3).mean(-1)  # (sample, row, column)
+    bands = np.split(px, len(SWATCH_BANDS), axis=2)
+    return {"res": res, "depth": depth, "spp": spp, "rays_traced": rays,
+            "band_mean": [float(b.mean()) for b in bands],
+            "band_sem": [float(b.std(ddof=1) / np.sqrt(b.size)) for b in bands]}
+
+
+def render_foliage_escape():
+    """tests/test_torch_alpha.py: the share of tests/test_alpha_mix.py's
+    8192 rays (origins RandomState(0) uniform over [-3, 3]^2 at z = 0, along
+    +z) that escape the foliage stack in the JAX package's
+    _closest_hit_surface."""
+    import hikari_tpu
+    from hikari_tpu.integrators.volpath import _closest_hit_surface
+    from hikari_tpu_torch.scenes import foliage_scene
+
+    js = foliage_scene(api=hikari_tpu).build()
+    n = 8192
+    rng = np.random.RandomState(0)
+    o = np.zeros((n, 3), np.float32)
+    o[:, :2] = rng.uniform(-3, 3, (n, 2))
+    d = jnp.broadcast_to(jnp.asarray([0.0, 0.0, 1.0]), (n, 3))
+    rec = _closest_hit_surface(js, jnp.asarray(o), d, jnp.full((n,), jnp.inf),
+                               active=jnp.ones((n,), bool))
+    return {"rays": n, "escape": 1.0 - float(np.asarray(rec.hit).mean())}
+
+
+def render_aux_ref(which: str, res: int = 64):
+    """chip_smoke.py phase 4 and tests/test_torch_film_io.py: the JAX
+    package's render_aux of a scene at res x res through SCENE_DEFS's
+    camera, pixel for pixel, with the leaf-order face of each pixel's
+    closest hit, written to AUX_OUT as <which>_albedo / _normal / _depth /
+    _face; returns the means of the first three (for the record in
+    probe_ref.json). The face comes from one jitted program that computes
+    render_aux's body and keeps rec.tri; its images must equal
+    render_aux's bit for bit, because where a ray meets the shared edge of
+    two faces at one t, another program (the closest hit alone, say) can
+    round to the other face."""
+    import hikari_tpu
+    from hikari_tpu.camera.camera import CameraSample, make_perspective_camera
+    from hikari_tpu.integrators import volpath as jv
+    from hikari_tpu_torch.scenes import BUILDERS, SCENE_DEFS
+
+    (eye, at, fov), _ = SCENE_DEFS[which]
+    js = BUILDERS[which](api=hikari_tpu).build()
+    cam = make_perspective_camera(eye, at, (res, res), fov_deg=fov)
+
+    @jax.jit
+    def aux_and_face(scene, camera):
+        n = res * res
+        lanes = jnp.arange(n, dtype=jnp.uint32)
+        p_film = jnp.stack([(lanes % res).astype(jnp.float32),
+                            (lanes // res).astype(jnp.float32)], -1) + 0.5
+        o, d = camera.generate_rays(CameraSample(
+            p_film=p_film, lens=jnp.zeros((n, 2)), time=jnp.zeros((n,)),
+            filter_weight=jnp.ones((n,))))
+        rec = jv.scene_closest_hit(scene, o, d, jnp.full((n,), jnp.inf))
+        sd = jv._surface_data(scene, rec, o, d)
+        albedo = jv._albedo_rgb_dispatch(scene, sd["mat_type"], sd["mat_idx"], sd["tex"])
+        hit = rec.hit
+        return (jnp.where(hit[..., None], albedo, 0.0).reshape(res, res, 3),
+                jnp.where(hit[..., None], sd["ns"], 0.0).reshape(res, res, 3),
+                jnp.where(hit, rec.t, 0.0).reshape(res, res),
+                jnp.where(hit, rec.tri, -1).reshape(res, res))
+
+    albedo, normal, depth = (np.asarray(x, np.float32) for x in jv.render_aux(js, cam))
+    *same, face = (np.asarray(x) for x in aux_and_face(js, cam))
+    for a, b in zip(same, (albedo, normal, depth)):
+        assert np.array_equal(a, b), "the face's program renders another aux image"
+    arrays = {}
+    if os.path.exists(AUX_OUT):
+        with np.load(AUX_OUT) as z:
+            arrays = dict(z)
+    arrays.update({f"{which}_albedo": albedo, f"{which}_normal": normal,
+                   f"{which}_depth": depth, f"{which}_face": face.astype(np.int32)})
+    np.savez_compressed(AUX_OUT, **arrays)
+
+
+RENDERS = {"materials coarse": render_materials_coarse,
+           "aux textured": lambda: render_aux_ref("textured"),
+           "aux cornell": lambda: render_aux_ref("cornell"),
+           "textured coarse": render_textured_coarse,
+           "swatch": render_swatch, "foliage escape": render_foliage_escape}
+
+
 def main():
     from hikari_tpu_torch.film.filters import GAUSSIAN
     from hikari_tpu_torch.scenes import BUILDERS, FILTER_NAMES, probe_key, transport_probe
@@ -257,11 +414,24 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", nargs="*", help="probe keys to recompute (default: all)")
     ap.add_argument("--reseeds", type=int, default=6, help="LCG draws of each medium probe")
+    ap.add_argument("--renders", nargs="*", help="RENDERS keys to recompute, then stop")
     args = ap.parse_args()
     refs = {"probes": {}}
     if os.path.exists(OUT):
         with open(OUT) as f:
             refs = json.load(f)
+    if args.renders is not None:
+        renders = refs.setdefault("renders", {})
+        for key in args.renders or RENDERS:
+            t0 = time.perf_counter()
+            out = RENDERS[key]()
+            if out is not None:  # None: the result went to AUX_OUT
+                renders[key] = out
+            print(f"render {key!r}: {time.perf_counter() - t0:.0f} s", flush=True)
+            with open(OUT, "w") as f:
+                json.dump(refs, f, indent=1)
+                f.write("\n")
+        return
     scenes, ports = {}, {}
     for which, sampler, res, depth, spp, batch, *ft in PROBES:
         ftype = ft[0] if ft else GAUSSIAN
