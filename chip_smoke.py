@@ -114,7 +114,24 @@ exits nonzero without its result line:
    the Mix floor at
    depth 2 ('[mix]'): each child's share of the lit pixels within
    MIX_SHARE. '[time]' lines give the script's clock after phases 4 and 5
-   and after the materials paths;
+   and after the materials paths. Last, this slice's paths on the default
+   scene at full size (slice_paths): A, Whitted() and B, FastWavefront()
+   through render_preview ('[whitted]', '[fast]': sample 0's rays, the
+   lanes alive at each bounce, a stage split traversal / NEE / BSDF sample
+   / rest, K1 and K2 held on every sweep call of sample 0, then the timed
+   render with timed_render's checks); C, SPPM() through render_sppm
+   ('[sppm]': K1 and K2 held on every sweep call of the first iteration, ms
+   an iteration split camera pass / photon pass / sort / gather / update,
+   the deposits of each photon pass, the mean radius at the end); D, the
+   default scene built with traversal='skiplink' ('[skiplink]': its 64x64
+   probe traces the packets' rays, mean RGB within PREVIEW_RGB_RTOL, with no
+   sweep kernel launched; the walk equals brute_force_closest_hit on
+   BRUTE_RAYS seeded rays; one primary walk timed beside the packet engine
+   and K1); E, render_sharded at world size 1 on an NCCL group
+   ('[sharded]': its film equals the main path's render within
+   SHARDED_RTOL); F, profiling.trace around one Whitted sample and
+   stage_timings ('[profiling]'); G, examples/torch_quickstart.py in a new
+   process, its three PNGs into chiprun_out/ ('[quickstart]');
 6. timings: each kernel's wrapper call (pair_schedule and scratch
    included) against its plain version on every sweep call of its main
    path's first wavefront (one per bounce), summed per render beside the
@@ -590,6 +607,13 @@ def main_path(label, sc, cam, module, names, smi, ftype=None, **vp_kw):
     return counts, rec, result
 
 
+def launched_exactly(label, names, counts, plain_runs):
+    if (min(counts[n] for n in names) <= 0 or any(v for n, v in counts.items() if n not in names)
+            or any(plain_runs.values())):
+        raise SystemExit(f"{label}: the path did not go through exactly the kernels {names}: "
+                         f"launches {counts}, plain sweeps on CUDA {plain_runs}")
+
+
 def timed_render(label, sc, cam, vp, names, smi, rays, nonfinite, filt=None, film=None):
     """render(vp, sc, cam, film, filt) through the public API with the
     launch counts reset just before and read just after; rays: the rays of
@@ -628,11 +652,7 @@ def timed_render(label, sc, cam, vp, names, smi, rays, nonfinite, filt=None, fil
         f"{plain_runs}")
     if not finite or nonfinite != 0.0 or mean_sum <= 0.0:
         raise SystemExit(f"{label}: output is not a finite, non-black image")
-    if (min(counts[n] for n in names) <= 0
-            or any(v for n, v in counts.items() if n not in names)
-            or any(plain_runs.values())):
-        raise SystemExit(f"{label}: the render did not go through exactly the "
-                         f"kernels {names}")
+    launched_exactly(label, names, counts, plain_runs)
     return counts, dict(film=film, secs=wall, ms_sample=wall / MAIN_SPP * 1e3,
                         mean_rgb=mean_rgb, peak=peak)
 
@@ -965,24 +985,16 @@ def hold_path(label, rec, cases, smi, partial=()):
                              f"bit on every sweep call compared, or too few were compared")
 
 
-class ShadingInstruments:
-    """Synchronising, exclusive stage timers around the shading and
-    traversal functions of volpath, for one instrumented call. The caller
-    maps each stage to what it times (MATERIAL_STAGES, TEXTURE_STAGES):
-    "module.name" for a function of the port (volpath, bsdf), or
-    "samplers:layered" / "evaluators:other" and the like for the layered or
-    the other material types' entries of volpath's BSDF tables. A stage
-    that runs inside another (a lookup inside a walk) is counted in its
-    own stage only. Per bounce (one _bounce_core call) it counts the
-    closest-sweep calls of the camera path (_closest_hit_surface: the first
-    and one per alpha round) and of the shadow walk (_trace_shadow)."""
+class StageTimers:
+    """Synchronising, exclusive stage timers around functions of the port's
+    modules: stages maps a stage to (module, function name) pairs; time in
+    a function of another stage called from inside one is counted in that
+    other stage only. Everything else is "the rest" of the caller's total."""
 
     def __init__(self, stages):
         self.stages = stages
         self.secs = dict.fromkeys(stages, 0.0)
-        self.stack = []   # [stage, start of its current stretch]
-        self.bounces = []
-        self.context = None
+        self.stack = []
 
     def _timed(self, stage, fn):
         def wrapped(*args, **kw):
@@ -1003,6 +1015,41 @@ class ShadingInstruments:
                     self.stack[-1][1] = end
             return out
         return wrapped
+
+    def __enter__(self):
+        self.saved = []
+        for stage, targets in self.stages.items():
+            for module, name in targets:
+                self.saved.append((module, name, getattr(module, name)))
+                setattr(module, name, self._timed(stage, getattr(module, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in reversed(self.saved):
+            setattr(module, name, fn)
+
+    def split(self, total, per=1) -> str:
+        parts = dict(self.secs, rest=total - sum(self.secs.values()))
+        return ", ".join(f"{name} {sec / per * 1e3:.1f} ms ({sec / total * 100:.1f}%)"
+                         for name, sec in parts.items())
+
+
+class ShadingInstruments(StageTimers):
+    """Synchronising, exclusive stage timers around the shading and
+    traversal functions of volpath, for one instrumented call. The caller
+    maps each stage to what it times (MATERIAL_STAGES, TEXTURE_STAGES):
+    "module.name" for a function of the port (volpath, bsdf), or
+    "samplers:layered" / "evaluators:other" and the like for the layered or
+    the other material types' entries of volpath's BSDF tables. A stage
+    that runs inside another (a lookup inside a walk) is counted in its
+    own stage only. Per bounce (one _bounce_core call) it counts the
+    closest-sweep calls of the camera path (_closest_hit_surface: the first
+    and one per alpha round) and of the shadow walk (_trace_shadow)."""
+
+    def __init__(self, stages):
+        super().__init__(stages)
+        self.bounces = []
+        self.context = None
 
     def _within(self, context, fn):
         def wrapped(*args, **kw):
@@ -1060,11 +1107,6 @@ class ShadingInstruments:
             setattr(module, name, fn)
         volpath._SAMPLERS.update(self.tables["samplers"])
         volpath._EVALUATORS.update(self.tables["evaluators"])
-
-    def split(self, total) -> str:
-        parts = dict(self.secs, rest=total - sum(self.secs.values()))
-        return ", ".join(f"{name} {sec * 1e3:.1f} ms ({sec / total * 100:.1f}%)"
-                         for name, sec in parts.items())
 
 
 TRAVERSAL = ("volpath.scene_closest_hit", "volpath.scene_any_hit")
@@ -1514,6 +1556,320 @@ def filter_paths(sc, cam, smi):
     torch.cuda.empty_cache()
 
 
+# --- this slice's paths: the preview integrators, SPPM, the skip-link walk, the sharded
+# render, the profiling helpers and the port's quickstart (phase 5, A-G) -----------------
+
+PREVIEW_RGB_RTOL = 1e-5   # the skip-link probe's mean RGB against the packets'
+SHARDED_RTOL = 1e-6       # render_sharded's film against render's, every pixel
+BRUTE_RAYS = 4096         # seeded rays of the skip-link walk against the brute force
+TRACE_KEEP_BYTES = 16 * 2**20  # a larger profiler trace is removed once checked
+
+
+def preview_path(label, integ, sc, cam, smi):
+    """Paths A / B: a preview integrator at its defaults through
+    render_preview. First sample 0 alone, instrumented: the rays it traces
+    (closest-hit lanes and shadow rays), the lanes alive at each bounce
+    (Whitted: the specular lanes still followed), a synchronising stage
+    split (traversal / NEE / BSDF sample / the rest), and every K1 / K2 call
+    captured and held against its plain version bit for bit (hold_path).
+    Then the timed render_preview with the launch counts reset just before
+    and read just after: finite, not black, K1 and K2 launched and no other
+    sweep."""
+    import torch
+    import hikari_tpu_torch as hk
+    from hikari_tpu_torch.geometry import sweep, wavefront
+    from hikari_tpu_torch.integrators import preview
+
+    names = ("closest_tiles", "occlusion_tiles")
+    w, h = cam.resolution
+    stages = {"traversal": [(preview, "scene_closest_hit"), (preview, "scene_any_hit")],
+              "NEE": [(preview, "_direct_light_bsdf"), (preview, "_direct_light_rgb")],
+              "BSDF sample": [(preview, "_sample_bsdf_dispatch")]}
+    stats = {"rays": torch.zeros((), device=sc.device), "alive": []}
+    with Recorder(wavefront, names) as rec, StageTimers(stages) as ins:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preview.preview_lanes(integ, sc, cam, 0, stats)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    rays = float(stats["rays"])
+    alive = [int(a) for a in stats["alive"]]
+    log(f"[{label}] sample 0 of {w}x{h}: {rays:.0f} rays; lanes alive at each bounce "
+        f"{alive}; stage split of the synchronised sample, {total:.3f} s: "
+        f"{ins.split(total)}; sweep calls {dict((n, len(c)) for n, c in rec.calls.items())} "
+        f"[{smi}]")
+    hold_path(label, rec, [(n, sc.treelets) for n in names], smi)
+    del rec
+    hk.render_preview(integ, sc, cam)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sweep.reset_counts()
+    t0 = time.perf_counter()
+    img = hk.framebuffer(hk.render_preview(integ, sc, cam))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, plain_runs = dict(sweep.launches), dict(sweep.plain_cuda_runs)
+    spp = integ.samples_per_pixel
+    finite, mean_rgb = bool(torch.isfinite(img).all()), float(img.mean())
+    log(f"[{label}] render_preview {w}x{h}, {spp} spp: {wall:.3f} s, "
+        f"{wall / spp * 1e3:.1f} ms/sample, {rays * spp / wall / 1e6:.3f} Mray/s (sample 0's "
+        f"rays x {spp}), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean RGB "
+        f"{mean_rgb:.6f}, finite {finite}; launches {counts} [{smi}]")
+    if not finite or mean_rgb <= 0.0:
+        raise SystemExit(f"{label}: output is not a finite, non-black image")
+    launched_exactly(label, names, counts, plain_runs)
+    return wall / spp * 1e3
+
+
+def sppm_path(sc, cam, smi):
+    """Path C: SPPM() at its defaults through render_sppm. The first
+    iteration alone, with every K1 / K2 call (the camera pass's closest and
+    shadow sweeps, the photon pass's closest sweeps) captured and held
+    against its plain version bit for bit. Then the timed render_sppm with
+    the launch counts reset just before and read just after, under
+    synchronising stage timers: ms an iteration of the camera pass, photon
+    pass, sort, gather and update; the deposits of each photon pass; the
+    mean radius after the last iteration. Finite, not black, K1 and K2
+    launched and no other sweep."""
+    import torch
+    import hikari_tpu_torch as hk
+    from hikari_tpu_torch.geometry import sweep, wavefront
+    from hikari_tpu_torch.integrators import sppm
+
+    names = ("closest_tiles", "occlusion_tiles")
+    integ = hk.SPPM()
+    w, h = cam.resolution
+    with Recorder(wavefront, names) as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sppm._sppm_iteration(integ, sc, cam, sppm.sppm_initial_state(integ, w * h, sc.device),
+                             0)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+    log(f"[sppm] iteration 0, recorded: {first:.3f} s, sweep calls "
+        f"{dict((n, len(c)) for n, c in rec.calls.items())} [{smi}]")
+    hold_path("sppm", rec, [(n, sc.treelets) for n in names], smi)
+    del rec
+    deposits, last = [], {}
+    sort = sppm._sort_photons
+    update = sppm._sppm_update
+
+    def counted_sort(ph_p, ph_pow, ph_n, ph_ok, *rest):
+        deposits.append(int(ph_ok.sum()))
+        return sort(ph_p, ph_pow, ph_n, ph_ok, *rest)
+
+    def kept_update(*args):
+        last["state"] = update(*args)
+        return last["state"]
+
+    stages = {"camera pass": [(sppm, "_visible_points")], "photon pass": [(sppm, "_trace_photons")],
+              "sort": [(sppm, "_sort_photons")], "gather": [(sppm, "_gather_sorted")],
+              "update": [(sppm, "_sppm_update")]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sweep.reset_counts()
+    sppm._sort_photons, sppm._sppm_update = counted_sort, kept_update
+    try:
+        with StageTimers(stages) as ins:
+            t0 = time.perf_counter()
+            img = hk.render_sppm(integ, sc, cam)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        sppm._sort_photons, sppm._sppm_update = sort, update
+    counts, plain_runs = dict(sweep.launches), dict(sweep.plain_cuda_runs)
+    n_it = integ.iterations
+    radius = float(torch.sqrt(last["state"]["r2"]).mean())
+    finite, mean_rgb = bool(torch.isfinite(img).all()), float(img.mean())
+    log(f"[sppm] render_sppm {w}x{h}, {n_it} iterations of {integ.photons_per_iteration} "
+        f"photons, depth {integ.max_depth}: {wall:.3f} s, {wall / n_it * 1e3:.1f} ms an "
+        f"iteration: {ins.split(wall, per=n_it)} (per iteration); deposits a photon pass "
+        f"{deposits} of {integ.photons_per_iteration * (integ.max_depth - 1)} slots; mean "
+        f"radius after the last iteration {radius:.6f} (initial {integ.initial_radius}); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean RGB {mean_rgb:.6f}, finite "
+        f"{finite}; launches {counts} [{smi}]")
+    if not finite or mean_rgb <= 0.0 or not deposits or min(deposits) <= 0:
+        raise SystemExit("sppm: the image is not finite and lit, or a photon pass deposited "
+                         "nothing")
+    launched_exactly("sppm", names, counts, plain_runs)
+    return wall / n_it * 1e3
+
+
+def skiplink_checks(packets_scene, cam, smi):
+    """Path D: the default scene built with traversal='skiplink'. Its 64x64
+    transport probe traces the packet engine's rays, mean RGB within
+    PREVIEW_RGB_RTOL, and launches no sweep kernel; the walk equals
+    brute_force_closest_hit on BRUTE_RAYS seeded rays (hit, t, tri); one
+    primary sweep of the camera's pixel centres timed beside the packet
+    engine's closest hit and K1 alone on its call (for information)."""
+    import torch
+    from hikari_tpu_torch.geometry import sweep, traverse, wavefront
+    from hikari_tpu_torch.integrators.volpath import pixel_centre_rays, scene_closest_hit
+    from hikari_tpu_torch.scenes import default_scene, transport_probe
+
+    dev = packets_scene.device
+    t0 = time.perf_counter()
+    sk = default_scene().build(traversal="skiplink", device=dev)
+    build_s = time.perf_counter() - t0
+    sweep.reset_counts()
+    (rays_s, rgb_s), probe_s = cuda_secs(lambda: transport_probe(sk, "default"))
+    counts = dict(sweep.launches)
+    rays_p, rgb_p = transport_probe(packets_scene, "default")
+    err = abs(rgb_s / rgb_p - 1)
+    ok = rays_s == rays_p and err <= PREVIEW_RGB_RTOL and not any(counts.values())
+    log(f"[skiplink] default scene built with traversal='skiplink' in {build_s:.1f} s "
+        f"({sk.bvh.lo.shape[0]} nodes); 64x64 probe in {probe_s:.1f} s: rays {rays_s:.0f} vs "
+        f"the packets' {rays_p:.0f}, mean RGB {rgb_s:.7f} vs {rgb_p:.7f} ({err:.2e}, tolerance "
+        f"{PREVIEW_RGB_RTOL:g}); launches {counts} [{smi}] -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the skip-link walk does not render as the packet engine")
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    lo, hi = sk.world_lo.cpu(), sk.world_hi.cpu()
+    o = (lo + (hi - lo) * torch.rand(BRUTE_RAYS, 3, generator=gen)).to(dev)
+    d = torch.nn.functional.normalize(torch.randn(BRUTE_RAYS, 3, generator=gen), dim=-1).to(dev)
+    inf = torch.full((BRUTE_RAYS,), float("inf"), device=dev)
+    rec = traverse.closest_hit(sk.bvh, o, d, inf)
+    ref = traverse.brute_force_closest_hit(sk.bvh.p0, sk.bvh.p1, sk.bvh.p2, o, d, inf)
+    ok = (torch.equal(rec.hit, ref.hit) and torch.equal(rec.tri, ref.tri)
+          and torch.equal(rec.t[rec.hit], ref.t[ref.hit]))
+    log(f"[skiplink] closest_hit against brute_force_closest_hit on {BRUTE_RAYS} seeded rays "
+        f"({sk.n_faces} triangles): {int(rec.hit.sum())} hits, hit / tri / t equal "
+        f"{'yes' if ok else 'NO'} [{smi}] -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the skip-link walk differs from the brute force")
+    o, d = pixel_centre_rays(cam, dev)
+    inf = torch.full((o.shape[0],), float("inf"), device=dev)
+    rec_s, walk_s = cuda_secs(lambda: traverse.closest_hit(sk.bvh, o, d, inf))
+    with Recorder(wavefront, ("closest_tiles",)) as r:
+        rec_p = scene_closest_hit(packets_scene, o, d, inf)
+    _, packets_s = cuda_secs(lambda: scene_closest_hit(packets_scene, o, d, inf))
+    k1_ms = cuda_ms(lambda: sweep.closest_tiles(*r.calls["closest_tiles"][0]), 3)
+    same = float((rec_s.tri == rec_p.tri).float().mean())
+    log(f"[skiplink] one {cam.resolution[0]}x{cam.resolution[1]} primary sweep: the walk "
+        f"{walk_s * 1e3:.1f} ms, the packet engine {packets_s * 1e3:.1f} ms (K1 alone "
+        f"{k1_ms:.3f} ms); the same face on {same:.6f} of the lanes (for information) [{smi}]")
+    del sk
+
+
+def sharded_check(sc, cam, ref_film, smi):
+    """Path E: render_sharded at world size 1 (an NCCL group of this
+    process, dp = sp = 1) of the default scene, VolPath(max_depth=5,
+    samples_per_pixel=MAIN_SPP): its film against the main path's render,
+    every pixel's rgb_sum and weight_sum within SHARDED_RTOL relative; K1
+    and K2 launched and no other sweep."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    import hikari_tpu_torch as hk
+    from hikari_tpu_torch.geometry import sweep
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(sc.device.index or 0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = hk.make_render_mesh(dp=1)
+        sweep.reset_counts()
+        film, secs = cuda_secs(lambda: hk.render_sharded(
+            hk.VolPath(max_depth=5, samples_per_pixel=MAIN_SPP), sc, cam, mesh))
+        counts, plain_runs = dict(sweep.launches), dict(sweep.plain_cuda_runs)
+    finally:
+        dist.destroy_process_group()
+    err = max(float(((getattr(film, k) - getattr(ref_film, k)).abs()
+                     / getattr(ref_film, k).abs().clamp(min=1e-30)).max())
+              for k in ("rgb_sum", "weight_sum"))
+    ok = err <= SHARDED_RTOL and film.iteration == ref_film.iteration
+    log(f"[sharded] render_sharded on a ('dp', 'sp') = {tuple(mesh.mesh.shape)} NCCL mesh, "
+        f"{cam.resolution[0]}x{cam.resolution[1]}, {MAIN_SPP} spp: {secs:.3f} s, "
+        f"{secs / MAIN_SPP * 1e3:.1f} ms/sample; its film against render's: largest relative "
+        f"difference {err:.2e} (tolerance {SHARDED_RTOL:g}); launches {counts} [{smi}] -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("render_sharded does not equal render")
+    launched_exactly("sharded", ("closest_tiles", "occlusion_tiles"), counts, plain_runs)
+
+
+def profiling_check(sc, cam, smi):
+    """Path F: profiling.trace around one Whitted sample (path A) must write
+    a Chrome trace into chiprun_out/trace/ (kept up to TRACE_KEEP_BYTES);
+    stage_timings of the default scene prints its three times."""
+    import hikari_tpu_torch as hk
+    from hikari_tpu_torch.integrators import preview
+    from hikari_tpu_torch.utils import profiling
+
+    out = OUT_DIR / "trace"
+    before = set(out.glob("trace_*.json")) if out.is_dir() else set()
+    _, secs = cuda_secs(lambda: _traced_sample(profiling, preview, hk, sc, cam, out))
+    new = sorted(set(out.glob("trace_*.json")) - before)
+    ok = len(new) == 1 and new[0].stat().st_size > 0
+    size = new[0].stat().st_size if new else 0
+    kept = "kept"
+    if size > TRACE_KEEP_BYTES:  # chiprun_out/ must stay small
+        new[0].unlink()
+        kept = "removed after the check"
+    t = profiling.stage_timings(sc, cam)
+    log(f"[profiling] trace of one Whitted sample: {secs:.3f} s with the profiler, "
+        f"{'; '.join(str(p.relative_to(ROOT)) for p in new)} ({size / 2**20:.1f} MiB, "
+        f"{kept}); "
+        f"stage_timings of the default scene at {cam.resolution[0]}x{cam.resolution[1]}: "
+        + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in t.items())
+        + f" [{smi}] -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("profiling.trace wrote no trace file")
+
+
+def _traced_sample(profiling, preview, hk, sc, cam, out):
+    with profiling.trace(str(out)):
+        preview.preview_lanes(hk.Whitted(), sc, cam, 0)
+
+
+def quickstart_example(smi):
+    """Path G: examples/torch_quickstart.py as a user runs it, writing its
+    three PNGs into chiprun_out/; each must decode (read_png) to a finite,
+    lit 192x192 image."""
+    import numpy as np
+    import hikari_tpu_torch as hk
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(ROOT / "examples" / "torch_quickstart.py"),
+                          str(OUT_DIR)], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if out.returncode:
+        raise SystemExit(f"examples/torch_quickstart.py failed:\n{out.stdout}\n{out.stderr}")
+    parts = []
+    ok = True
+    for which in ("volpath", "whitted", "preview"):
+        png = OUT_DIR / f"torch_quickstart_{which}.png"
+        img = hk.read_png(png)
+        good = img.shape == (192, 192, 3) and np.isfinite(img).all() and img.mean() > 0.0
+        ok = ok and good
+        parts.append(f"{png.relative_to(ROOT)} mean {img.mean():.4f}")
+    log(f"[quickstart] examples/torch_quickstart.py ran in {secs:.1f} s (a new process): "
+        + "; ".join(parts) + f" [{smi}] -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("examples/torch_quickstart.py wrote an image that is not finite and lit")
+
+
+def slice_paths(scenes, main_cam, main_film, smi):
+    """Phase 5's paths A-G on the default scene at full size."""
+    import hikari_tpu_torch as hk
+
+    sc = scenes["default"]
+    t0 = time.perf_counter()
+    ms = {"whitted": preview_path("whitted", hk.Whitted(), sc, main_cam, smi),
+          "fast": preview_path("fast", hk.FastWavefront(), sc, main_cam, smi),
+          "sppm": sppm_path(sc, main_cam, smi)}
+    skiplink_checks(sc, main_cam, smi)
+    sharded_check(sc, main_cam, main_film, smi)
+    profiling_check(sc, main_cam, smi)
+    quickstart_example(smi)
+    log(f"[time] paths A-G took {time.perf_counter() - t0:.0f} s: Whitted "
+        f"{ms['whitted']:.1f} ms/sample, FastWavefront {ms['fast']:.1f} ms/sample, SPPM "
+        f"{ms['sppm']:.1f} ms an iteration [{smi}]")
+
+
 def main() -> int:
     if not (ROOT / "hikari_tpu_torch").is_dir():
         print("chip_smoke.py: hikari_tpu_torch/ not found next to this script",
@@ -1715,8 +2071,10 @@ def main() -> int:
     # phase 5: the main paths at full size: flat (tile sweeps, pair grid,
     # every switch on), then instanced
     main_cam = scene_camera("default", MAIN_RES)
-    flat_counts, flat_rec, _ = main_path("main", scenes["default"], main_cam, wavefront,
-                                         flat_names, smi)
+    flat_counts, flat_rec, flat_result = main_path("main", scenes["default"], main_cam,
+                                                   wavefront, flat_names, smi)
+    main_film = flat_result.pop("film")
+    del flat_result
     with switched(wavefront, SWEEP_MODE="pairs"):
         pair_counts, pair_rec, _ = main_path("pair grid", scenes["default"], main_cam,
                                              wavefront, pair_names, smi)
@@ -1782,6 +2140,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     sparse_index_check(dev, smi)
     filter_paths(scenes["default"], main_cam, smi)
+    # the preview integrators, SPPM, the skip-link walk, the sharded render,
+    # the profiling helpers and the port's quickstart example
+    slice_paths(scenes, main_cam, main_film, smi)
+    del main_film
     log(f"[time] phase 5 done at {time.perf_counter() - t_start:.0f} s")
 
     # phase 6: kernel times at the main paths' shapes (after the counts were read)

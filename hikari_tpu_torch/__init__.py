@@ -11,8 +11,11 @@ density-grid, RGB-grid and sparse brick grids read from NanoVDB files,
 delta and ratio tracking), every light (point, spot, distant, sun, ambient,
 area, environment and the Hosek-Wilkie sun and sky) and the power, uniform
 and BVH light samplers, image and vertex-colour textures, stochastic alpha,
-the denoiser's aux pass, the a-trous denoiser, the tonemaps and the image
-and checkpoint I/O are plain PyTorch. The Pallas sweep kernels of the
+the denoiser's aux pass, the a-trous denoiser, the tonemaps, the image
+and checkpoint I/O, the Whitted / FastWavefront previews, SPPM (with
+``jax.random``'s threefry generator), the skip-link BVH walk
+(``Scene.build(traversal="skiplink")``), the profiling helpers and the
+render sharded over ``torch.distributed`` ranks are plain PyTorch. The Pallas sweep kernels of the
 flat, pair-grid and instanced paths are hand-written CUDA (``csrc/sweep_tiles.cu``,
 ``csrc/sweep_pairs.cu``, ``csrc/sweep_inst.cu``), built with nvcc at first
 use. Entry points run on the first CUDA device unless given
@@ -40,6 +43,8 @@ from .film.film import Film, aux_buffers, film_load, film_save, framebuffer, mak
 from .film.filters import BOX, GAUSSIAN, LANCZOS, MITCHELL, TRIANGLE, make_filter
 from .film.imageio import load_image, read_pfm, read_png, write_pfm
 from .film.postprocess import FilmSensor, postprocess, write_png
+from .integrators.preview import FastWavefront, Whitted, render_preview
+from .integrators.sppm import SPPM, render_sppm
 from .integrators.volpath import (VolPath, render, render_aux, render_lanes, scene_any_hit,
                                   scene_closest_hit)
 from .lights.sunsky import sunsky_environment
@@ -54,6 +59,7 @@ from .media.nanovdb import load_nanovdb, load_nanovdb_sparse, nanovdb_medium, sa
 from .media.noise import fbm3d, generate_cloud_density, perlin3d, worley3d
 from .media.types import (BrickGridMedium, CloudVolume, Fog, GridMedium, HomogeneousMedium,
                           Milk, RGBGridMedium, Smoke, medium_preset)
+from .parallel.sharding import make_render_mesh, render_sharded
 from .scene.mesh import (TriangleMesh, compute_vertex_normals, load_obj, make_box,
                          make_quad, make_sphere)
 from .scene.scene import Scene, SceneData
@@ -79,6 +85,8 @@ __all__ = [
     "PerspectiveCamera", "make_perspective_camera", "make_matrix_camera",
     "make_filter", "BOX", "TRIANGLE", "GAUSSIAN", "MITCHELL", "LANCZOS",
     "VolPath", "render", "render_lanes", "scene_closest_hit", "scene_any_hit",
+    "Whitted", "FastWavefront", "render_preview", "SPPM", "render_sppm",
+    "make_render_mesh", "render_sharded",
     "Film", "make_film", "framebuffer",
     "ImageTexture", "VertexColorTexture",
     "render_aux", "aux_buffers", "film_save", "film_load",

@@ -59,7 +59,7 @@ from ..core.vecmath import dot, face_forward, make_frame, normalize, to_local, t
 from ..film.film import Film, film_add_weighted, make_film
 from ..film.filters import FilterSampler, filter_sample, make_filter
 from ..geometry import wavefront as wf
-from ..geometry.traverse import HitRecord
+from ..geometry.traverse import HitRecord, any_hit, closest_hit
 from ..geometry.triangle import interpolate
 from ..geometry.instanced import any_hit_instanced, closest_hit_instanced
 from ..geometry.sweep import RAY_TILE, TREELET
@@ -84,12 +84,18 @@ ALPHA_ROUNDS = 16
 
 
 def scene_closest_hit(scene: SceneData, o, d, t_max, active=None, presorted=False):
-    """The scene's closest hit; flat scenes take the banded two-pass sweep
-    when wavefront.BAND_FRAC > 0 (band = BAND_FRAC x the world diagonal),
-    as the reference does. presorted: see wavefront.closest_hit_packets."""
+    """The scene's closest hit through its traversal engine: the skip-link
+    walk (inactive lanes get reach 0), or the sweeps, where flat scenes
+    take the banded two-pass sweep when wavefront.BAND_FRAC > 0 (band =
+    BAND_FRAC x the world diagonal), as the reference does. presorted: see
+    wavefront.closest_hit_packets."""
     if scene.has_instances:
         return closest_hit_instanced(scene.inst, o, d, t_max, scene.world_lo,
                                      scene.world_hi, active=active, presorted=presorted)
+    if scene.traversal == "skiplink":
+        if active is not None:
+            t_max = torch.where(active, t_max, 0.0)
+        return closest_hit(scene.bvh, o, d, t_max)
     band = None
     if wf.BAND_FRAC > 0.0:
         band = wf.BAND_FRAC * torch.linalg.vector_norm(scene.world_hi - scene.world_lo)
@@ -102,6 +108,10 @@ def scene_any_hit(scene: SceneData, o, d, t_max, active=None, group=None):
     if scene.has_instances:
         return any_hit_instanced(scene.inst, o, d, t_max, scene.world_lo,
                                  scene.world_hi, active=active, group=group)
+    if scene.traversal == "skiplink":
+        if active is not None:
+            t_max = torch.where(active, t_max, 0.0)
+        return any_hit(scene.bvh, o, d, t_max)
     return wf.any_hit_packets(scene.treelets, o, d, t_max, scene.world_lo,
                               scene.world_hi, active=active, group=group)
 
@@ -454,10 +464,10 @@ def _surface_data(scene: SceneData, rec, o, d, camera=None, diff=None):
         arealight = rows[..., 14].to(torch.int32) - 1
     else:
         arealight = torch.full_like(packed, -1)
-    sd = dict(p=p_hit, ng=face_forward(ng_raw, ns), ns=ns, mat_type=mat_type,
+    sd = dict(p=p_hit, ng=face_forward(ng_raw, ns), ng_raw=ng_raw, ns=ns, mat_type=mat_type,
               mat_idx=mat_idx, arealight=arealight, tex=tex)
     if _volumetric(scene):
-        sd.update(ng_raw=ng_raw, inside_med=rows[..., 15].to(torch.int32) - 1,
+        sd.update(inside_med=rows[..., 15].to(torch.int32) - 1,
                   outside_med=rows[..., 16].to(torch.int32) - 1)
     return sd
 

@@ -40,6 +40,14 @@ def cosine_sample_hemisphere(u: torch.Tensor) -> torch.Tensor:
     return torch.cat([d, z[..., None]], -1)
 
 
+def uniform_sample_sphere(u: torch.Tensor) -> torch.Tensor:
+    """Uniform direction on the unit sphere; pdf = 1 / (4 pi)."""
+    z = 1.0 - 2.0 * u[..., 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
+
+
 # --- tabulated distributions -------------------------------------------------------
 
 

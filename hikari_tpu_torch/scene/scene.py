@@ -31,6 +31,7 @@ from ..core.device import resolve_device
 from ..geometry.bvh import build_bvh
 from ..geometry.instanced import InstancedTreelets, build_instanced_treelets
 from ..geometry.sweep import TREELET
+from ..geometry.traverse import DeviceBVH, device_bvh
 from ..geometry.wavefront import Treelets, build_treelets, bvh_super_boxes
 from ..lights.bvh_sampler import LightBVH, build_light_bvh
 from ..lights.types import LightBanks, pack_lights
@@ -122,6 +123,12 @@ class SceneData:
     tri_p: torch.Tensor | None = None        # (F, 9) [p0 | p1 | p2]
     atlas: TextureAtlas | None = None
     has_alpha: bool = False
+    # the traversal engine: 'packets' (the sweeps of wavefront.py; the
+    # kernels on the card, their plain versions on the CPU), 'skiplink'
+    # (the skip-link walk over `bvh`, flat scenes) or 'packets_interp' (the
+    # plain sweeps, CPU only)
+    traversal: str = "packets"
+    bvh: DeviceBVH | None = None  # flat scenes; None for an instanced scene
 
     @property
     def has_instances(self) -> bool:
@@ -336,14 +343,47 @@ class Scene:
     def add_light(self, light) -> None:
         self._lights.append(light)
 
-    def build(self, device=None) -> SceneData:
+    def __repr__(self) -> str:
+        """A summary: meshes and faces, materials, lights and media by type."""
+        n_faces = sum(m.n_faces for m in self._meshes)
+
+        def by_type(objs):
+            out = {}
+            for o in objs:
+                out[type(o).__name__] = out.get(type(o).__name__, 0) + 1
+            return out
+
+        parts = [f"Scene({len(self._meshes)} meshes, {n_faces} faces",
+                 f"{len(self._instanced)} instanced groups" if self._instanced else "",
+                 f"materials: {by_type(self._materials)}" if self._materials else "",
+                 f"lights: {by_type(self._lights)}" if self._lights else "",
+                 f"media: {len(self._media)}" if self._media else ""]
+        return ", ".join(p for p in parts if p) + ")"
+
+    def build(self, traversal: str = "auto", device=None) -> SceneData:
         """sync!(scene): bake, BVH, pack, and move to `device` (default: the
         first CUDA device; without one this raises, and device="cpu" builds
-        the scene on the CPU)."""
+        the scene on the CPU).
+
+        traversal: 'packets' (the sweep kernels on the card, their plain
+        versions on the CPU), 'skiplink' (the skip-link BVH walk; an
+        instanced scene takes the packets), 'packets_interp' (the plain
+        sweeps: CPU only, ValueError on the card) or 'auto', which picks
+        'packets' on every device (the JAX package picks 'skiplink' on its
+        CPU)."""
+        if traversal not in ("auto", "packets", "skiplink", "packets_interp"):
+            raise ValueError(f"traversal {traversal!r}: expected 'auto', 'packets', "
+                             "'skiplink' or 'packets_interp'")
         if not self._meshes and not self._instanced:
             raise ValueError("scene has no geometry")
         device = resolve_device(device)
+        if traversal == "packets_interp" and device.type != "cpu":
+            raise ValueError("traversal='packets_interp' runs the plain sweeps, on the CPU "
+                             "only; the card runs the sweep kernels ('packets')")
+        if traversal == "auto" or (traversal == "skiplink" and self._instanced):
+            traversal = "packets"
         scene = self._build_instanced() if self._instanced else self._build_flat()
+        scene.traversal = traversal
         scene.media = pack_media(self._media)
         scene.camera_medium = self._camera_medium
         scene.has_media = bool(self._media)
@@ -402,7 +442,7 @@ class Scene:
             materials=banks, lights=lights, light_bvh=light_bvh,
             world_lo=torch.from_numpy(world_lo), world_hi=torch.from_numpy(world_hi),
             scene_radius=radius, present_materials=tuple(sorted(present)),
-            n_lights=lights.n_flat, n_faces=int(len(p0)),
+            n_lights=lights.n_flat, n_faces=int(len(p0)), bvh=device_bvh(fb, p0, p1, p2),
             **_surface_fields([arrs[k][order] for k in _TEX_KEYS], alpha_c[order],
                               alpha_t[order], [p0[order], p1[order], p2[order]], atlas,
                               np.ones(len(p0), bool)))

@@ -31,6 +31,10 @@ alpha-0.3 quads (``tests/test_alpha_mix.py``'s). These four build through
 either package's API (``api``: a module exposing its public names;
 the port's by default), so ``tools/gen_probe_ref.py`` builds the JAX twin
 from the same arrays.
+``quickstart_scene`` (``examples/quickstart.py``), ``specular_scene`` (glass,
+mirror and smooth gold over a textured floor) and ``box_scene``
+(``tests/test_sppm.py``'s) are the preview integrators' and SPPM's, also
+through either API.
 ``aux_against_reference`` holds ``render_aux`` pixel for pixel against
 the JAX package's, stored in ``data/aux_ref.npz``.
 ``transport_probe`` is the port of ``bench.transport_probe`` and
@@ -89,6 +93,9 @@ SCENE_DEFS = {
     "cornell": (((0.0, 1.0, -2.6), (0.0, 1.0, 1.0), 50.0), (64, 6, 1, 0.02)),
     "foliage": (((0.0, 0.0, -1.0), (0.0, 0.0, 1.0), 50.0), (32, 2, 4, 0.02)),
     "swatch": (((0.0, 0.0, -2.0), (0.0, 0.0, 1.0), 60.0), (32, 3, 4, 0.02)),
+    "quickstart": (((0.0, 1.4, -3.2), (0.0, 0.5, 0.0), 45.0), (64, 4, 1, 0.02)),
+    "specular": (((0.0, 1.2, -3.0), (0.0, 0.5, 0.5), 45.0), (64, 5, 1, 0.02)),
+    "box": (((0.0, 1.0, -2.6), (0.0, 1.0, 1.0), 50.0), (64, 5, 1, 0.02)),
 }
 FILTER_NAMES = {BOX: "box", TRIANGLE: "triangle", GAUSSIAN: "gaussian",
                 MITCHELL: "mitchell", LANCZOS: "lanczos"}
@@ -582,12 +589,60 @@ def swatch_scene(api=None):
     return s
 
 
+def quickstart_scene(sphere_res=(32, 64), api=None):
+    """examples/quickstart.py's scene: a Plastic sphere on a Matte floor
+    under a point light (its sphere at make_sphere's default 32 x 64)."""
+    m = _api(api)
+    s = m.Scene()
+    s.add(m.make_quad((-4, 0, -4), (4, 0, -4), (4, 0, 4), (-4, 0, 4)),
+          m.Matte(kd=(0.6, 0.6, 0.6)))
+    s.add(m.make_sphere((0, 0.6, 0), 0.6, *sphere_res),
+          m.Plastic(kd=(0.8, 0.15, 0.1), roughness=0.15))
+    s.add_light(m.PointLight(position=(2, 4, -2), intensity=(30, 30, 30)))
+    return s
+
+
+def specular_scene(sphere_res=(16, 32), api=None):
+    """The preview integrators' specular set: a Glass, a Mirror and a
+    smooth Gold sphere on a floor whose Matte reads a 16 x 16 checker image
+    (Whitted's primary hits filter it through their ray differentials),
+    before an emissive wall, under a point light."""
+    m = _api(api)
+    s = m.Scene()
+    s.add(m.make_quad((-3, 0, -3), (3, 0, -3), (3, 0, 3), (-3, 0, 3)),
+          m.Matte(kd=m.ImageTexture(checker_image(16))))
+    s.add(m.make_quad((-3, 0, 2.5), (3, 0, 2.5), (3, 3, 2.5), (-3, 3, 2.5)),
+          m.Emissive(le=(1.0, 0.95, 0.9), scale=3.0))
+    for x, mat in ((-1.1, m.Glass(eta=1.5)), (0.0, m.Mirror()), (1.1, m.Gold(roughness=0.0))):
+        s.add(m.make_sphere((x, 0.5, 0.5), 0.5, *sphere_res), mat)
+    s.add_light(m.PointLight(position=(1.5, 3.0, -1.5), intensity=(12.0, 12.0, 12.0)))
+    return s
+
+
+def box_scene(api=None):
+    """tests/test_sppm.py's closed box: white floor, ceiling and back wall,
+    a red and a green side wall, a point light under the ceiling."""
+    m = _api(api)
+    s = m.Scene()
+    white = m.Matte(kd=(0.73, 0.73, 0.73))
+    s.add(m.make_quad((-1, 0, -1), (1, 0, -1), (1, 0, 1), (-1, 0, 1)), white)
+    s.add(m.make_quad((-1, 2, -1), (-1, 2, 1), (1, 2, 1), (1, 2, -1)), white)
+    s.add(m.make_quad((-1, 0, 1), (1, 0, 1), (1, 2, 1), (-1, 2, 1)), white)
+    s.add(m.make_quad((-1, 0, -1), (-1, 0, 1), (-1, 2, 1), (-1, 2, -1)),
+          m.Matte(kd=(0.65, 0.05, 0.05)))
+    s.add(m.make_quad((1, 0, -1), (1, 2, -1), (1, 2, 1), (1, 0, 1)),
+          m.Matte(kd=(0.12, 0.45, 0.15)))
+    s.add_light(m.PointLight(position=(0, 1.7, 0), intensity=(6, 6, 6)))
+    return s
+
+
 BUILDERS = {"default": default_scene, "mesh": mesh_scene, "fog": fog_scene,
             "sphere": sphere_scene, "cloud": cloud_scene, "cloud_grid": cloud_grid_scene,
             "lights": lights_scene, "sparse_cloud": sparse_cloud_scene,
             "materials": materials_scene, "mix": mix_scene, "triangle": triangle_scene,
             "textured": textured_scene, "cornell": cornell_scene, "foliage": foliage_scene,
-            "swatch": swatch_scene}
+            "swatch": swatch_scene, "quickstart": quickstart_scene,
+            "specular": specular_scene, "box": box_scene}
 
 
 def scene_camera(which: str, res_px: int):

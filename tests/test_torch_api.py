@@ -1,12 +1,12 @@
 """The port's public API against the JAX package's, name by name.
 
 Every public name of ``hikari_tpu`` that is not a subpackage must be in
-``hikari_tpu_torch.__all__``, but for the names still to port (ROADMAP
-A16: the preview integrators and SPPM; A18: the sharded render), listed
-here by name; the port may add ``render_lanes``. The test fails when a
-name goes missing, when a name is exported beyond the JAX package's and
-the allowed extra, and when a name still listed as missing has been
-ported (so the list shrinks with every slice).
+``hikari_tpu_torch.__all__``, but for the names still to port, listed
+here by name (none since the preview integrators, SPPM and the sharded
+render were ported); the port may add ``render_lanes``. The test fails
+when a name goes missing, when a name is exported beyond the JAX
+package's and the allowed extra, and when a name still listed as missing
+has been ported.
 """
 
 import types
@@ -14,8 +14,7 @@ import types
 import hikari_tpu
 import hikari_tpu_torch
 
-STILL_TO_PORT = {"Whitted", "FastWavefront", "render_preview", "SPPM", "render_sppm",
-                 "make_render_mesh", "render_sharded"}
+STILL_TO_PORT = set()
 PORT_ONLY = {"render_lanes"}
 
 

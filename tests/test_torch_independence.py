@@ -32,7 +32,8 @@ COPIES = {
     "media/nanovdb.py": "media/nanovdb.py",
 }
 
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "examples" / "torch_quickstart.py"]
 
 
 def _imported_roots(tree: ast.AST):

@@ -85,7 +85,8 @@ PROBES = [
     ("cornell", "power", 64, 6, 1, 1),        # chip_smoke.py phase 4, tests (slow)
 ]
 # scenes the port's scenes.py builds through either package's API
-API_SCENES = ("triangle", "textured", "cornell", "foliage", "swatch", "materials")
+API_SCENES = ("triangle", "textured", "cornell", "foliage", "swatch", "materials",
+              "quickstart", "specular", "box")
 # the coarse spheres (n_theta, n_phi) of the quick tests' scenes
 COARSE = (8, 16)
 MEDIUM_SCENES = ("fog", "cloud", "cloud_grid", "sparse_cloud")
@@ -400,11 +401,85 @@ def render_aux_ref(which: str, res: int = 64):
     np.savez_compressed(AUX_OUT, **arrays)
 
 
+# the preview integrators' references: (scene, Whitted(...) fields) at PREVIEW_RES
+PREVIEW_RES = 16
+PREVIEW_CASES = {"quickstart": dict(max_depth=3, samples_per_pixel=4),
+                 "specular": dict(max_depth=5, samples_per_pixel=4)}
+# SPPM's: tests/test_sppm.py's box and its radius test's configuration
+SPPM_RES = 16
+SPPM_CONFIG = dict(iterations=4, photons_per_iteration=8192, initial_radius=0.3, max_depth=3)
+
+
+def render_preview_ref(which: str):
+    """tests/test_torch_preview.py: Whitted (PREVIEW_CASES) and
+    FastWavefront() of a scene at PREVIEW_RES through SCENE_DEFS's camera.
+    For each, the image of the JAX package's preview lanes run eagerly
+    (jax.disable_jit, the mean over the samples: the port is held to it
+    pixel for pixel) and the mean of its jitted render_preview (the port's
+    mean is held to it too). Eager, because XLA contracts the layered
+    walks' arithmetic under jit: on the quickstart's Plastic 6% of jitted
+    layered evaluations differ from the same function run eagerly by more
+    than 1e-4, and a walk that takes the other side of a comparison walks
+    on differently."""
+    import hikari_tpu
+    from hikari_tpu.camera.camera import make_perspective_camera
+    from hikari_tpu.film.film import framebuffer
+    from hikari_tpu.integrators import preview as jp
+    from hikari_tpu_torch.scenes import BUILDERS, SCENE_DEFS
+
+    (eye, at, fov), _ = SCENE_DEFS[which]
+    js = BUILDERS[which](api=hikari_tpu).build()
+    cam = make_perspective_camera(eye, at, (PREVIEW_RES, PREVIEW_RES), fov_deg=fov)
+    out = {"res": PREVIEW_RES}
+    for name, integ, lanes in (
+            ("whitted", jp.Whitted(**PREVIEW_CASES[which]), jp._whitted_lanes),
+            ("fast", jp.FastWavefront(), jp._preview_lanes)):
+        depth = integ.max_depth if name == "whitted" else 2
+        with jax.disable_jit():
+            img = np.mean([np.asarray(lanes(js, cam, jnp.uint32(s), integ.samples_per_pixel,
+                                            integ.seed, depth))
+                           for s in range(integ.samples_per_pixel)], axis=0)
+        jitted = np.asarray(framebuffer(jp.render_preview(integ, js, cam)))
+        out[name] = {"integrator": {"max_depth": depth,
+                                    "samples_per_pixel": integ.samples_per_pixel},
+                     "eager_rgb": img.reshape(PREVIEW_RES, PREVIEW_RES, 3).tolist(),
+                     "render_preview_mean": float(jitted.mean())}
+    return out
+
+
+def render_sppm_ref():
+    """tests/test_torch_sppm.py: the box scene at SPPM_RES under
+    SPPM(**SPPM_CONFIG): the state (r2, n, tau, direct per pixel) after the
+    first jitted _sppm_iteration, and the mean of render_sppm's image."""
+    import hikari_tpu
+    from hikari_tpu.camera.camera import make_perspective_camera
+    from hikari_tpu.integrators import sppm as js_
+    from hikari_tpu_torch.scenes import SCENE_DEFS, box_scene
+
+    (eye, at, fov), _ = SCENE_DEFS["box"]
+    scene = box_scene(api=hikari_tpu).build()
+    cam = make_perspective_camera(eye, at, (SPPM_RES, SPPM_RES), fov_deg=fov)
+    integ = js_.SPPM(**SPPM_CONFIG)
+    n = SPPM_RES * SPPM_RES
+    state = dict(r2=jnp.full((n,), integ.initial_radius ** 2), n=jnp.zeros((n,)),
+                 tau=jnp.zeros((n, 3)), direct=jnp.zeros((n, 3)),
+                 iters=jnp.zeros((), jnp.int32))
+    state = js_._sppm_iteration(integ, scene, cam, state, jnp.int32(0))
+    img = np.asarray(js_.render_sppm(integ, scene, cam))
+    return {"res": SPPM_RES, "config": SPPM_CONFIG,
+            "state_after_1": {k: np.asarray(state[k]).tolist()
+                              for k in ("r2", "n", "tau", "direct")},
+            "render_mean": float(img.mean())}
+
+
 RENDERS = {"materials coarse": render_materials_coarse,
            "aux textured": lambda: render_aux_ref("textured"),
            "aux cornell": lambda: render_aux_ref("cornell"),
            "textured coarse": render_textured_coarse,
-           "swatch": render_swatch, "foliage escape": render_foliage_escape}
+           "swatch": render_swatch, "foliage escape": render_foliage_escape,
+           "preview quickstart": lambda: render_preview_ref("quickstart"),
+           "preview specular": lambda: render_preview_ref("specular"),
+           "sppm box": render_sppm_ref}
 
 
 def main():
