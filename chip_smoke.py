@@ -64,8 +64,14 @@ exits nonzero without its result line:
    mean RGB 1e-4). Materials: bench.py's materials scene (every
    BSDF-bearing material, the three layered coats among them) under each
    material dispatch ('none', 'gated', 'sorted') against the JAX package's
-   probe (rays 0.5%, mean RGB 2%); every JAX probe but the bench's in
-   hikari_tpu_torch/data/probe_ref.json;
+   probe (rays 0.5%, mean RGB 2%). Examples: the dispersion scene's
+   32x32 depth-8 probe against the JAX package's (rays 0.5%, mean RGB 2%);
+   the lensing, medium-example and cloud-example probes against the JAX
+   six-draw means (rays 0.5%, mean RGB 10%), the medium example's taken
+   on the JAX packet engine (its smoke box and floor share a plane, where
+   the JAX skip-link walk keeps other faces, ROADMAP C; the skip-link
+   walk's mean printed beside it);
+   every JAX probe but the bench's in hikari_tpu_torch/data/probe_ref.json;
 5. main paths: render(VolPath(max_depth=5, samples_per_pixel=4)) at
    800x800 through the public API of the default scene (tile kernels), the
    default scene in pair-grid mode (K5/K6), the default scene with every
@@ -83,7 +89,7 @@ exits nonzero without its result line:
    bit (hold_path; the forest's K3 on the calls whose plain walk fits
    under PLAIN_CALL_S). Then the medium paths: the fog (depth 5) with the tile
    sweeps and with the pair grid, the grid cloud (depth 12) and the sun-sky
-   cloud (depth 16, half the bench's 32), each at 800x800, 4 spp, through render
+   cloud (depth 8; the bench's 32), each at 800x800, 4 spp, through render
    with the same checks, where only the closest kernel (K1, or K5) may
    launch: scenes with Interface faces walk shadow rays through closest
    hits. Before each, an instrumented render_lanes
@@ -93,7 +99,7 @@ exits nonzero without its result line:
    closest kernel's sweep calls: before the render, the kernel against
    its plain version on every one of them (the path rays' and each
    shadow-walk segment's), bit for bit, with its summed time and bound.
-   Then the sparse cloud at the example's depth 24 the same way, with the
+   Then the sparse cloud at depth 4 (the example's 24 in path H) the same way, with the
    brick pool's and page table's bytes beside its peak memory; its dense
    twin (the same file read as a dense grid) the same way, whose mean RGB
    must be within TWIN_RGB_TOL of the sparse render's (the spread of two
@@ -131,7 +137,20 @@ exits nonzero without its result line:
    ('[sharded]': its film equals the main path's render within
    SHARDED_RTOL); F, profiling.trace around one Whitted sample and
    stage_timings ('[profiling]'); G, examples/torch_quickstart.py in a new
-   process, its three PNGs into chiprun_out/ ('[quickstart]');
+   process, its three PNGs into chiprun_out/ ('[quickstart]'); H, the
+   seven other examples/torch_*.py in this process through their main()
+   at their defaults (the clouds at 4 samples; each render's samples in
+   one wavefront but the instancing example's), each PNG into chiprun_out/
+   and decoded to a finite, lit image, with the launch counts reset just
+   before and read just after, each kernel it launched held bit for bit
+   against its plain version on its first call, the clouds' K1 on every
+   call of their depth 32 and 24 ('[examples]' lines:
+   seconds, ms/sample, rays, peak memory, launches); then
+   rgb2spec_gen.generate_table on the card at res 8 against the JAX
+   generator's stored output and at res 64 against the shipped table
+   (spectra within 1e-3 on every cell, >= 99.9% of the coefficients within
+   one ulp at res 8 and bit-equal at res 64), and both res-64 tables' Lab
+   round trip ('[generator]' lines);
 6. timings: each kernel's wrapper call (pair_schedule and scratch
    included) against its plain version on every sweep call of its main
    path's first wavefront (one per bounce), summed per render beside the
@@ -146,7 +165,8 @@ exits nonzero without its result line:
    walk's count; printed beside it wherever the walk runs), which the
    record names in "bound_tests".
 
-The line before the last is the per-kernel JSON record; the last line is
+The line before the last is the per-kernel JSON record (with each
+kernel's launches on path H's examples); the last line is
 {"ok": true, "device": {...}}. It needs no network and one card; the
 kernels are built into hikari_tpu_torch/build/ on first use.
 """
@@ -173,10 +193,13 @@ PROBE_SPP = 4
 # hikari_tpu_torch.tools.media_check), well inside the probe's 2%
 FOG_PROBE_SPP = 512
 # the medium paths' depths: the bench's for the fog, the bench cloud
-# probe's for the grid cloud, the example's for the sparse cloud; the
-# sun-sky cloud at half the bench's 32, so that the script stays well
-# inside its time limit (its loops follow the machine's host)
-MEDIUM_DEPTH = {"fog": 5, "cloud_grid": 12, "cloud": 16, "sparse_cloud": 24}
+# probe's for the grid cloud, 8 for the sun-sky cloud (32 in the bench)
+# and 4 for the sparse cloud (24 in its example; three renders): their
+# tracking loops follow the machine's host, and at 16 and 24 the script
+# ran past its time limit, at 8 and 8 to within 45 s of it (PERF.md).
+# Path H holds K1 on every call of the cloud example at depth 32 and of
+# the sparse cloud example at 24.
+MEDIUM_DEPTH = {"fog": 5, "cloud_grid": 12, "cloud": 8, "sparse_cloud": 4}
 # the sparse cloud's dense twin against it, mean RGB over one 800x800
 # 4-sample render each (2.56M paths; a 16-sample 32x32 draw spreads 2.4%,
 # so a draw of these ~0.2%)
@@ -1870,6 +1893,210 @@ def slice_paths(scenes, main_cam, main_film, smi):
         f"{ms['sppm']:.1f} ms an iteration [{smi}]")
 
 
+# --- this slice's path H: the seven examples and the table generator (phase 5) -----------
+
+# examples/torch_<name>.py -> arguments besides --out; each runs at its own
+# defaults but for the clouds' samples (their tracking loops cost steps)
+EXAMPLE_ARGS = {"cornell_scene": [], "dispersion_example": [], "instancing_example": [],
+                "lensing_example": [], "medium_example": [],
+                "cloud_example": ["--spp", "4"], "sparse_cloud_example": ["--spp", "4"]}
+INST_EXAMPLES = ("instancing_example",)  # K3 / K4; the others K1 (and K2)
+# the examples whose kernel is held on every sweep call (the clouds: their
+# K1 calls at every bounce of depth 24 and 32); the others on their first
+EVERY_CALL_EXAMPLES = ("cloud_example", "sparse_cloud_example")
+POSITIONAL_OUT = ("instancing_example", "sparse_cloud_example")  # no --out flag
+GEN_SPECTRUM_ATOL = 1e-3  # a generated table's spectra against its reference's
+# share of float32 coefficients bit-equal (res 64), or within one ulp (res 8,
+# 4,608 entries: tests/test_torch_rgb2spec_gen.py)
+GEN_BIT_EQUAL_MIN = 0.999
+
+
+class FirstCalls(Recorder):
+    """A Recorder that keeps the first call of each entry point only."""
+
+    def __enter__(self):
+        for name, orig in self.orig.items():
+            def wrapped(*args, _orig=orig, _name=name):
+                if not self.calls[_name]:
+                    self.calls[_name].append(args)
+                return _orig(*args)
+
+            setattr(self.module, name, wrapped)
+        return self
+
+
+class RenderProbe:
+    """Counts the rays of every render_lanes call and times every
+    hikari_tpu_torch.render call (between two synchronisations) while an
+    example runs, keeping the last render's VolPath and camera. With
+    one_wavefront, each render traces all its samples in one wavefront
+    (sample_batch = samples_per_pixel; the same samples, so the same
+    image): the examples' loops cost their host syncs, not their lanes, and
+    the default batch of 4 took path H past its time budget on a slow
+    host. (Not for the instancing example: its render is short, and its
+    first K3 call, held against the plain walk, grows with the batch.)"""
+
+    def __init__(self, one_wavefront: bool):
+        self.one_wavefront = one_wavefront
+
+    def __enter__(self):
+        import dataclasses
+
+        import hikari_tpu_torch as hk
+        from hikari_tpu_torch.integrators import volpath
+
+        self.rays, self.secs, self.vp, self.cam = 0.0, 0.0, None, None
+        self.saved = [(volpath, "render_lanes", volpath.render_lanes),
+                      (hk, "render", hk.render)]
+        lanes, render = volpath.render_lanes, hk.render
+
+        def counted(*args, **kw):
+            out = lanes(*args, **kw)
+            self.rays += float(out[2]["rays_traced"])
+            return out
+
+        def timed(vp, scene, camera, *args, **kw):
+            if self.one_wavefront:
+                vp = dataclasses.replace(vp, sample_batch=vp.samples_per_pixel)
+            film, secs = cuda_secs(lambda: render(vp, scene, camera, *args, **kw))
+            self.secs += secs
+            self.vp, self.cam = vp, camera
+            return film
+
+        volpath.render_lanes = counted
+        hk.render = timed
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
+def example_path(name, smi):
+    """examples/torch_<name>.py through its main() at its defaults
+    (EXAMPLE_ARGS), writing into chiprun_out/, with the launch counts reset
+    just before and read just after: the PNG must decode (read_png) to a
+    finite, lit image of the render's size, the path's closest kernel must
+    have launched, no other family's kernel and no plain sweep on the card;
+    then each kernel it launched against its plain version, bit for bit, on
+    its first captured call, or on every one for EVERY_CALL_EXAMPLES
+    (hold_path). Returns the launch counts."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    import hikari_tpu_torch as hk
+    from hikari_tpu_torch.geometry import instanced, sweep, wavefront
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    png = OUT_DIR / f"torch_{name}.png"
+    out = [str(png)] if name in POSITIONAL_OUT else ["--out", str(png)]
+    names = (("closest_inst", "occlusion_inst") if name in INST_EXAMPLES
+             else ("closest_tiles", "occlusion_tiles"))
+    module = instanced if name in INST_EXAMPLES else wavefront
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sweep.reset_counts()
+    recorder = Recorder if name in EVERY_CALL_EXAMPLES else FirstCalls
+    with recorder(module, names) as rec, \
+            RenderProbe(one_wavefront=name not in INST_EXAMPLES) as probe:
+        result, secs = cuda_secs(lambda: script.main([*out, *EXAMPLE_ARGS[name]]))
+    counts = dict(sweep.launches)
+    plain_runs = dict(sweep.plain_cuda_runs)
+    peak = torch.cuda.max_memory_allocated()
+    spp, (w, h) = probe.vp.samples_per_pixel, probe.cam.resolution
+    img = hk.read_png(png)
+    lit = (img.shape == (h, w, 3) and bool(np.isfinite(img).all()) and img.mean() > 0.0
+           and bool(torch.isfinite(hk.framebuffer(result["film"])).all()))
+    log(f"[examples] torch_{name} {' '.join(EXAMPLE_ARGS[name]) or '(defaults)'}: {secs:.1f} s "
+        f"in main, render {w}x{h}, {spp} spp, depth {probe.vp.max_depth}: {probe.secs:.3f} s, "
+        f"{probe.secs / spp * 1e3:.1f} ms/sample, {probe.rays:.0f} rays "
+        f"({probe.rays / probe.secs / 1e6:.3f} Mray/s), peak {peak / 2**30:.2f} GiB; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; {png.relative_to(ROOT)} decodes to "
+        f"{img.shape}, mean {img.mean():.4f} [{smi}] -> {'ok' if lit else 'FAIL'}")
+    if not lit:
+        raise SystemExit(f"torch_{name}: the PNG does not decode to a finite, lit image")
+    if (counts[names[0]] <= 0 or any(v for n, v in counts.items() if n not in names)
+            or any(plain_runs.values())):
+        raise SystemExit(f"torch_{name}: launches {counts} and plain sweeps on CUDA "
+                         f"{plain_runs}: not the path's kernels {names}")
+    tl = None if name in INST_EXAMPLES else result["scene"].treelets
+    if name in EVERY_CALL_EXAMPLES:
+        hold_path(f"torch_{name}", rec, [(k, tl) for k in names if counts[k]], smi)
+        return counts
+    for kname in names:
+        if not counts[kname]:
+            continue
+        r = compare(kname, rec.calls[kname][0], tl, reps=3)
+        log(f"[examples] torch_{name} {kname}, first of its {counts[kname]} calls: agree "
+            f"{r['agree']:.6f}, kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']}), bit-equal "
+            f"{'yes' if r['exact'] else 'NO'} [{smi}]")
+        if not (r["ok"] and r["exact"]):
+            raise SystemExit(f"torch_{name}: {kname} does not equal its plain version bit for "
+                             f"bit on its first call")
+    return counts
+
+
+def generator_check(smi):
+    """rgb2spec_gen.generate_table on the card: at res 8 against the JAX
+    generator's stored output (hikari_tpu_torch/data/rgb2spec_gen_ref.npz),
+    and at res 64, timed, against the shipped table
+    (data/srgb_spectrum_table.npz): spectra within GEN_SPECTRUM_ATOL on every
+    cell and >= GEN_BIT_EQUAL_MIN of the coefficients bit-equal; then both
+    res-64 tables' Lab round trip (each cell's spectrum integrated back to
+    sRGB against its grid RGB). The tables are written into chiprun_out/."""
+    import numpy as np
+    from hikari_tpu_torch._data import data_path
+    from hikari_tpu_torch.spectral import rgb2spec_gen as gen
+
+    OUT_DIR.mkdir(exist_ok=True)
+    ok = True
+    for res, ref_name, share in ((8, "rgb2spec_gen_ref.npz", "ulp_equal_share"),
+                                 (64, "srgb_spectrum_table.npz", "bit_equal_share")):
+        path = OUT_DIR / f"srgb_spectrum_table_{res}.npz"
+        (scale, coeffs), secs = cuda_secs(
+            lambda: gen.generate_table(res=res, verbose=False, device="cuda", path=path))
+        with np.load(data_path(ref_name)) as ref:
+            cmp = gen.compare_tables(coeffs, ref["coeffs"], device="cuda")
+            same_scale = bool(np.array_equal(scale.astype(np.float32), ref["scale"]))
+            good = (same_scale and cmp["max_spectrum_diff"] <= GEN_SPECTRUM_ATOL
+                    and cmp[share] >= GEN_BIT_EQUAL_MIN)
+            ok = ok and good
+            log(f"[generator] generate_table(res={res}) on the card: {secs:.2f} s "
+                f"({3 * res * res} cells x {res} brightness steps x 15 iterations); against "
+                f"{ref_name}: scale equal {same_scale}, {json.dumps(cmp)} (spectra within "
+                f"{GEN_SPECTRUM_ATOL:g}, {share} >= {GEN_BIT_EQUAL_MIN:.1%}) [{smi}] -> "
+                f"{'ok' if good else 'FAIL'}")
+            if res == 64:
+                for label, (s_, c_) in (("generated", (scale, coeffs)),
+                                        ("shipped", (ref["scale"], ref["coeffs"]))):
+                    lab, lab_s = cuda_secs(lambda: gen.lab_round_trip(s_, c_, device="cuda"))
+                    log(f"[generator] Lab round trip of the {label} res-64 table "
+                        f"({lab_s:.2f} s): Delta E max {float(lab.max()):.6f}, median "
+                        f"{float(lab.median()):.3e}, mean {float(lab.mean()):.6f}, "
+                        f"{float((lab < 1.0).double().mean()):.4%} of cells under 1 [{smi}]")
+    if not ok:
+        raise SystemExit("the table generator does not reproduce its references")
+
+
+def examples_path(smi):
+    """Path H: every examples/torch_*.py but the quickstart (path G) in this
+    process (example_path), then the table generator (generator_check).
+    Returns {example: launch counts}."""
+    t0 = time.perf_counter()
+    OUT_DIR.mkdir(exist_ok=True)
+    counts = {name: example_path(name, smi) for name in EXAMPLE_ARGS}
+    t_ex = time.perf_counter() - t0
+    generator_check(smi)
+    log(f"[time] path H took {time.perf_counter() - t0:.0f} s (the examples "
+        f"{t_ex:.0f} s) [{smi}]")
+    return counts
+
+
 def main() -> int:
     if not (ROOT / "hikari_tpu_torch").is_dir():
         print("chip_smoke.py: hikari_tpu_torch/ not found next to this script",
@@ -1914,11 +2141,12 @@ def main() -> int:
             f"{blocks} resident blocks per SM")
 
     from hikari_tpu_torch.film.filters import LANCZOS, MITCHELL
-    from hikari_tpu_torch.scenes import (BUILDERS, check_transport, cloud_grid_scene,
-                                         cloud_scene, cornell_scene, default_scene, fog_scene,
-                                         foliage_scene, forest_camera, forest_scene,
-                                         instanced_default_scene, lights_scene,
-                                         materials_scene, mix_scene, probe_reference,
+    from hikari_tpu_torch.scenes import (BUILDERS, PACKET_PROBES, check_transport,
+                                         cloud_grid_scene, cloud_scene, cornell_scene,
+                                         default_scene, fog_scene, foliage_scene,
+                                         forest_camera, forest_scene, instanced_default_scene,
+                                         lights_scene, materials_scene, mix_scene,
+                                         probe_reference,
                                          scene_camera, sparse_cloud_scene, sphere_scene,
                                          textured_scene, transport_probe, triangle_scene)
 
@@ -2066,6 +2294,23 @@ def main() -> int:
     aux_check("textured", scenes["textured"], smi)
     aux_check("cornell", scenes["cornell"], smi)
     del scenes["triangle"]
+    # the examples' scenes: dispersion against its stored JAX value; lensing,
+    # the medium example and the cloud example against the JAX six-draw
+    # means, the medium example's taken on the JAX packet engine (its smoke
+    # box shares the floor's plane, ROADMAP C), with the JAX skip-link
+    # walk's mean printed beside it
+    for which in ("dispersion", "lensing", "medium_example", "cloud_example"):
+        sc, build_s = cuda_secs(lambda: BUILDERS[which]().build(device=dev))
+        (ok, msg), probe_s = cuda_secs(lambda: check_transport(sc, which))
+        log(f"[transport] {msg} (built in {build_s:.1f} s, probed in {probe_s:.1f} s) -> "
+            f"{'pass' if ok else 'FAIL'}")
+        if which in PACKET_PROBES:
+            ref = probe_reference(which, packets=False)
+            log(f"[transport] {which}: the JAX skip-link walk's mean, for information: "
+                f"rays_traced {ref['rays_traced']:.2f}, mean_rgb {ref['mean_rgb']:.7f}")
+        if not ok:
+            raise SystemExit(f"{which} probe failed: {msg}")
+        del sc
     log(f"[time] phases 1-4 done at {time.perf_counter() - t_start:.0f} s")
 
     # phase 5: the main paths at full size: flat (tile sweeps, pair grid,
@@ -2130,12 +2375,18 @@ def main() -> int:
             ("fog pair grid", "fog", ("closest_pairs",), dict(SWEEP_MODE="pairs")),
             ("cloud grid", "cloud_grid", ("closest_tiles",), {}),
             ("sun-sky cloud", "cloud", ("closest_tiles",), {})):
+        t0 = time.perf_counter()
         with switched(wavefront, **switches):
             medium_path(label, scenes[which.replace("_", " ")],
                         scene_camera(which, MAIN_RES), MEDIUM_DEPTH[which], names, smi)
+        log(f"[time] the {label} path at depth {MEDIUM_DEPTH[which]} took "
+            f"{time.perf_counter() - t0:.0f} s")
     # the sparse cloud at the example's depth, its dense twin, a 4096^3
     # index space; the default scene under the Mitchell filter and its crop
+    t0 = time.perf_counter()
     sparse_paths(scenes["sparse cloud"], scene_camera("sparse_cloud", MAIN_RES), smi)
+    log(f"[time] the sparse cloud paths at depth {MEDIUM_DEPTH['sparse_cloud']} took "
+        f"{time.perf_counter() - t0:.0f} s")
     del scenes["sparse cloud"]
     torch.cuda.empty_cache()
     sparse_index_check(dev, smi)
@@ -2144,6 +2395,9 @@ def main() -> int:
     # the profiling helpers and the port's quickstart example
     slice_paths(scenes, main_cam, main_film, smi)
     del main_film
+    torch.cuda.empty_cache()
+    # the seven examples and the table generator
+    example_counts = examples_path(smi)
     log(f"[time] phase 5 done at {time.perf_counter() - t_start:.0f} s")
 
     # phase 6: kernel times at the main paths' shapes (after the counts were read)
@@ -2174,6 +2428,8 @@ def main() -> int:
         log(f"[timing] {pairs} / {tiles['name']} at depth 0 of the pair-grid path: "
             f"{by_name[pairs]['ms']:.3f} / {tiles['ms']:.3f} ms = "
             f"{by_name[pairs]['ms'] / tiles['ms']:.3f} [{smi}]")
+    for r in records:  # each kernel's launches on path H's examples
+        r["launches_examples"] = {name: c[r["name"]] for name, c in example_counts.items()}
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.0f} s")
     log(smi)
     print(json.dumps({"kernels": records}))

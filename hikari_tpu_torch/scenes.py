@@ -47,6 +47,7 @@ with the JAX package by ``tools/gen_probe_ref.py``.
 
 from __future__ import annotations
 
+import functools
 import importlib
 import json
 import tempfile
@@ -96,6 +97,14 @@ SCENE_DEFS = {
     "quickstart": (((0.0, 1.4, -3.2), (0.0, 0.5, 0.0), 45.0), (64, 4, 1, 0.02)),
     "specular": (((0.0, 1.2, -3.0), (0.0, 0.5, 0.5), 45.0), (64, 5, 1, 0.02)),
     "box": (((0.0, 1.0, -2.6), (0.0, 1.0, 1.0), 50.0), (64, 5, 1, 0.02)),
+    # the examples' scenes at their own depths; the three medium probes are
+    # held to the JAX package's six-draw mean, each at a sample count whose
+    # draw spreads under a third of the tolerance (tools/gen_probe_ref.py),
+    # the medium example's taken on its packet engine (PACKET_PROBES)
+    "dispersion": (((0.8, 1.6, -3.6), (0.0, 0.6, 0.0), 45.0), (32, 8, 16, 0.02)),
+    "lensing": (((0.0, 0.8, -7.0), (0.0, 0.0, 0.0), 28.0), (32, 3, 64, 0.10)),
+    "medium_example": (((0.0, 1.3, -3.4), (0.2, 0.7, 0.0), 48.0), (32, 10, 32, 0.10)),
+    "cloud_example": (((0.0, 1.6, -7.5), (0.0, 1.9, 0.0), 55.0), (32, 32, 32, 0.10)),
 }
 FILTER_NAMES = {BOX: "box", TRIANGLE: "triangle", GAUSSIAN: "gaussian",
                 MITCHELL: "mitchell", LANCZOS: "lanczos"}
@@ -210,12 +219,11 @@ def tree_mesh() -> TriangleMesh:
     return TriangleMesh(vertices=v, faces=f)
 
 
-def forest_scene() -> Scene:
-    """examples/instancing_example.py: a ground quad and 400 placements of
-    tree_mesh() from RandomState(7) (random yaw, scale 0.6-1.4) under
-    sunsky_environment(direction=(0.5, 0.4, 0.4)). 800 instanced world
+def forest_scene(n: int = 400) -> Scene:
+    """examples/instancing_example.py: a ground quad and n = 400 placements
+    of tree_mesh() from RandomState(7) (random yaw, scale 0.6-1.4) under
+    sunsky_environment(direction=(0.5, 0.4, 0.4)). 2n instanced world
     treelets plus BLAS 0's one."""
-    n = 400
     s = Scene()
     s.add(make_quad((-20, 0, -20), (20, 0, -20), (20, 0, 20), (-20, 0, 20)),
           Matte(kd=(0.35, 0.4, 0.25)))
@@ -376,27 +384,46 @@ def cloud_scene() -> Scene:
 SPARSE_CLOUD_BOX = ((-1.6, 0.2, -1.2), (1.6, 2.0, 1.2))
 
 
-def sparse_cloud_scene(resolution: int = 96, path=None, dense: bool = False) -> Scene:
-    """examples/sparse_cloud_example.py: generate_cloud_density(resolution)
-    written by save_nanovdb over SPARSE_CLOUD_BOX to `path` (a temporary
-    file when None), read back by nanovdb_medium (sigma_s 55, sigma_a 0.3,
-    g 0.877) as a sparse BrickGridMedium in an Interface box over a 24 x 24
-    floor, under sunsky_environment(direction=(0.55, 0.4, 0.35)).
-    dense=True reads the same file as a dense GridMedium: the same
-    transport, so the two isolate the cost of the brick reads."""
+@functools.lru_cache(maxsize=None)
+def cloud_density(resolution: int) -> np.ndarray:
+    """generate_cloud_density(resolution), read-only and kept for the next
+    call: the 96^3 noise costs seconds of host time, and the sparse cloud,
+    its dense twin and its example each write it anew."""
+    density = generate_cloud_density(resolution)
+    density.setflags(write=False)
+    return density
+
+
+def sparse_cloud_medium(resolution: int = 96, path=None, dense: bool = False):
+    """examples/sparse_cloud_example.py's cloud: cloud_density(resolution)
+    written by save_nanovdb over SPARSE_CLOUD_BOX to `path` (a
+    temporary file when None), read back by nanovdb_medium (sigma_s 55,
+    sigma_a 0.3, g 0.877) as a sparse BrickGridMedium, or with dense=True
+    as a dense GridMedium."""
     lo, hi = SPARSE_CLOUD_BOX
 
     def load(nvdb):
-        save_nanovdb(str(nvdb), generate_cloud_density(resolution), origin=lo,
+        save_nanovdb(str(nvdb), cloud_density(resolution), origin=lo,
                      extent=tuple(b - a for a, b in zip(lo, hi)))
         return nanovdb_medium(str(nvdb), sigma_s=(55.0,) * 3, sigma_a=(0.3,) * 3, g=0.877,
                               sparse=not dense)
 
     if path is None:
         with tempfile.TemporaryDirectory() as tmp:
-            cloud = load(Path(tmp) / "cloud.nvdb")
-    else:
-        cloud = load(path)
+            return load(Path(tmp) / "cloud.nvdb")
+    return load(path)
+
+
+def sparse_cloud_scene(resolution: int = 96, path=None, dense: bool = False,
+                       cloud=None) -> Scene:
+    """examples/sparse_cloud_example.py: sparse_cloud_medium(resolution,
+    path, dense) (or `cloud`) in an Interface box over a 24 x 24 floor,
+    under sunsky_environment(direction=(0.55, 0.4, 0.35)). dense=True reads
+    the same file as a dense GridMedium: the same transport, so the two
+    isolate the cost of the brick reads."""
+    lo, hi = SPARSE_CLOUD_BOX
+    if cloud is None:
+        cloud = sparse_cloud_medium(resolution, path, dense)
     s = Scene()
     s.add(make_quad((-12, 0, -12), (12, 0, -12), (12, 0, 12), (-12, 0, 12)),
           Matte(kd=(0.3, 0.34, 0.4)))
@@ -517,11 +544,11 @@ def textured_scene(sphere_res=(32, 64), api=None):
     return s
 
 
-def cornell_scene(sphere_res=(24, 48), api=None):
+def cornell_scene(sphere_res=(24, 48), api=None, obj=None):
     """examples/cornell_scene.py as it stands: a 2 x 2 x 2 Cornell box whose
     floor is a Matte of the 16 x 16 checker image, a Gold (roughness 0.15),
-    a BK7 and a Plastic sphere, under an emissive ceiling quad (the only
-    light)."""
+    a BK7 and a Plastic sphere (or, given an OBJ path `obj`, that mesh in
+    Gold alone), under an emissive ceiling quad (the only light)."""
     m = _api(api)
     s = m.Scene()
     white = m.Matte(kd=(0.73, 0.73, 0.73))
@@ -533,10 +560,13 @@ def cornell_scene(sphere_res=(24, 48), api=None):
           m.Matte(kd=(0.65, 0.05, 0.05)))
     s.add(m.make_quad((1, 0, 0), (1, 2, 0), (1, 2, 2), (1, 0, 2)),
           m.Matte(kd=(0.12, 0.45, 0.15)))
-    s.add(m.make_sphere((-0.45, 0.4, 1.3), 0.4, *sphere_res), m.Gold(roughness=0.15))
-    s.add(m.make_sphere((0.45, 0.35, 0.9), 0.35, *sphere_res), m.BK7())
-    s.add(m.make_sphere((0.0, 1.2, 1.4), 0.25, *sphere_res),
-          m.Plastic(kd=(0.2, 0.3, 0.8), roughness=0.1))
+    if obj is not None:
+        s.add(m.load_obj(obj), m.Gold(roughness=0.15))
+    else:
+        s.add(m.make_sphere((-0.45, 0.4, 1.3), 0.4, *sphere_res), m.Gold(roughness=0.15))
+        s.add(m.make_sphere((0.45, 0.35, 0.9), 0.35, *sphere_res), m.BK7())
+        s.add(m.make_sphere((0.0, 1.2, 1.4), 0.25, *sphere_res),
+              m.Plastic(kd=(0.2, 0.3, 0.8), roughness=0.1))
     s.add(m.make_quad((-0.3, 1.99, 0.7), (0.3, 1.99, 0.7), (0.3, 1.99, 1.3),
                       (-0.3, 1.99, 1.3)), m.Emissive(le=(1.0, 0.9, 0.7), scale=18.0))
     return s
@@ -636,18 +666,132 @@ def box_scene(api=None):
     return s
 
 
+def lensing_starfield() -> np.ndarray:
+    """examples/lensing_example.py's environment image: 1,400 stars from
+    RandomState(7) on a black 256 x 512 map (each star's RGB drawn after
+    every position) and a faint nebula band over rows 100-139."""
+    rng = np.random.RandomState(7)
+    env = np.zeros((256, 512, 3), np.float32)
+    for sy, sx in rng.rand(1400, 2):
+        env[int(sy * 255), int(sx * 511)] = rng.rand(3) * 8.0 + 2.0
+    env[100:140, :] += np.array([0.25, 0.18, 0.35])
+    return env
+
+
+def lensing_scene(api=None):
+    """examples/lensing_example.py: a black Matte sphere of radius 0.5 at
+    the origin before lensing_starfield() as the environment light, the
+    camera inside a thin HomogeneousMedium (sigma_a 1e-5, no scattering)
+    whose null events bend rays toward the origin (deflection ("gravity",
+    origin, 60), majorant_scale 20,000: the null-event density is the
+    bending sample rate)."""
+    m = _api(api)
+    s = m.Scene()
+    s.add(m.make_sphere((0.0, 0.0, 0.0), 0.5, 24, 48), m.Matte(kd=(0.0, 0.0, 0.0)))
+    s.add_light(m.EnvironmentLight(image=lensing_starfield()))
+    s.set_camera_medium(m.HomogeneousMedium(
+        sigma_a=(1e-5,) * 3, sigma_s=(0.0,) * 3,
+        deflection=("gravity", (0.0, 0.0, 0.0), 60.0), majorant_scale=20000.0))
+    return s
+
+
+def dispersion_scene(api=None):
+    """examples/dispersion_example.py: a Diamond() sphere (two-term
+    Sellmeier, n_d 2.42) on a 12 x 12 Matte floor, lit only by a narrow
+    0.2 x 0.8 emissive quad far to one side at scale 400 (a beam whose
+    refraction angles differ per wavelength)."""
+    m = _api(api)
+    s = m.Scene()
+    s.add(m.make_quad((-6, 0, -6), (6, 0, -6), (6, 0, 6), (-6, 0, 6)),
+          m.Matte(kd=(0.75, 0.75, 0.75)))
+    s.add(m.make_sphere((0.0, 0.8, 0.0), 0.8, 24, 48), m.Diamond())
+    s.add(m.make_quad((-4.0, 3.0, -0.4), (-3.8, 3.0, -0.4), (-3.8, 3.0, 0.4), (-4.0, 3.0, 0.4)),
+          m.Emissive(le=(1.0, 1.0, 1.0), scale=400.0))
+    return s
+
+
+def smoke_column(grid: int = 48) -> np.ndarray:
+    """examples/medium_example.py's smoke plume: a Gaussian column about
+    the grid's vertical axis fading with z, times 4, (grid,)^3 float32."""
+    z, y, x = np.meshgrid(*(np.linspace(0, 1, grid),) * 3, indexing="ij")
+    column = np.exp(-18.0 * ((x - 0.5) ** 2 + (y - 0.5) ** 2)) * (1.2 - z)
+    return (column * 4).astype(np.float32)
+
+
+def medium_example_scene(grid: int = 48, api=None):
+    """examples/medium_example.py: a Glass(eta=1.4) sphere filled with
+    Milk(scale=30) (a dielectric boundary around a measured medium), a
+    smoke_column(grid) GridMedium (sigma_a 0.05, sigma_s 0.9, g 0.2) in an
+    Interface box, on a Matte floor under a point and a distant light.
+    The box's bottom face lies in the floor's plane (y = 0), so a ray that
+    meets the floor there meets both faces at one t: the JAX package's
+    skip-link walk and its packet engine keep different faces of such
+    ties, and the port's sweeps keep the packet engine's (PACKET_PROBES,
+    ROADMAP C)."""
+    m = _api(api)
+    s = m.Scene()
+    s.add(m.make_quad((-3, 0, -3), (3, 0, -3), (3, 0, 3), (-3, 0, 3)),
+          m.Matte(kd=(0.55, 0.55, 0.55)))
+    s.add(m.make_sphere((-0.8, 0.5, 0.2), 0.5, 24, 48), m.Glass(eta=1.4),
+          inside_medium=m.Milk(scale=30.0))
+    lo, hi = (0.4, 0.0, -0.4), (1.6, 1.8, 0.8)
+    smoke = m.GridMedium(density=smoke_column(grid), bounds_lo=lo, bounds_hi=hi,
+                         sigma_a=(0.05, 0.05, 0.05), sigma_s=(0.9, 0.9, 0.9), g=0.2)
+    s.add(m.make_box(lo, hi), m.Interface(), inside_medium=smoke)
+    s.add_light(m.PointLight(position=(0, 2.6, -1.0), intensity=(14, 14, 14)))
+    s.add_light(m.DistantLight(direction=(0.3, -1.0, 0.4), radiance=(1.5, 1.6, 1.8)))
+    return s
+
+
+CLOUD_EXAMPLE_BOX = ((-2.0, 0.8, -2.0), (2.0, 3.2, 2.0))
+
+
+@functools.lru_cache(maxsize=None)
+def example_cloud(grid: int = 96, api=None):
+    """examples/cloud_example.py's procedural cloud: a grid^3 CloudVolume
+    over CLOUD_EXAMPLE_BOX (sigma_s 12, sigma_a 0.02, g 0.877, scale 2.5,
+    Worley weight 0.6, threshold 0.15), one object per (grid, api) kept
+    for the next call (its noise costs seconds of host time)."""
+    m = _api(api)
+    lo, hi = CLOUD_EXAMPLE_BOX
+    return m.CloudVolume(resolution=grid, bounds_lo=lo, bounds_hi=hi, sigma_s=(12.0,) * 3,
+                         sigma_a=(0.02,) * 3, g=0.877, scale=2.5, worley_weight=0.6,
+                         threshold=0.15)
+
+
+def cloud_example_scene(grid: int = 96, cloud=None, api=None):
+    """examples/cloud_example.py: a cloud medium (example_cloud(grid) unless
+    given, e.g. a nanovdb_medium) in an Interface box over its bounds,
+    above a 60 x 60 Matte floor, under sunsky_environment(direction=(0.5,
+    0.35, 0.6), up="y", turbidity=3, resolution=128)."""
+    m = _api(api)
+    cloud = example_cloud(grid, m) if cloud is None else cloud
+    s = m.Scene()
+    s.add(m.make_quad((-30, 0, -30), (30, 0, -30), (30, 0, 30), (-30, 0, 30)),
+          m.Matte(kd=(0.35, 0.4, 0.3)))
+    s.add(m.make_box(cloud.bounds_lo, cloud.bounds_hi), m.Interface(), inside_medium=cloud)
+    for light in m.sunsky_environment(direction=(0.5, 0.35, 0.6), up="y", turbidity=3.0,
+                                      resolution=128):
+        s.add_light(light)
+    return s
+
+
 BUILDERS = {"default": default_scene, "mesh": mesh_scene, "fog": fog_scene,
             "sphere": sphere_scene, "cloud": cloud_scene, "cloud_grid": cloud_grid_scene,
             "lights": lights_scene, "sparse_cloud": sparse_cloud_scene,
             "materials": materials_scene, "mix": mix_scene, "triangle": triangle_scene,
             "textured": textured_scene, "cornell": cornell_scene, "foliage": foliage_scene,
             "swatch": swatch_scene, "quickstart": quickstart_scene,
-            "specular": specular_scene, "box": box_scene}
+            "specular": specular_scene, "box": box_scene, "lensing": lensing_scene,
+            "dispersion": dispersion_scene, "medium_example": medium_example_scene,
+            "cloud_example": cloud_example_scene}
 
 
-def scene_camera(which: str, res_px: int):
+def scene_camera(which: str, width: int, height=None):
+    """SCENE_DEFS's camera of a scene at width x height (square unless
+    height is given)."""
     (eye, at, fov), _ = SCENE_DEFS[which]
-    return make_perspective_camera(eye, at, (res_px, res_px), fov_deg=fov)
+    return make_perspective_camera(eye, at, (width, height or width), fov_deg=fov)
 
 
 def probe_config(which: str, res=None, depth=None, spp=None):
@@ -693,24 +837,37 @@ def transport_probe(scene, which: str = "default", n_segments: int = 0, res=None
 TRANSPORT_REF_SCENES = ("default", "mesh", "fog", "sphere")
 
 
+# scenes whose probe is held to the JAX package's packet engine
+# (Scene.build(traversal="packets_interp"), the walk the port's sweeps
+# mirror) instead of its CPU default, the skip-link walk: their faces tie
+# at one t, and the two JAX walks keep different faces (ROADMAP C)
+PACKET_PROBES = ("medium_example",)
+
+
 def probe_key(which: str, res: int, depth: int, spp: int, sampler: str = "power",
-              ftype: int = GAUSSIAN) -> str:
+              ftype: int = GAUSSIAN, packets: bool = False) -> str:
     key = f"{which} {res}x{res} depth {depth} {spp} spp"
     if sampler != "power":
         key = f"{key}, {sampler} sampler"
-    return key if ftype == GAUSSIAN else f"{key}, {FILTER_NAMES[ftype]} filter"
+    if ftype != GAUSSIAN:
+        key = f"{key}, {FILTER_NAMES[ftype]} filter"
+    return f"{key}, packet engine" if packets else key
 
 
 def probe_reference(which: str, res=None, depth=None, spp=None, sampler="power",
-                    ftype: int = GAUSSIAN) -> dict:
+                    ftype: int = GAUSSIAN, packets=None) -> dict:
     """The JAX package's stored probe of a scene under a light sampler and
     a filter: its bench probe from tools/transport_ref.json, any other from
-    data/probe_ref.json (written by tools/gen_probe_ref.py)."""
+    data/probe_ref.json (written by tools/gen_probe_ref.py); taken on the
+    JAX packet engine if packets (default: the scene is in PACKET_PROBES),
+    else on the skip-link walk."""
     cfg = probe_config(which, res, depth, spp)
+    packets = which in PACKET_PROBES if packets is None else packets
     if (sampler == "power" and ftype == GAUSSIAN and which in TRANSPORT_REF_SCENES
             and cfg == probe_config(which)):
         return json.loads(TRANSPORT_REF.read_text())["scenes"][which]
-    return json.loads(PROBE_REF.read_text())["probes"][probe_key(which, *cfg, sampler, ftype)]
+    return json.loads(PROBE_REF.read_text())["probes"][probe_key(which, *cfg, sampler, ftype,
+                                                                 packets)]
 
 
 def check_transport(scene, which: str = "default", rgb_tol=None, **probe_kw):

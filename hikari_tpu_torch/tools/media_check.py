@@ -1,7 +1,7 @@
 """How far a medium render can move by chance, and the card against the CPU.
 
     python3 -m hikari_tpu_torch.tools.media_check [--device cuda|cpu] [--reseeds N]
-                                                  [--renders N]
+                                                  [--renders N] [--scenes WHICH ...]
 
 Media draw from per-lane LCG streams seeded from the bits of each ray
 (``media/sample.py``), so two implementations whose rays differ in a bit
@@ -11,8 +11,9 @@ draw independently. Two measurements:
   with every lane's LCG seed XORed with a per-run constant, the rest of
   the render unchanged: the spread of its rays and mean RGB is the room a
   comparison with another implementation's probe needs. On the card: the
-  fog's 64x64 probe over 1 and 512 samples and the grid cloud's 32x32
-  depth-12 16-sample probe (``chip_smoke.py``'s); on the CPU: the
+  fog's 64x64 probe over 1 and 512 samples, the grid cloud's 32x32
+  depth-12 16-sample probe and the lensing, medium and cloud examples'
+  probes (``chip_smoke.py``'s); on the CPU: the
   16x16 probes of ``tests/test_torch_media_render.py`` and the fog's
   1-sample 64x64 probe. Where ``data/probe_ref.json`` holds the
   JAX package's draws of the same probe with the same salts
@@ -41,15 +42,18 @@ import torch
 from .. import VolPath, framebuffer, render
 from ..media import sample as ms
 from ..media import types as mt
-from ..scenes import (BUILDERS, cloud_grid_scene, fog_scene, probe_config, probe_key,
-                      probe_reference, scene_camera, transport_probe)
+from ..scenes import (BUILDERS, PACKET_PROBES, probe_config, probe_key, probe_reference,
+                      scene_camera, transport_probe)
 from ..spectral.rgb2spec import srgb_table
 
 # label, scene, transport_probe keywords
 PROBES = {
     "cuda": (("fog 64x64, 1 sample", "fog", {}),
              ("fog 64x64, 512 samples", "fog", dict(spp=512)),
-             ("grid cloud 32x32 depth 12, 16 samples", "cloud_grid", {})),
+             ("grid cloud 32x32 depth 12, 16 samples", "cloud_grid", {}),
+             ("lensing 32x32 depth 3, 64 samples", "lensing", {}),
+             ("medium example 32x32 depth 10, 32 samples", "medium_example", {}),
+             ("cloud example 32x32 depth 32, 32 samples", "cloud_example", {})),
     "cpu": (("fog 64x64, 1 sample", "fog", {}),
             ("fog 16x16, 256 samples", "fog", dict(res=16, spp=256)),
             ("grid cloud 16x16 depth 4, 64 samples", "cloud_grid",
@@ -73,10 +77,15 @@ def reseeded(k: int):
         ms.lcg_init = orig
 
 
-def spreads(device: str, n: int) -> None:
-    scenes = {"fog": fog_scene().build(device=device),
-              "cloud_grid": cloud_grid_scene().build(device=device)}
+def spreads(device: str, n: int, only=None) -> None:
+    """The [reseeds] lines of the device's PROBES (of the scenes in `only`
+    if given)."""
+    scenes = {}
     for label, which, kw in PROBES[device]:
+        if only and which not in only:
+            continue
+        if which not in scenes:
+            scenes[which] = BUILDERS[which]().build(device=device)
         runs = []
         for k in range(n):
             with reseeded(k):
@@ -96,7 +105,8 @@ def spreads(device: str, n: int) -> None:
         se = np.sqrt(v.var(0, ddof=1) / len(v) + j.var(0, ddof=1) / len(j))
         diff = v.mean(0) - j.mean(0)
         print(f"[reseeds] {label} against the JAX package's {len(j)} draws "
-              f"({probe_key(which, *probe_config(which, **kw))}): mean RGB "
+              f"({probe_key(which, *probe_config(which, **kw), packets=which in PACKET_PROBES)}): "
+              f"mean RGB "
               f"{v[:, 1].mean():.7f} vs {j[:, 1].mean():.7f} "
               f"({diff[1] / j[:, 1].mean() * 100:+.3f}%, {diff[1] / se[1]:+.2f} standard "
               f"errors); rays {v[:, 0].mean():.2f} vs {j[:, 0].mean():.2f} "
@@ -177,6 +187,7 @@ def main() -> None:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--reseeds", type=int, default=6)
     ap.add_argument("--renders", type=int, default=2)
+    ap.add_argument("--scenes", nargs="*", help="reseed only these scenes' probes")
     args = ap.parse_args()
     if args.device == "cuda":
         if not torch.cuda.is_available():
@@ -188,7 +199,7 @@ def main() -> None:
         cpu_vs_cuda()
         if args.renders:
             renders(args.renders, smi)
-    spreads(args.device, args.reseeds)
+    spreads(args.device, args.reseeds, args.scenes)
 
 
 if __name__ == "__main__":

@@ -18,8 +18,10 @@ of them.
 
 * shared streams: with both packages' LCG seeded from the ray rounded to
   1/256 (so the streams no longer hang on the rays' last bits), the fog
-  (8x8, depth 5, 2 samples; slow: the grid cloud at 16x16, depth 12, 2
-  samples) renders as the JAX package's lane for lane: rays within 0.1%,
+  (8x8, depth 5, 2 samples; slow: the grid and sun-sky clouds at 16x16,
+  depth 12, 2 samples, and at 8x8, 2 samples, the lensing example at its
+  depth 3, its null events bent by gravity, and the cloud example at its
+  depth 32) renders as the JAX package's lane for lane: rays within 0.1%,
   99% of lanes within 1e-4 relative, mean RGB within 0.1%;
 * fog (scenes.fog_scene, bench.build_fog_scene): 16x16, depth 5, 256
   samples, rays within 0.5% and mean RGB within 5% of the JAX package;
@@ -118,7 +120,9 @@ def _shared_stream_renders(which, res, depth, spp, monkeypatch, q=256.0):
 @pytest.mark.parametrize("which, res, depth, spp", [
     ("fog", 8, 5, 2),
     pytest.param("cloud_grid", 16, 12, 2, marks=pytest.mark.slow),
-    pytest.param("cloud", 16, 12, 2, marks=pytest.mark.slow)])
+    pytest.param("cloud", 16, 12, 2, marks=pytest.mark.slow),
+    pytest.param("lensing", 8, 3, 2, marks=pytest.mark.slow),
+    pytest.param("cloud_example", 8, 32, 2, marks=pytest.mark.slow)])
 def test_render_equals_jax_on_shared_streams(which, res, depth, spp, monkeypatch):
     (j, jrays), (t, trays) = _shared_stream_renders(which, res, depth, spp, monkeypatch)
     assert abs(trays - jrays) <= 1e-3 * jrays, (trays, jrays)

@@ -3,6 +3,7 @@
 
     python tools/gen_probe_ref.py [--only KEY ...] [--reseeds N]
     python tools/gen_probe_ref.py --renders [KEY ...]
+    python tools/gen_probe_ref.py --generator
 
 (KEY as hikari_tpu_torch.scenes.probe_key writes it, e.g. "sparse_cloud 32x32
 depth 12 16 spp" or "default 64x64 depth 5 1 spp, mitchell filter".)
@@ -34,6 +35,20 @@ beside the draws themselves and the relative spread of one draw
 with (RENDERS below: whole renders, per-band means, an escape share), so
 that those tests compile no JAX render, and the JAX package's render_aux
 images, pixel for pixel, in hikari_tpu_torch/data/aux_ref.npz.
+
+--generator stores the JAX package's sRGB-to-spectrum table generator
+(hikari_tpu.spectral.rgb2spec_gen.generate_table) at res 8 in
+hikari_tpu_torch/data/rgb2spec_gen_ref.npz, the port generator's
+reference (tests/test_torch_rgb2spec_gen.py, chip_smoke.py path H). It
+runs in a fresh interpreter whose module reads and writes a temporary
+copy of its data directory: the JAX function sets process-wide JAX
+options and writes its table beside its tables.
+
+PACKET_PROBES are rendered again on the JAX package's packet engine
+(Scene.build(traversal="packets_interp")) and stored under their key with
+", packet engine" (scenes.PACKET_PROBES: the scenes whose faces tie, where
+the JAX skip-link walk, its CPU default, keeps other faces than the packet
+engine and the port's sweeps).
 
 The scenes are built through the JAX API: the fog, the sun-sky cloud and
 the materials scene by bench.build_fog_scene / build_cloud_scene /
@@ -83,13 +98,24 @@ PROBES = [
     ("triangle", "power", 64, 5, 1, 1),       # chip_smoke.py phase 4, tests
     ("textured", "power", 64, 5, 4, 4),       # chip_smoke.py phase 4, tests (slow)
     ("cornell", "power", 64, 6, 1, 1),        # chip_smoke.py phase 4, tests (slow)
+    # the examples' scenes (scenes.SCENE_DEFS): chip_smoke.py phase 4, tests
+    ("dispersion", "power", 32, 8, 16, 16),      # surface, 2%
+    ("lensing", "power", 32, 3, 64, 16),         # medium, 10% (tests slow)
+    ("medium_example", "power", 32, 10, 32, 16),  # printed beside the packet engine's
+    ("cloud_example", "power", 32, 32, 32, 16),  # medium, 10% (tests slow)
+]
+# probes also taken on the JAX packet engine (scenes.PACKET_PROBES)
+PACKET_PROBES = [
+    ("medium_example", "power", 32, 10, 32, 16),  # medium, 10% (tests slow)
 ]
 # scenes the port's scenes.py builds through either package's API
 API_SCENES = ("triangle", "textured", "cornell", "foliage", "swatch", "materials",
-              "quickstart", "specular", "box")
+              "quickstart", "specular", "box", "lensing", "dispersion", "medium_example",
+              "cloud_example")
 # the coarse spheres (n_theta, n_phi) of the quick tests' scenes
 COARSE = (8, 16)
-MEDIUM_SCENES = ("fog", "cloud", "cloud_grid", "sparse_cloud")
+MEDIUM_SCENES = ("fog", "cloud", "cloud_grid", "sparse_cloud", "lensing", "medium_example",
+                 "cloud_example")
 OUT = os.path.join(ROOT, "hikari_tpu_torch", "data", "probe_ref.json")
 AUX_OUT = os.path.join(ROOT, "hikari_tpu_torch", "data", "aux_ref.npz")
 
@@ -195,14 +221,15 @@ def jax_sparse_cloud_scene():
     return s.build()
 
 
-def jax_scene(which: str, sampler: str = "power"):
-    """The JAX package's build of a scene of the port's SCENE_DEFS."""
+def jax_scene(which: str, sampler: str = "power", traversal: str = "auto"):
+    """The JAX package's build of a scene of the port's SCENE_DEFS
+    (traversal: Scene.build's, for the scenes built through the API)."""
     import bench
     import hikari_tpu
     from hikari_tpu_torch.scenes import BUILDERS
 
     if which in API_SCENES and which != "materials":
-        return BUILDERS[which](api=hikari_tpu).build()
+        return BUILDERS[which](api=hikari_tpu).build(traversal=traversal)
     if which == "default":
         return jax_default_scene(sampler)
     if which == "lights":
@@ -482,6 +509,41 @@ RENDERS = {"materials coarse": render_materials_coarse,
            "sppm box": render_sppm_ref}
 
 
+GEN_RES = 8  # tests/test_torch_rgb2spec_gen.py and chip_smoke.py hold the port to it
+GEN_OUT = os.path.join(ROOT, "hikari_tpu_torch", "data", "rgb2spec_gen_ref.npz")
+# the JAX generator in a fresh interpreter: it sets jax_enable_x64 and
+# jax_platforms for the whole process, and it writes its table into its
+# module's _DATA, here a temporary copy of the two tables it reads
+GEN_CODE = """
+import shutil, sys, tempfile
+from pathlib import Path
+import numpy as np
+sys.path.insert(0, {root!r})
+from hikari_tpu.spectral import rgb2spec_gen as g
+with tempfile.TemporaryDirectory() as tmp:
+    for name in ("cie_xyz.npz", "illuminant_d65.npz"):
+        shutil.copy(g._DATA / name, tmp)
+    g._DATA = Path(tmp)
+    scale, coeffs = g.generate_table(res={res}, max_iter={max_iter}, verbose=False)
+    assert (Path(tmp) / "srgb_spectrum_table.npz").is_file()
+np.savez({out!r}, res=np.int32({res}), scale=np.asarray(scale, np.float32), coeffs=coeffs)
+"""
+
+
+def jax_generate_table(res: int, out: str, max_iter: int = 15, timeout: float = 1800):
+    """Run hikari_tpu.spectral.rgb2spec_gen.generate_table(res) in a new
+    process on the CPU, its _DATA redirected to a temporary directory (the
+    JAX package's data/ is never written), and save (res, scale, coeffs) to
+    `out`; returns its seconds."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    code = GEN_CODE.format(root=ROOT, res=res, max_iter=max_iter, out=out)
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=timeout,
+                   env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    return time.perf_counter() - t0
+
+
 def main():
     from hikari_tpu_torch.film.filters import GAUSSIAN
     from hikari_tpu_torch.scenes import BUILDERS, FILTER_NAMES, probe_key, transport_probe
@@ -490,11 +552,23 @@ def main():
     ap.add_argument("--only", nargs="*", help="probe keys to recompute (default: all)")
     ap.add_argument("--reseeds", type=int, default=6, help="LCG draws of each medium probe")
     ap.add_argument("--renders", nargs="*", help="RENDERS keys to recompute, then stop")
+    ap.add_argument("--generator", action="store_true",
+                    help=f"store the JAX generate_table(res={GEN_RES}) in {GEN_OUT}, then stop")
     args = ap.parse_args()
+    if args.generator:
+        secs = jax_generate_table(GEN_RES, GEN_OUT)
+        print(f"generate_table(res={GEN_RES}) of the JAX package: {secs:.1f} s -> {GEN_OUT}")
+        return
     refs = {"probes": {}}
     if os.path.exists(OUT):
         with open(OUT) as f:
             refs = json.load(f)
+
+    def save():
+        with open(OUT, "w") as f:
+            json.dump(refs, f, indent=1)
+            f.write("\n")
+
     if args.renders is not None:
         renders = refs.setdefault("renders", {})
         for key in args.renders or RENDERS:
@@ -502,19 +576,21 @@ def main():
             out = RENDERS[key]()
             if out is not None:  # None: the result went to AUX_OUT
                 renders[key] = out
+                save()
             print(f"render {key!r}: {time.perf_counter() - t0:.0f} s", flush=True)
-            with open(OUT, "w") as f:
-                json.dump(refs, f, indent=1)
-                f.write("\n")
         return
     scenes, ports = {}, {}
-    for which, sampler, res, depth, spp, batch, *ft in PROBES:
+    for (which, sampler, res, depth, spp, batch, *ft), packets in (
+            [(p, False) for p in PROBES] + [(p, True) for p in PACKET_PROBES]):
         ftype = ft[0] if ft else GAUSSIAN
-        key = probe_key(which, res, depth, spp, sampler, ftype)
+        key = probe_key(which, res, depth, spp, sampler, ftype, packets)
         if args.only and key not in args.only:
             continue
-        if (which, sampler) not in scenes:
-            scenes[which, sampler] = jax_scene(which, sampler)
+        if (which, sampler, packets) not in scenes:
+            scenes[which, sampler, packets] = (
+                jax_scene(which, sampler, "packets_interp") if packets
+                else jax_scene(which, sampler))
+        if (which, sampler) not in ports:
             s = BUILDERS[which]()
             s.set_light_sampler(sampler)
             ports[which, sampler] = s.build(device="cpu")
@@ -522,8 +598,8 @@ def main():
         for k in range(args.reseeds if which in MEDIUM_SCENES else 1):
             t0 = time.perf_counter()
             with jax_reseeded(k):
-                rays, mean_rgb, means = jax_probe(scenes[which, sampler], which, res, depth,
-                                                  spp, batch, ftype)
+                rays, mean_rgb, means = jax_probe(scenes[which, sampler, packets], which, res,
+                                                  depth, spp, batch, ftype)
             secs = time.perf_counter() - t0
             draws.append((rays, mean_rgb))
             port = ""
@@ -544,12 +620,11 @@ def main():
             "draw_rel_std": {"rays_traced": None if rel[0] is None else float(rel[0]),
                              "mean_rgb": None if rel[1] is None else float(rel[1])},
             "sample_mean_rel_std": spread, "backend": jax.default_backend(),
+            "traversal": "packets_interp" if packets else "skiplink",
         }
+        save()
         print(f"{key}, {len(j)} draw(s): mean rays {j[:, 0].mean():.4f}, mean RGB "
               f"{j[:, 1].mean():.7f}, rel std of a draw {rel[0]}, {rel[1]}", flush=True)
-        with open(OUT, "w") as f:
-            json.dump(refs, f, indent=1)
-            f.write("\n")
 
 
 if __name__ == "__main__":
