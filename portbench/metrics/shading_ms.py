@@ -1,0 +1,8 @@
+"""shading_ms: exclusive ms per sample of the shading stage (stages.json), from
+synchronising stage timers."""
+
+from . import stage_ms
+
+
+def read(ctx):
+    return stage_ms(ctx, "shading")

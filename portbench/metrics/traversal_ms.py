@@ -1,0 +1,8 @@
+"""traversal_ms: exclusive ms per sample of the traversal stage (stages.json), from
+synchronising stage timers."""
+
+from . import stage_ms
+
+
+def read(ctx):
+    return stage_ms(ctx, "traversal")
