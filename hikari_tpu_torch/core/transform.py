@@ -13,6 +13,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils import profiling
 from .vecmath import cross, normalize
 
 
@@ -33,12 +34,16 @@ class Transform:
         return self.compose(other)
 
     def apply_point(self, p: torch.Tensor) -> torch.Tensor:
+        if self.m.device != p.device:
+            profiling.host_sync("transform.matrix")
         m = self.m.to(p.device)
         r = (m[:3, :3] * p[..., None, :]).sum(-1) + m[:3, 3]
         w = (m[3, :3] * p).sum(-1) + m[3, 3]
         return r / w[..., None]
 
     def apply_vector(self, v: torch.Tensor) -> torch.Tensor:
+        if self.m.device != v.device:
+            profiling.host_sync("transform.matrix")
         m = self.m.to(v.device)
         return (m[:3, :3] * v[..., None, :]).sum(-1)
 

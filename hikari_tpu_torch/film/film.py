@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..utils import profiling
 
 
 @dataclass
@@ -72,6 +73,7 @@ def make_film(width: int, height: int, device=None, crop_bounds=None) -> Film:
                 depth=z(), aux_weight=z())
 
 
+@profiling.spanned("hikari.film")
 def film_add_weighted(film: Film, rgb_weighted: torch.Tensor,
                       weight: torch.Tensor, n_samples: int = 1) -> Film:
     """Accumulate pre-weighted contributions (sum of rgb_i * w_i and of w_i
@@ -82,6 +84,7 @@ def film_add_weighted(film: Film, rgb_weighted: torch.Tensor,
     return film
 
 
+@profiling.spanned("hikari.film")
 def film_add_sample(film: Film, rgb: torch.Tensor, weight: torch.Tensor) -> Film:
     """Accumulate one sample per pixel. rgb: (H, W, 3), weight: (H, W)."""
     return film_add_weighted(film, rgb * weight[..., None], weight)
@@ -97,6 +100,7 @@ def film_add_aux(film: Film, albedo, normal, depth, weight) -> Film:
     return film
 
 
+@profiling.spanned("hikari.film")
 def framebuffer(film: Film) -> torch.Tensor:
     """Weighted-average linear RGB image (H, W, 3) (film.jl:355-387)."""
     return film.rgb_sum / torch.clamp(film.weight_sum, min=1e-8)[..., None]

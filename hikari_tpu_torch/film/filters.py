@@ -20,6 +20,7 @@ import torch
 
 from ..sampling.distributions import (Distribution2D, make_distribution_2d,
                                       sample_distribution_2d)
+from ..utils import profiling
 
 BOX = 0
 TRIANGLE = 1
@@ -124,6 +125,7 @@ def filter_sample(fs: FilterSampler, u: torch.Tensor):
     """Importance-sample a film-plane offset. u: (..., 2).
     Returns (offset (..., 2), weight = f/pdf)."""
     rad = torch.tensor(fs.radius, dtype=torch.float32, device=u.device)
+    profiling.host_sync("filter.radius", u.device)
     if fs.ftype == BOX:
         w = torch.full(u.shape[:-1], 4.0 * fs.radius[0] * fs.radius[1],
                        device=u.device)

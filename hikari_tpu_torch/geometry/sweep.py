@@ -49,6 +49,7 @@ from pathlib import Path
 import torch
 
 from .._build import build_shared_library
+from ..utils import profiling
 
 RAY_TILE = 1024
 TREELET = 256
@@ -494,6 +495,7 @@ def pair_schedule(seg: torch.Tensor, n_pairs: int):
     return tile.to(torch.int32), order.to(torch.int32)
 
 
+@profiling.spanned("hikari.sweep")
 def closest_tiles(o, d, key_in, tr_in, tre, tn_bits, seg, coef):
     """Closest-hit treelet sweep -> (key, tr), each (n,) int32."""
     if o.device.type == "cpu":
@@ -518,6 +520,7 @@ def closest_tiles(o, d, key_in, tr_in, tre, tn_bits, seg, coef):
     return key, tr
 
 
+@profiling.spanned("hikari.sweep")
 def occlusion_tiles(o, d, tmax, occ_in, tre, tn_bits, seg, coef):
     """Occlusion treelet sweep -> occ, (n,) int32 (1 = occluded)."""
     if o.device.type == "cpu":

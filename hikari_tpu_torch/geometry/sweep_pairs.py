@@ -45,6 +45,7 @@ from pathlib import Path
 import torch
 
 from .._build import build_shared_library
+from ..utils import profiling
 from .sweep import (NVCC_FLAGS, _EPS, _T_MIN, _check_sweep, _nvcc, _stream,
                     affine, closest_walk, launches, occlusion_walk, pair_schedule,
                     plain_cuda_runs)
@@ -123,6 +124,7 @@ def kernel_attributes() -> dict:
     return {"closest_pairs": tuple(out[0:3]), "occlusion_pairs": tuple(out[3:6])}
 
 
+@profiling.spanned("hikari.sweep")
 def closest_pairs(o, d, key_in, tr_in, tre, tn_bits, seg, coef):
     """Pair-grid closest-hit sweep -> (key, tr), each (n,) int32."""
     if o.device.type == "cpu":
@@ -147,6 +149,7 @@ def closest_pairs(o, d, key_in, tr_in, tre, tn_bits, seg, coef):
     return key, tr
 
 
+@profiling.spanned("hikari.sweep")
 def occlusion_pairs(o, d, tmax, occ_in, tre, tn_bits, seg, coef):
     """Pair-grid occlusion sweep -> occ, (n,) int32 (1 = occluded)."""
     if o.device.type == "cpu":

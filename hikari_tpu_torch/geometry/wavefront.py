@@ -54,6 +54,7 @@ from .sweep import COL_MASK, RAY_TILE, TREELET, closest_tiles, occlusion_tiles
 from .sweep_pairs import closest_pairs, occlusion_pairs
 from .traverse import HitRecord
 from ..core.vecmath import cross
+from ..utils import profiling
 
 SWEEP_MODE = os.environ.get("HIKARI_SWEEP", "tile")
 BAND_FRAC = float(os.environ.get("HIKARI_BAND_FRAC", "0.0"))
@@ -321,7 +322,9 @@ def _build_pairs(mask: torch.Tensor, tnear: torch.Tensor):
     alive = torch.gather(mask, 1, srt)
     tn_sorted = torch.gather(tnear, 1, srt)
     tre = srt[alive].to(torch.int32)
+    profiling.host_sync("pair_list.tre")
     tn_bits = tn_sorted[alive].contiguous().view(torch.int32)
+    profiling.host_sync("pair_list.tn_bits")
     counts = mask.sum(1)
     seg = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).to(torch.int32)
     return tre, tn_bits, seg
@@ -426,6 +429,7 @@ def _prepare(tl, o, d, t_max, keys_fn, presorted=False, band=None) -> PairSweep:
         order, os_, ds, ts = _sort_wavefront(o, d, t_max, keys)
         # dead lanes sort last: the live lanes are a prefix of the sorted order
         live = int((ts > 0.0).sum())
+        profiling.host_sync("pair_list.live")
         sz = -(-live // RAY_TILE) * RAY_TILE
         os_, ds, ts = os_[:sz].contiguous(), ds[:sz].contiguous(), ts[:sz].contiguous()
     reach = ts if band is None else torch.clamp(ts, max=band)
@@ -474,6 +478,16 @@ def _unsort(ps: PairSweep, *lanes):
     return tuple(x[inv] for x in lanes)
 
 
+def _count_sweep(kind: str, ps: PairSweep):
+    """The sweep's pairs listed, and its swept live prefix against its
+    input lanes (known on the host: no sync)."""
+    if not profiling.recording():
+        return
+    profiling.count("pairs_listed", ps.tre.shape[0], kind)
+    profiling.count("lanes_swept", ps.os.shape[0], kind + ".live")
+    profiling.count("lanes_swept", ps.n, kind + ".input")
+
+
 def closest_hit_packets(tl: Treelets, o, d, t_max, world_lo, world_hi,
                         active=None, band=None, presorted=False) -> HitRecord:
     """Sorted-packet closest hit. o/d (R, 3), t_max (R,); tri indices are in
@@ -487,6 +501,7 @@ def closest_hit_packets(tl: Treelets, o, d, t_max, world_lo, world_hi,
     with ray_sort_keys); no sort and no unsort."""
     ps = prepare_closest(tl, o, d, t_max, world_lo, world_hi, active, presorted, band)
     n_pad, sz = ps.n_pad, ps.os.shape[0]
+    _count_sweep("closest", ps)
     t_res = o.new_zeros(n_pad)
     b1 = o.new_zeros(n_pad)
     b2 = o.new_zeros(n_pad)
@@ -502,6 +517,7 @@ def closest_hit_packets(tl: Treelets, o, d, t_max, world_lo, world_hi,
                               ps.tre, ps.tn_bits, ps.seg, tl.coef)
             done = (tr1 >= 0) | (ps.ts <= band)
             tre2, tn2, seg2 = pair_list(tl, ps.os, ps.ds, torch.where(done, 0.0, ps.ts))
+            profiling.count("pairs_listed", tre2.shape[0], "closest.band")
             key, tr = sweep(ps.os, ps.ds, torch.where(done, key1, _keyify(ps.ts)), tr1,
                             tre2, tn2, seg2, tl.coef)
         t_res[:sz], b1[:sz], b2[:sz], tri[:sz] = _resolve_hits(tl, key, tr, ps.os, ps.ds)
@@ -544,6 +560,7 @@ def any_hit_packets(tl: Treelets, o, d, t_max, world_lo, world_hi,
         reverse = SHADOW_REV
     ps = prepare_occlusion(tl, o, d, t_max, world_lo, world_hi, active, group, reverse)
     sz = ps.os.shape[0]
+    _count_sweep("occlusion", ps)
     occ = torch.zeros(ps.n_pad, dtype=torch.int32, device=o.device)
     reach = torch.zeros(ps.n_pad, device=o.device)
     if sz:

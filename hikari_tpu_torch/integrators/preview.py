@@ -38,6 +38,7 @@ from ..materials import types as mt
 from ..materials.fresnel import fresnel_dielectric
 from ..sampling import sobol as sb
 from ..scene.scene import SceneData
+from ..utils import profiling
 from .volpath import (_albedo_rgb_dispatch, _eval_bsdf_dispatch, _sample_bsdf_dispatch,
                       _surface_data, scene_any_hit, scene_closest_hit)
 
@@ -76,10 +77,12 @@ def _fit_preview_rgb_m() -> np.ndarray:
 def preview_spec_to_rgb(L4: torch.Tensor) -> torch.Tensor:
     """(..., 4) radiance at PREVIEW_LAM -> (..., 3) linear sRGB."""
     m = torch.from_numpy(_fit_preview_rgb_m()).to(L4.device)
+    profiling.host_sync("preview.rgb_map", L4.device)
     return (L4[..., None, :] * m).sum(-1)
 
 
 def _preview_lam(n: int, device) -> torch.Tensor:
+    profiling.host_sync("preview.lam", device)
     return torch.tensor(PREVIEW_LAM, dtype=torch.float32, device=device).expand(n, 4)
 
 
@@ -182,6 +185,8 @@ def _camera_lanes(camera: PerspectiveCamera, zcfg, sample_idx, device):
     n = w * h
     lanes = torch.arange(n, device=device)
     px, py = lanes % w, lanes // w
+    if not isinstance(sample_idx, torch.Tensor) or sample_idx.device.type == "cpu":
+        profiling.host_sync("preview.sample_index", device)
     si = torch.as_tensor(sample_idx, device=device).long().expand(n)
     ps = sb.compute_pixel_sample(zcfg, px, py, si)
     p_film = torch.stack([px.float(), py.float()], -1) + 0.5 + (ps.jitter - 0.5)
@@ -196,6 +201,7 @@ def _count_bounce(stats, alive):
         stats["alive"].append(alive.sum())
 
 
+@profiling.spanned("hikari.lanes")
 def _whitted_lanes(scene: SceneData, camera: PerspectiveCamera, sample_idx, spp: int,
                    seed: int, n_bounces: int, stats=None):
     """Whitted through the BSDF stack: (w * h, 3) linear RGB of one sample."""
@@ -262,6 +268,7 @@ def _whitted_lanes(scene: SceneData, camera: PerspectiveCamera, sample_idx, spp:
     return torch.clamp(preview_spec_to_rgb(L4), min=0.0)
 
 
+@profiling.spanned("hikari.lanes")
 def _preview_lanes(scene: SceneData, camera: PerspectiveCamera, sample_idx, spp: int,
                    seed: int, n_bounces: int, stats=None):
     """FastWavefront: (w * h, 3) RGB of one sample, albedo-weighted direct
@@ -339,7 +346,11 @@ def _preview_lanes(scene: SceneData, camera: PerspectiveCamera, sample_idx, spp:
 
 def preview_lanes(integ, scene: SceneData, camera: PerspectiveCamera, sample_idx: int,
                   stats=None) -> torch.Tensor:
-    """One sample of every pixel under a preview integrator, (h, w, 3)."""
+    """One sample of every pixel under a preview integrator, (h, w, 3).
+    While the profiler records, its rays count as ``rays_traced``."""
+    if stats is None and profiling.recording():
+        stats = {"rays": torch.zeros((), device=scene.device), "alive": []}
+    rays0 = None if stats is None else stats["rays"]
     if isinstance(integ, FastWavefront):
         rgb = _preview_lanes(scene, camera, sample_idx, integ.samples_per_pixel, integ.seed,
                              2, stats)
@@ -349,10 +360,13 @@ def preview_lanes(integ, scene: SceneData, camera: PerspectiveCamera, sample_idx
     else:
         raise TypeError(f"render_preview takes Whitted or FastWavefront, not "
                         f"{type(integ).__name__}")
+    if stats is not None and profiling.recording():
+        profiling.count("rays_traced", stats["rays"] - rays0, "preview_lanes")
     w, h = camera.resolution
     return rgb.reshape(h, w, 3)
 
 
+@profiling.spanned("hikari.render")
 def render_preview(integ, scene: SceneData, camera: PerspectiveCamera) -> Film:
     """Run a preview integrator over its samples_per_pixel; the same call
     shape as volpath.render. The film lives on the scene's device."""

@@ -76,6 +76,7 @@ from ..scene.scene import SceneData
 from ..spectral import spectrum as sp
 from ..spectral.cie import spectral_to_xyz, xyz_to_linear_srgb
 from ..textures.atlas import TexCtx, eval_scalar
+from ..utils import profiling
 
 MAX_INTERFACE_CROSSINGS = 10  # shadow-ray boundary chain cap
 # stochastic alpha re-trace cap (intersection.jl:223): each round clears one
@@ -83,6 +84,7 @@ MAX_INTERFACE_CROSSINGS = 10  # shadow-ray boundary chain cap
 ALPHA_ROUNDS = 16
 
 
+@profiling.spanned("hikari.traversal")
 def scene_closest_hit(scene: SceneData, o, d, t_max, active=None, presorted=False):
     """The scene's closest hit through its traversal engine: the skip-link
     walk (inactive lanes get reach 0), or the sweeps, where flat scenes
@@ -104,6 +106,7 @@ def scene_closest_hit(scene: SceneData, o, d, t_max, active=None, presorted=Fals
                                   presorted=presorted)
 
 
+@profiling.spanned("hikari.traversal")
 def scene_any_hit(scene: SceneData, o, d, t_max, active=None, group=None):
     if scene.has_instances:
         return any_hit_instanced(scene.inst, o, d, t_max, scene.world_lo,
@@ -188,8 +191,11 @@ def _sorted_type_dispatch(mat_type, per_lane, out_init, present, run_type):
     pl_s = {k: _take(v, order) for k, v in per_lane.items()}
     out = [x[order] for x in out_init]
     tags = torch.tensor(present, dtype=mt_s.dtype, device=mt_s.device)
+    profiling.host_sync("dispatch.sorted_tags", mt_s.device)
     starts = torch.searchsorted(mt_s, tags).tolist()
+    profiling.host_sync("dispatch.sorted_starts")
     ends = torch.searchsorted(mt_s, tags, right=True).tolist()
+    profiling.host_sync("dispatch.sorted_ends")
     for tag, a, b in zip(present, starts, ends):
         if b > a:
             res = run_type(tag, {k: _take(v, slice(a, b)) for k, v in pl_s.items()})
@@ -247,6 +253,12 @@ _EVALUATORS = {
 _SAMPLE_FIELDS = tuple(f.name for f in fields(mb.BSDFSample))
 
 
+def _any_synced(m, site: str) -> bool:
+    """bool(m.any()), a host sync counted at `site`."""
+    profiling.host_sync(site)
+    return bool(m.any())
+
+
 def _dispatch(mat_type, tags, per_lane, out, run_type, coherence):
     """Evaluate run_type per tag and merge by mat_type: densely ('none'),
     skipping tags no lane has ('gated'), or on sorted runs ('sorted')."""
@@ -254,7 +266,7 @@ def _dispatch(mat_type, tags, per_lane, out, run_type, coherence):
         return _sorted_type_dispatch(mat_type, per_lane, out, list(tags), run_type)
     for tag in tags:
         m = mat_type == tag
-        if coherence == "gated" and not bool(m.any()):
+        if coherence == "gated" and not _any_synced(m, "dispatch.gated"):
             continue
         out = [_masked(m, new, old) for new, old in zip(run_type(tag, per_lane), out)]
     return out
@@ -266,6 +278,7 @@ def _lane_tex(tex, ctx):
     return None if ctx is None else (tex[0], ctx, tex[2])
 
 
+@profiling.spanned("hikari.shading")
 def _sample_bsdf_dispatch(scene, mat_type, mat_idx, wo, lam, u2, uc, regularize,
                           coherence="none", tex=None):
     """Per-type BSDF sampling, selected by tag. tex: the surface's (atlas,
@@ -286,6 +299,7 @@ def _sample_bsdf_dispatch(scene, mat_type, mat_idx, wo, lam, u2, uc, regularize,
     return mb.BSDFSample(**dict(zip(_SAMPLE_FIELDS, out)))
 
 
+@profiling.spanned("hikari.shading")
 def _eval_bsdf_dispatch(scene, mat_type, mat_idx, wo, wi, lam, regularize, coherence,
                         eval_u2, eval_uc, tex=None):
     """(f, pdf) for NEE MIS; zero for specular-only materials. eval_u2 /
@@ -418,6 +432,7 @@ def _resolve_mix(scene: SceneData, mat_type, mat_idx, tri, rec, uv, vcol):
     return torch.where(is_mix, child_t, mat_type), torch.where(is_mix, child_i, mat_idx)
 
 
+@profiling.spanned("hikari.shading")
 def _surface_data(scene: SceneData, rec, o, d, camera=None, diff=None):
     """Hit-point attributes from one (F, 17) face-row gather; in a scene
     with textures also uv and vertex colour from one tex_rows gather and,
@@ -510,7 +525,7 @@ def _closest_hit_surface(scene: SceneData, o, d, t_max, active, presorted=False)
     for k in range(ALPHA_ROUNDS):
         keep = _alpha_keep(scene, rec, o_cur + rec.t[..., None] * d, u_salt=k)
         retrace = live & rec.hit & ~keep
-        if not bool(retrace.any()):
+        if not _any_synced(retrace, "alpha.retrace"):
             break
         t_adv = rec.t + 1e-4
         o_cur = torch.where(retrace[..., None], o_cur + t_adv[..., None] * d, o_cur)
@@ -540,7 +555,7 @@ def _trace_shadow(scene: SceneData, o_sh, wi, t_max, medium_sh, lam, active,
     T_ray = r_l_m = r_u_m = ones4
     running, o_cur, t_rem, med = active, o_sh, t_max, medium_sh
     for _ in range(MAX_INTERFACE_CROSSINGS):
-        if not bool(running.any()):
+        if not _any_synced(running, "shadow_walk.running"):
             break
         rec = scene_closest_hit(scene, o_cur, wi, t_rem, active=running)
         if scene.has_media:
@@ -587,6 +602,7 @@ def _mis_denominator(vp: VolPath, specular, r_u, r_l_hat):
     return torch.where(specular, r_u.mean(-1), (r_u + r_l_hat).mean(-1))
 
 
+@profiling.spanned("hikari.bounce", attrs=("depth",))
 def _bounce_core(vp: VolPath, scene: SceneData, zcfg, depth: int, st: dict, rays_traced,
                  presorted: bool = False, camera: PerspectiveCamera | None = None):
     """One bounce over an arbitrary lane subset: the state dict `st` of
@@ -815,6 +831,7 @@ def _resident_bounce_loop(vp: VolPath, scene: SceneData, st: dict, rays_traced, 
         order = torch.sort(keys, stable=True).indices
         st = {k: v[order] for k, v in st.items()}
         sz = -(-int(st["alive"].sum()) // RAY_TILE) * RAY_TILE
+        profiling.host_sync("resident.live")
         if sz == 0:
             break
         out, rays_traced = bounce(depth, {k: v[:sz] for k, v in st.items()}, rays_traced)
@@ -823,6 +840,7 @@ def _resident_bounce_loop(vp: VolPath, scene: SceneData, st: dict, rays_traced, 
     return st["L"][inv], st["disp"][inv], rays_traced
 
 
+@profiling.spanned("hikari.lanes")
 def render_lanes(vp: VolPath, scene: SceneData, camera: PerspectiveCamera,
                  filt: FilterSampler, sample_idx, px, py, depth_lo=None, depth_hi=None,
                  carry_in=None, return_carry: bool = False):
@@ -887,6 +905,7 @@ def render_lanes(vp: VolPath, scene: SceneData, camera: PerspectiveCamera,
         if return_carry:
             return st, rays_traced
         L, disp_term = st["L"], st["disp"]
+    profiling.count("rays_traced", rays_traced, "render_lanes")
 
     # film accumulation (vp_accumulate_to_rgb_kernel!, volpath.jl:326-375);
     # dispersion keeps the hero wavelength only, at 4x weight
@@ -904,6 +923,7 @@ def render_lanes(vp: VolPath, scene: SceneData, camera: PerspectiveCamera,
                            "nonfinite_lanes": bad.float().sum()}
 
 
+@profiling.spanned("hikari.shading")
 def _albedo_rgb_dispatch(scene: SceneData, mat_type, mat_idx, tex):
     """Approximate RGB albedo per lane (get_albedo_spectral's analogue) for
     the denoiser's aux buffers: textured where the field is; 0.5 for tags
@@ -929,6 +949,7 @@ def _albedo_rgb_dispatch(scene: SceneData, mat_type, mat_idx, tex):
     if mt.CONDUCTOR in present:
         # normal-incidence Fresnel at ~(610, 550, 465) nm
         li = torch.tensor([250, 190, 105], device=idx.device)  # offsets from 360 nm
+        profiling.host_sync("albedo.conductor_lam", idx.device)
         ci = torch.clamp(idx, max=b.cond_eta.shape[0] - 1)  # other tags' rows clamp, as XLA's
         eta = b.cond_eta[ci][..., li]
         k = b.cond_k[ci][..., li]
@@ -995,6 +1016,7 @@ def render_lanes_segmented(vp: VolPath, scene: SceneData, camera: PerspectiveCam
                         depth_hi=vp.max_depth, carry_in=carry)
 
 
+@profiling.spanned("hikari.render")
 def render_sample(vp: VolPath, scene: SceneData, camera: PerspectiveCamera,
                   film: Film, filt: FilterSampler, sample_idx: int) -> Film:
     """Trace sample_batch consecutive samples (from sample_idx) of every

@@ -21,6 +21,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .types import AREA, POINT, SPOT
 
 MAX_DEPTH = 32
@@ -239,6 +240,7 @@ def _children(bvh: LightBVH, node, p, ns):
     return left, right, _node_importance(bvh, left, p, ns), _node_importance(bvh, right, p, ns)
 
 
+@profiling.spanned("hikari.lights")
 def bvh_sample_light(bvh: LightBVH, p, ns, u):
     """Stochastic descent -> (flat light id, pmf) (bvh_sample_light,
     bvh-light-sampler.jl:103-200); lanes with no valid pick get pmf 0."""
@@ -284,6 +286,7 @@ def bvh_sample_light(bvh: LightBVH, p, ns, u):
     return light.to(torch.int32), pmf
 
 
+@profiling.spanned("hikari.lights")
 def bvh_pmf(bvh: LightBVH, p, ns, flat_light):
     """Replay the pmf of a given light through its bit trail (bvh_pmf /
     light_to_bit_trail, bvh-light-sampler.jl:202-269)."""

@@ -24,6 +24,7 @@ from ..sampling.distributions import (Distribution2D, make_distribution_2d,
 from ..spectral.cie import D65_PHOTOMETRIC
 from ..spectral.rgb2spec import (coeff4_illuminant_eval, rgb_illuminant_eval, srgb_table,
                                  unbounded_coeff4)
+from ..utils import profiling
 from .sampler import build_alias_table, light_powers
 
 POINT = 0
@@ -367,6 +368,7 @@ def pack_lights(lights: list, area_tris=None, scene_radius: float = 1.0,
         has_env=env is not None, area_flat_base=area_flat_base, n_flat=len(types))
 
 
+@profiling.spanned("hikari.lights")
 def sample_light_index(banks: LightBanks, u: torch.Tensor):
     """Draw a flat light index ~ pmf via the alias table; (idx, pmf). The
     fractional part of u n is reused as the alias coin."""
@@ -410,6 +412,7 @@ def _towards(p_light, p):
     return to_l / dist[..., None], d2, dist
 
 
+@profiling.spanned("hikari.lights")
 def sample_li(banks: LightBanks, table, ltype, lidx, p, lam, u2,
               scene_radius: float) -> LightSample:
     """Dense spectral sample_li (physical-wavefront/lights.jl:39-396): each
@@ -476,6 +479,7 @@ def sample_li(banks: LightBanks, table, ltype, lidx, p, lam, u2,
     return LightSample(wi=wi, li=li, pdf=pdf, t_max=t_max, is_delta=is_delta, valid=valid)
 
 
+@profiling.spanned("hikari.lights")
 def env_radiance(banks: LightBanks, table, d: torch.Tensor, lam: torch.Tensor):
     """Le(lambda) and solid-angle pdf of escaped rays leaving along d
     (lights.jl:408-500)."""
@@ -484,6 +488,7 @@ def env_radiance(banks: LightBanks, table, d: torch.Tensor, lam: torch.Tensor):
     return le, pdf_distribution_2d(banks.env_dist, uv) / (4.0 * math.pi)
 
 
+@profiling.spanned("hikari.lights")
 def area_light_pdf(banks: LightBanks, aidx, p_ref, p_hit, n_hit):
     """Solid-angle pdf of having sampled p_hit on area light aidx."""
     to_l = p_hit - p_ref

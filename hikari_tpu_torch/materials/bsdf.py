@@ -29,6 +29,7 @@ from ..spectral.rgb2spec import (coeff4_eval, coeff4_illuminant_eval, rgb_albedo
 from ..textures.atlas import CONST_TEX, eval_rgb, eval_scalar
 from .fresnel import fresnel_conductor, fresnel_dielectric
 from .microfacet import effectively_smooth, regularize_alpha, tr_d, tr_g, tr_pdf, tr_sample_wm
+from ..utils import profiling
 from .types import MaterialBanks
 
 INV_PI = 1.0 / math.pi
@@ -124,6 +125,7 @@ def _matte_f(banks, idx, wo, wi, lam, tex):
 def sample_matte(banks: MaterialBanks, idx, wo, lam, u2, uc, tex=None) -> BSDFSample:
     wi = cosine_sample_hemisphere(u2)
     flip = torch.tensor([1.0, 1.0, -1.0], device=wi.device)
+    profiling.host_sync("matte.flip", wi.device)
     wi = torch.where(wo[..., 2:3] < 0.0, wi * flip, wi)
     pdf = abs_cos_theta(wi) * INV_PI
     f = _matte_f(banks, idx, wo, wi, lam, tex)
@@ -513,6 +515,7 @@ def eval_diffuse_transmission(banks, idx, wo, wi, lam, tex=None):
 # --- emission ------------------------------------------------------------------------------
 
 
+@profiling.spanned("hikari.shading")
 def emitted_radiance(banks, idx, lam, cos_wo, tex=None):
     """Le(lambda) of emissive faces; zero on the back unless two-sided. A
     textured emission uplifts its RGB (clamped at 0) as an illuminant."""

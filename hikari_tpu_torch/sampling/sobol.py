@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .._data import load_npy
+from ..utils import profiling
 from .hashes import MASK32, as_i64, fast_owen_scramble, hash_u32x2_int, mix_bits, shr
 
 SOBOL_MATRIX_SIZE = 52
@@ -49,6 +50,7 @@ class ZSobolConfig:
     seed: int
 
 
+@profiling.spanned("hikari.sampler")
 def make_zsobol(width: int, height: int, samples_per_pixel: int, seed: int = 0):
     """compute_zsobol_params (sobol.jl:313-323)."""
     log2_spp = int(np.ceil(np.log2(max(1, samples_per_pixel))))
@@ -82,6 +84,7 @@ def zsobol_get_sample_index(morton: torch.Tensor, dimension: int,
     """Randomized base-4 digit permutation of the Morton index
     (sobol.jl:219-258)."""
     perms = torch.tensor(_PERMUTATIONS, dtype=torch.int64, device=morton.device)
+    profiling.host_sync("sobol.perms", morton.device)
     sample_index = torch.zeros_like(morton)
     pow2 = log2_spp & 1
     dim_mix = as_i64(0x55555555 * int(dimension))
@@ -151,6 +154,7 @@ class PixelSample:
     time: torch.Tensor          # (...,)
 
 
+@profiling.spanned("hikari.sampler")
 def compute_pixel_sample(cfg: ZSobolConfig, px, py, sample_idx) -> PixelSample:
     """Camera dims {lambda:1, jitter:3, time:4, lens:6} (sobol.jl:437-446)."""
     wavelength_u = sample_1d(cfg, px, py, sample_idx, 1)
@@ -162,11 +166,13 @@ def compute_pixel_sample(cfg: ZSobolConfig, px, py, sample_idx) -> PixelSample:
                        lens=torch.stack([lu, lv], -1), time=time)
 
 
+@profiling.spanned("hikari.sampler")
 def path_sample_1d(cfg, px, py, sample_idx, depth: int, local_dim: int):
     """Path dims: base 6 + 11 per depth (see the JAX docstring for the
     per-depth dimension budget)."""
     return sample_1d(cfg, px, py, sample_idx, 6 + depth * 11 + local_dim)
 
 
+@profiling.spanned("hikari.sampler")
 def path_sample_2d(cfg, px, py, sample_idx, depth: int, local_dim: int):
     return sample_2d(cfg, px, py, sample_idx, 6 + depth * 11 + local_dim)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .._data import load_npz
+from ..utils import profiling
 from .piecewise_poly import fit_piecewise_poly, piecewise_eval
 
 CIE_LAMBDA_MIN = 360.0
@@ -95,6 +96,7 @@ _XYZ_FROM_SRGB = (
 def _apply(m, v: torch.Tensor) -> torch.Tensor:
     """(..., 3) vectors through a 3x3 matrix."""
     m = torch.as_tensor(m, dtype=torch.float32, device=v.device)
+    profiling.host_sync("cie.matrix", v.device)
     return (m * v[..., None, :]).sum(-1)
 
 

@@ -1,0 +1,10 @@
+"""integrator_self_ms: the integrator's and the film's spans (hikari.render,
+hikari.lanes, hikari.bounce, hikari.film): self ms per sample on the card's
+timeline, over the profiled units. The program's spans add no sync to the
+run."""
+
+from ._program import self_ms
+
+
+def read(ctx):
+    return self_ms(ctx, "integrator")

@@ -1,0 +1,9 @@
+"""sampler_self_ms: the ZSobol sampler's spans (hikari.sampler): self ms per
+sample on the card's timeline, over the profiled units. The program's spans
+add no sync to the run."""
+
+from ._program import self_ms
+
+
+def read(ctx):
+    return self_ms(ctx, "sampler")

@@ -1,0 +1,9 @@
+"""shading_self_ms: shading's spans (hikari.shading): self ms per sample on the
+card's timeline, over the profiled units. The program's spans add no sync to
+the run."""
+
+from ._program import self_ms
+
+
+def read(ctx):
+    return self_ms(ctx, "shading")
