@@ -10,10 +10,10 @@ exits nonzero without its result line:
    and power limit;
 2. build: csrc/sweep_tiles.cu (flat tile sweeps K1/K2) and
    csrc/sweep_pairs.cu (pair-grid sweeps K5/K6), both instantiations of the
-   shared body csrc/sweep_grid.cuh, and csrc/sweep_inst.cu (instanced
-   sweeps K3/K4), one nvcc each, started together; K1-K6's registers a
-   thread, spilled bytes and resident blocks per SM as the CUDA runtime
-   reports them;
+   shared body csrc/sweep_grid.cuh, csrc/sweep_inst.cu (instanced
+   sweeps K3/K4) and csrc/zsobol.cu (the ZSobol sampler Z1), one nvcc
+   each, started together; K1-K6's and Z1's registers a thread, spilled
+   bytes and resident blocks per SM as the CUDA runtime reports them;
 3. kernels vs plain: the camera, first-bounce and first-bounce NEE
    wavefronts of a 256x256 render of each scene go through each kernel and
    its plain PyTorch version on the same CUDA tensors. Flat scenes: default
@@ -79,7 +79,9 @@ exits nonzero without its result line:
    loop; K5/K6), the instanced default scene and the forest (instanced
    kernels), each with the launch counts reset just before and read just
    after; the image must be finite and not black, the path's two kernels
-   must have launched, and no other sweep, kernel or plain, may have run.
+   must have launched, and no other sweep, kernel or plain, may have run;
+   the sampler kernel Z1 must have launched (its launches are printed on
+   every path that resets the counts, and kept for the kernels record).
    Then each switch of the all-modes path alone on the pair grid, timed
    only. The lights' paths with the same checks: the sphere scene under
    the sun and sky (K1/K2), the forest under its sun and sky (K3/K4, in
@@ -156,7 +158,13 @@ exits nonzero without its result line:
    path's first wavefront (one per bounce), summed per render beside the
    depth-0 call, and the tile kernels K1/K2 on the pair-grid path's
    depth-0 pair lists, so the two decompositions are compared on the same
-   work, with K5's and K6's time over K1's and K2's. Each kernel's bound is
+   work, with K5's and K6's time over K1's and K2's. The sampler kernel
+   Z1 on every call of one wavefront at each benchmark cell's shape
+   (sampler_calls: a 1280x720 VolPath wavefront of 4 samples, 3.69 M
+   lanes, and a FastWavefront frame, 922 k lanes, of the default scene),
+   each against its plain version bit for bit, with its time and its
+   bound (SAMPLER_BOUND) per call and per number of dimensions drawn
+   (time_sampler). Each sweep kernel's bound is
    reckoned from the ray-triangle tests its plain version needs on those
    inputs (see BOUND below); where a call's plain walk would take longer
    than PLAIN_CALL_S, only the kernel is timed, the record's sum of plain
@@ -166,7 +174,8 @@ exits nonzero without its result line:
    record names in "bound_tests".
 
 The line before the last is the per-kernel JSON record (with each
-kernel's launches on path H's examples); the last line is
+kernel's launches on path H's examples; Z1's twice, one record a cell's
+shape, with its launches on each path); the last line is
 {"ok": true, "device": {...}}. It needs no network and one card; the
 kernels are built into hikari_tpu_torch/build/ on first use.
 """
@@ -251,6 +260,43 @@ PEAK_BYTES = 3.35e12
 TEST_FLOP = {"flat": 40, "inst": 48}
 INST_LANE_PAIR_FLOP = 44
 
+# SAMPLER_BOUND: the least time of a call of the sampler kernel Z1
+# (csrc/zsobol.cu), the largest of its bytes (px and py read, the sample
+# index read unless it is one value, 4 bytes written a draw) over the
+# memory rate and the 32-bit integer operations its function needs on
+# each of the two pipes that run them, 64 a clock an SM each: the ALU
+# (logic, shifts, adds, selects) and the FMA pipe (IMAD: multiplies,
+# addresses; the float scale). Counted by step, a 64-bit logic op or
+# shift as two, a 64-bit multiply by a constant as three IMADs:
+# - a lane, once a call ("lane"): the Morton index, four 16-bit halves
+#   spread to even bits (a mask and four shift-xor-mask steps: 9 each),
+#   y's shifted onto x's (4), shifted by log2(spp) (2), the index or'ed in
+#   (1); its three loads' addresses (4 IMAD);
+# - a base-4 digit of a draw ("digit"): the next key, morton >> 2 more (2),
+#   the digit (1); MixBits of key ^ dim_mix: the xor (2), two rounds of
+#   v ^= v >> s (4 each) and v *= c (3 IMAD each), and the last
+#   v ^ (v >> 33) (2, only its high 40 bits are read); (h >> 24) % 24: the
+#   shift (2) and two 32-bit remainders by multiply-high (3 ALU, 4 IMAD);
+#   the permutation's 2 bits from three 64-bit words (1 + 2 compares + 4
+#   selects + 1 + 1 + 1 = 10); the digit shifted into the index (3);
+# - the pow2 tail of an odd log2(spp) ("tail"): a key (2), a MixBits (12,
+#   6 IMAD), its low bit xor'ed in (2);
+# - a draw ("draw"): FastOwen from the reversed value (five logic or add
+#   ops and the last reversal; four multiplies), the float scale (1 IMAD,
+#   the FMA pipe), its clamp (1) and the store's address (1 IMAD); the
+#   conversion to float (16 a clock) never binds;
+# - a generator-matrix row of a Sobol dimension 1 draw ("row"): the index's
+#   bit b spread to a mask and and-xor'ed in (3), and the reversal FastOwen
+#   starts with (1, counted with the rows as "rows"). Sobol dimension 0's
+#   product is the index's low bits reversed, which FastOwen's reversal
+#   undoes: no row and no reversal.
+# Loop control and the kernel's own bounds checks are not counted.
+SAMPLER_OPS = {"lane": (43, 4), "digit": (33, 10), "tail": (16, 6), "draw": (6, 6),
+               "row": (3, 0), "rows": (1, 0)}  # step: (ALU, IMAD) a lane
+SMS = 132
+SM_CLOCK_HZ = 1.98e9
+INT_PER_CLOCK = 64  # thread-operations a clock an SM, on the ALU and on the FMA pipe
+
 
 def log(*args):
     print(*args, flush=True)
@@ -314,6 +360,119 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 SOURCES = {"tiles": "sweep_tiles.cu", "inst": "sweep_inst.cu", "pairs": "sweep_pairs.cu"}
+SAMPLER = "zsobol"  # the sampler kernel Z1's name in the counts and the kernels record
+SAMPLER_LAUNCHES = {}  # path label -> the sampler kernel's launches on that path
+
+
+def reset_counts() -> None:
+    """Zero the sweeps' and the sampler kernel's launch counts."""
+    from hikari_tpu_torch.geometry import sweep
+    from hikari_tpu_torch.sampling import sobol
+
+    sweep.reset_counts()
+    sobol.reset_counts()
+
+
+def sampler_launches(label: str) -> int:
+    """The sampler kernel's launches since reset_counts, kept under the
+    path's label for the kernels record; a path that samples on the card
+    must have launched it."""
+    from hikari_tpu_torch.sampling import sobol
+
+    n = SAMPLER_LAUNCHES[label] = sobol.launches[SAMPLER]
+    if n <= 0:
+        raise SystemExit(f"{label}: the sampler kernel did not launch")
+    return n
+
+
+def sampler_bound(cfg, lanes, draws) -> tuple:
+    """(bound ms, what sets it) of one sampler kernel call: see SAMPLER_BOUND."""
+    n = lanes[0].numel()
+    digits = cfg.n_base4_digits - (cfg.log2_spp & 1)
+    rows = min(2 * cfg.n_base4_digits, 52)
+    steps = {"lane": 1, "digit": digits * len(draws), "tail": (cfg.log2_spp & 1) * len(draws),
+             "draw": len(draws), "row": rows * sum(1 for _, s, _ in draws if s == 1),
+             "rows": sum(1 for _, s, _ in draws if s == 1)}
+    alu, imad = (n * sum(SAMPLER_OPS[k][pipe] * c for k, c in steps.items()) for pipe in (0, 1))
+    n_bytes = n * (16 + (8 if lanes[2].stride(0) else 0) + 4 * len(draws))
+    rate = SMS * INT_PER_CLOCK * SM_CLOCK_HZ
+    times = {"ALU": alu / rate, "IMAD": imad / rate, "bytes": n_bytes / PEAK_BYTES}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def compare_sampler(args, reps=10):
+    """The sampler kernel against its plain version (sobol.draw_plain) on
+    one captured draw_kernel call (cfg, lanes, draws, outs), every value's
+    float32 bits; the kernel's ms (the wrapper call, CUDA events, after a
+    warm-up call), the plain version's (one call) and the bound."""
+    import torch
+    from hikari_tpu_torch.sampling import sobol
+
+    cfg, lanes, draws, _ = args
+    outs = torch.empty((len(draws), lanes[0].numel()), dtype=torch.float32,
+                       device=lanes[0].device)
+    rows = list(outs)
+    sobol.draw_kernel(cfg, lanes, draws, rows)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = torch.stack(sobol.draw_plain(cfg, *lanes, draws))
+    end.record()
+    torch.cuda.synchronize()
+    same = outs.view(torch.int32) == want.view(torch.int32)
+    ms = cuda_ms(lambda: sobol.draw_kernel(cfg, lanes, draws, rows), reps)
+    bound_ms, bound_by = sampler_bound(cfg, lanes, draws)
+    return dict(ok=bool(same.all()), agree=float(same.float().mean()),
+                max_abs_err=float((outs - want).abs().max()), lanes=lanes[0].numel(),
+                dims=len(draws), index_stride=lanes[2].stride(0), ms=ms,
+                plain_ms=start.elapsed_time(end), bound_ms=bound_ms, bound_by=bound_by)
+
+
+def time_sampler(calls, launches, smi, label):
+    """The sampler kernel against its plain version on every captured
+    call, bit for bit; its JSON record: the first call's numbers, the sums
+    over the calls as *_render, and per number of draws a call the mean ms,
+    plain ms and bound ms ("by_dims")."""
+    from hikari_tpu_torch.sampling import sobol
+
+    results = []
+    for i, args in enumerate(calls):
+        r = compare_sampler(args, reps=5 if i == 0 else 3)
+        results.append(r)
+        log(f"[timing] {SAMPLER} {label}, call {i + 1} of {len(calls)}: {r['dims']} dims of "
+            f"{r['lanes']} lanes (index stride {r['index_stride']}), kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}%), bit-equal {'yes' if r['ok'] else 'NO'} "
+            f"[{smi}] -> {'ok' if r['ok'] else 'FAIL'}")
+        if not r["ok"]:
+            raise SystemExit(f"{SAMPLER} {label}, call {i + 1}: the kernel differs from its "
+                             f"plain version on {1 - r['agree']:.2e} of the values")
+    by_dims = {}
+    for r in results:
+        by_dims.setdefault(r["dims"], []).append(r)
+    per = {k: {"calls": len(v), **{f: sum(r[f] for r in v) / len(v)
+                                   for f in ("ms", "plain_ms", "bound_ms")}}
+           for k, v in sorted(by_dims.items())}
+    regs, spill, blocks = sobol.kernel_attributes()
+    first = results[0]
+    ms, plain, bound = (sum(r[f] for r in results) for f in ("ms", "plain_ms", "bound_ms"))
+    log(f"[timing] {SAMPLER} {label}, {len(calls)} calls of {first['lanes']} lanes: kernel "
+        f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bound:.3f} ms ({100 * bound / ms:.1f}%); "
+        + "; ".join(f"{k} dims: {v['ms']:.4f} ms a call, {100 * v['bound_ms'] / v['ms']:.1f}% "
+                    f"of bound, {v['plain_ms'] / v['ms']:.0f}x the plain version"
+                    for k, v in per.items())
+        + f"; {regs} registers, {spill} B spilled, {blocks} blocks/SM [{smi}]")
+    return {"name": SAMPLER, "route": "cuda", "source": "hikari_tpu_torch/csrc/zsobol.cu",
+            "replaces": "", "shape": label, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in results), "agree": first["agree"],
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": None, "pairs_listed": None,
+            "pairs_swept": None, "bit_equal": all(r["ok"] for r in results),
+            "min_agree": min(r["agree"] for r in results), "calls_timed": len(calls),
+            "calls_compared": len(results), "calls_subset_compared": 0, "ms_render": ms,
+            "plain_ms_render": plain, "bound_ms_render": bound, "bound_tests": None,
+            "lanes": first["lanes"], "by_dims": per, "registers": regs, "spill_bytes": spill,
+            "blocks_per_sm": blocks, "launches_paths": dict(SAMPLER_LAUNCHES)}
 
 
 def kernel_and_plain(name):
@@ -643,15 +802,16 @@ def timed_render(label, sc, cam, vp, names, smi, rays, nonfinite, filt=None, fil
     its sample batch, counted by an earlier render_lanes of the same
     samples (None: not counted). The image must be finite and not black,
     the kernels `names` must have launched and no other sweep (kernel or
-    plain) may have run. Returns (launch counts, dict of the film, its
-    seconds, ms per sample and mean RGB)."""
+    plain) may have run, and the sampler kernel must have launched.
+    Returns (launch counts, the sampler kernel's under SAMPLER; dict of the
+    film, its seconds, ms per sample and mean RGB)."""
     import torch
     import hikari_tpu_torch as hk
     from hikari_tpu_torch.geometry import sweep
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sweep.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     film = hk.render(vp, sc, cam, film, filt)
     img = hk.framebuffer(film)
@@ -659,6 +819,7 @@ def timed_render(label, sc, cam, vp, names, smi, rays, nonfinite, filt=None, fil
     wall = time.perf_counter() - t0
     counts = dict(sweep.launches)
     plain_runs = dict(sweep.plain_cuda_runs)
+    sampler = sampler_launches(label)
     peak = torch.cuda.max_memory_allocated()
     finite = bool(torch.isfinite(img).all())
     mean_rgb = float(img.mean())
@@ -672,11 +833,11 @@ def timed_render(label, sc, cam, vp, names, smi, rays, nonfinite, filt=None, fil
         f"{peak / 2**30:.2f} GiB [{smi}]")
     log(f"[{label}] mean RGB {mean_rgb:.6f} (weighted sum {mean_sum:.6f}), finite {finite}, "
         f"nonfinite lanes {nonfinite:.0f}, launches {counts}, plain sweeps on CUDA "
-        f"{plain_runs}")
+        f"{plain_runs}, sampler kernel launches {sampler}")
     if not finite or nonfinite != 0.0 or mean_sum <= 0.0:
         raise SystemExit(f"{label}: output is not a finite, non-black image")
     launched_exactly(label, names, counts, plain_runs)
-    return counts, dict(film=film, secs=wall, ms_sample=wall / MAIN_SPP * 1e3,
+    return {**counts, SAMPLER: sampler}, dict(film=film, secs=wall, ms_sample=wall / MAIN_SPP * 1e3,
                         mean_rgb=mean_rgb, peak=peak)
 
 
@@ -898,14 +1059,48 @@ def inst_subset_compare(args, expected_s, seed=7):
     return ok, exact, len(take), n_tiles, agree, start.elapsed_time(end)
 
 
+def sampler_calls(sc, smi):
+    """The sampler kernel's calls (draw_kernel's arguments, Recorder) of one
+    wavefront of the default scene at each benchmark cell's shape, 1280x720:
+    a VolPath render_lanes of depth 5 at 256 spp over one 4-sample batch
+    (3.69 M lanes, as the final cell), and one FastWavefront frame at 1 spp
+    (922 k lanes, as the preview cell)."""
+    import torch
+    import hikari_tpu_torch as hk
+    from hikari_tpu_torch.integrators import preview
+    from hikari_tpu_torch.integrators.volpath import render_lanes
+    from hikari_tpu_torch.sampling import sobol
+    from hikari_tpu_torch.scenes import scene_camera
+
+    w, h, k = 1280, 720, 4
+    cam = scene_camera("default", w, h)
+    lanes = torch.arange(w * h, device=sc.device)
+    with Recorder(sobol, ["draw_kernel"]) as final:
+        render_lanes(hk.VolPath(max_depth=5, samples_per_pixel=256), sc, cam, hk.make_filter(),
+                     torch.arange(k, device=sc.device).repeat_interleave(w * h),
+                     (lanes % w).repeat(k), (lanes // w).repeat(k))
+    with Recorder(sobol, ["draw_kernel"]) as frame:
+        preview.preview_lanes(hk.FastWavefront(), sc, cam, 0)
+    torch.cuda.synchronize()
+    calls = final.calls["draw_kernel"], frame.calls["draw_kernel"]
+    log(f"[timing] {SAMPLER}: captured {len(calls[0])} calls of a final wavefront "
+        f"({sum(len(c[2]) for c in calls[0])} dims) and {len(calls[1])} of a preview frame "
+        f"({sum(len(c[2]) for c in calls[1])} dims) at {w}x{h} [{smi}]")
+    return calls
+
+
 def time_kernels(cases, counts, smi, label="at main-path shape"):
     """Kernels vs plain on the recorded sweep calls of a main path's first
     wavefront, one per bounce; returns their JSON records: the depth-0 call's
     numbers, and the sums over the calls as *_render (the plain time null
     where a call's plain version was left out, see PLAIN_CALL_S; the bound
-    then from the final carry's test count)."""
+    then from the final carry's test count). The sampler kernel's calls go
+    to time_sampler."""
     records = []
     for name, replaces, calls, tl in cases:
+        if name == SAMPLER:
+            records.append(time_sampler(calls, counts[name], smi, label))
+            continue
         kernel, _ = kernel_and_plain(name)
         results, kernel_ms, bounds, subsets = [], [], [], []
         for i, args in enumerate(calls):
@@ -1597,7 +1792,7 @@ def preview_path(label, integ, sc, cam, smi):
     captured and held against its plain version bit for bit (hold_path).
     Then the timed render_preview with the launch counts reset just before
     and read just after: finite, not black, K1 and K2 launched and no other
-    sweep."""
+    sweep, and the sampler kernel launched."""
     import torch
     import hikari_tpu_torch as hk
     from hikari_tpu_torch.geometry import sweep, wavefront
@@ -1626,18 +1821,20 @@ def preview_path(label, integ, sc, cam, smi):
     hk.render_preview(integ, sc, cam)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sweep.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     img = hk.framebuffer(hk.render_preview(integ, sc, cam))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, plain_runs = dict(sweep.launches), dict(sweep.plain_cuda_runs)
+    sampler = sampler_launches(label)
     spp = integ.samples_per_pixel
     finite, mean_rgb = bool(torch.isfinite(img).all()), float(img.mean())
     log(f"[{label}] render_preview {w}x{h}, {spp} spp: {wall:.3f} s, "
         f"{wall / spp * 1e3:.1f} ms/sample, {rays * spp / wall / 1e6:.3f} Mray/s (sample 0's "
         f"rays x {spp}), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean RGB "
-        f"{mean_rgb:.6f}, finite {finite}; launches {counts} [{smi}]")
+        f"{mean_rgb:.6f}, finite {finite}; launches {counts}, sampler kernel launches "
+        f"{sampler} [{smi}]")
     if not finite or mean_rgb <= 0.0:
         raise SystemExit(f"{label}: output is not a finite, non-black image")
     launched_exactly(label, names, counts, plain_runs)
@@ -1653,7 +1850,7 @@ def sppm_path(sc, cam, smi):
     synchronising stage timers: ms an iteration of the camera pass, photon
     pass, sort, gather and update; the deposits of each photon pass; the
     mean radius after the last iteration. Finite, not black, K1 and K2
-    launched and no other sweep."""
+    launched and no other sweep, and the sampler kernel launched."""
     import torch
     import hikari_tpu_torch as hk
     from hikari_tpu_torch.geometry import sweep, wavefront
@@ -1690,7 +1887,7 @@ def sppm_path(sc, cam, smi):
               "update": [(sppm, "_sppm_update")]}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sweep.reset_counts()
+    reset_counts()
     sppm._sort_photons, sppm._sppm_update = counted_sort, kept_update
     try:
         with StageTimers(stages) as ins:
@@ -1701,6 +1898,7 @@ def sppm_path(sc, cam, smi):
     finally:
         sppm._sort_photons, sppm._sppm_update = sort, update
     counts, plain_runs = dict(sweep.launches), dict(sweep.plain_cuda_runs)
+    sampler = sampler_launches("sppm")
     n_it = integ.iterations
     radius = float(torch.sqrt(last["state"]["r2"]).mean())
     finite, mean_rgb = bool(torch.isfinite(img).all()), float(img.mean())
@@ -1710,7 +1908,7 @@ def sppm_path(sc, cam, smi):
         f"{deposits} of {integ.photons_per_iteration * (integ.max_depth - 1)} slots; mean "
         f"radius after the last iteration {radius:.6f} (initial {integ.initial_radius}); peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean RGB {mean_rgb:.6f}, finite "
-        f"{finite}; launches {counts} [{smi}]")
+        f"{finite}; launches {counts}, sampler kernel launches {sampler} [{smi}]")
     if not finite or mean_rgb <= 0.0 or not deposits or min(deposits) <= 0:
         raise SystemExit("sppm: the image is not finite and lit, or a photon pass deposited "
                          "nothing")
@@ -1794,10 +1992,11 @@ def sharded_check(sc, cam, ref_film, smi):
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
     try:
         mesh = hk.make_render_mesh(dp=1)
-        sweep.reset_counts()
+        reset_counts()
         film, secs = cuda_secs(lambda: hk.render_sharded(
             hk.VolPath(max_depth=5, samples_per_pixel=MAIN_SPP), sc, cam, mesh))
         counts, plain_runs = dict(sweep.launches), dict(sweep.plain_cuda_runs)
+        sampler = sampler_launches("sharded")
     finally:
         dist.destroy_process_group()
     err = max(float(((getattr(film, k) - getattr(ref_film, k)).abs()
@@ -1807,7 +2006,8 @@ def sharded_check(sc, cam, ref_film, smi):
     log(f"[sharded] render_sharded on a ('dp', 'sp') = {tuple(mesh.mesh.shape)} NCCL mesh, "
         f"{cam.resolution[0]}x{cam.resolution[1]}, {MAIN_SPP} spp: {secs:.3f} s, "
         f"{secs / MAIN_SPP * 1e3:.1f} ms/sample; its film against render's: largest relative "
-        f"difference {err:.2e} (tolerance {SHARDED_RTOL:g}); launches {counts} [{smi}] -> "
+        f"difference {err:.2e} (tolerance {SHARDED_RTOL:g}); launches {counts}, sampler "
+        f"kernel launches {sampler} [{smi}] -> "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("render_sharded does not equal render")
@@ -1977,10 +2177,12 @@ def example_path(name, smi):
     (EXAMPLE_ARGS), writing into chiprun_out/, with the launch counts reset
     just before and read just after: the PNG must decode (read_png) to a
     finite, lit image of the render's size, the path's closest kernel must
-    have launched, no other family's kernel and no plain sweep on the card;
+    have launched, no other family's kernel and no plain sweep on the card,
+    and the sampler kernel;
     then each kernel it launched against its plain version, bit for bit, on
     its first captured call, or on every one for EVERY_CALL_EXAMPLES
-    (hold_path). Returns the launch counts."""
+    (hold_path). Returns the launch counts, the sampler kernel's under
+    SAMPLER."""
     import importlib.util
 
     import numpy as np
@@ -1999,13 +2201,14 @@ def example_path(name, smi):
     module = instanced if name in INST_EXAMPLES else wavefront
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sweep.reset_counts()
+    reset_counts()
     recorder = Recorder if name in EVERY_CALL_EXAMPLES else FirstCalls
     with recorder(module, names) as rec, \
             RenderProbe(one_wavefront=name not in INST_EXAMPLES) as probe:
         result, secs = cuda_secs(lambda: script.main([*out, *EXAMPLE_ARGS[name]]))
     counts = dict(sweep.launches)
     plain_runs = dict(sweep.plain_cuda_runs)
+    sampler = sampler_launches(f"torch_{name}")
     peak = torch.cuda.max_memory_allocated()
     spp, (w, h) = probe.vp.samples_per_pixel, probe.cam.resolution
     img = hk.read_png(png)
@@ -2015,7 +2218,8 @@ def example_path(name, smi):
         f"in main, render {w}x{h}, {spp} spp, depth {probe.vp.max_depth}: {probe.secs:.3f} s, "
         f"{probe.secs / spp * 1e3:.1f} ms/sample, {probe.rays:.0f} rays "
         f"({probe.rays / probe.secs / 1e6:.3f} Mray/s), peak {peak / 2**30:.2f} GiB; launches "
-        f"{ {k: v for k, v in counts.items() if v} }; {png.relative_to(ROOT)} decodes to "
+        f"{ {k: v for k, v in counts.items() if v} }, sampler kernel launches {sampler}; "
+        f"{png.relative_to(ROOT)} decodes to "
         f"{img.shape}, mean {img.mean():.4f} [{smi}] -> {'ok' if lit else 'FAIL'}")
     if not lit:
         raise SystemExit(f"torch_{name}: the PNG does not decode to a finite, lit image")
@@ -2026,7 +2230,7 @@ def example_path(name, smi):
     tl = None if name in INST_EXAMPLES else result["scene"].treelets
     if name in EVERY_CALL_EXAMPLES:
         hold_path(f"torch_{name}", rec, [(k, tl) for k in names if counts[k]], smi)
-        return counts
+        return {**counts, SAMPLER: sampler}
     for kname in names:
         if not counts[kname]:
             continue
@@ -2038,7 +2242,7 @@ def example_path(name, smi):
         if not (r["ok"] and r["exact"]):
             raise SystemExit(f"torch_{name}: {kname} does not equal its plain version bit for "
                              f"bit on its first call")
-    return counts
+    return {**counts, SAMPLER: sampler}
 
 
 def generator_check(smi):
@@ -2121,22 +2325,24 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # phase 2: build the three sources at once, one nvcc each
+    # phase 2: build the four sources at once, one nvcc each
     from concurrent.futures import ThreadPoolExecutor
 
     from hikari_tpu_torch.geometry import (instanced, sweep, sweep_inst, sweep_pairs,
                                            wavefront)
+    from hikari_tpu_torch.sampling import sobol
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = [pool.submit(sweep.sweep_library), pool.submit(sweep_inst.inst_library),
-                  pool.submit(sweep_pairs.pairs_library)]
+                  pool.submit(sweep_pairs.pairs_library), pool.submit(sobol.zsobol_library)]
         for b in builds:
             b.result()
-    log(f"[build] nvcc built csrc/sweep_tiles.cu, csrc/sweep_inst.cu and "
-        f"csrc/sweep_pairs.cu in {time.perf_counter() - t0:.1f} s "
+    log(f"[build] nvcc built csrc/sweep_tiles.cu, csrc/sweep_inst.cu, csrc/sweep_pairs.cu "
+        f"and csrc/zsobol.cu in {time.perf_counter() - t0:.1f} s "
         f"(flags: {' '.join(sweep.NVCC_FLAGS)})")
-    for name, (regs, spill, blocks) in kernel_attributes().items():
+    for name, (regs, spill, blocks) in {**kernel_attributes(),
+                                        SAMPLER: sobol.kernel_attributes()}.items():
         log(f"[build] {name}: {regs} registers a thread, {spill} B spilled, "
             f"{blocks} resident blocks per SM")
 
@@ -2402,6 +2608,7 @@ def main() -> int:
 
     # phase 6: kernel times at the main paths' shapes (after the counts were read)
     flat_tl = scenes["default"].treelets
+    final_calls, frame_calls = sampler_calls(scenes["default"], smi)
     records = time_kernels([
         ("closest_tiles", "hikari_tpu/geometry/wavefront.py:999",
          flat_rec.calls["closest_tiles"], flat_tl),
@@ -2417,7 +2624,12 @@ def main() -> int:
          pair_rec.calls["closest_pairs"], flat_tl),
         ("occlusion_pairs", "hikari_tpu/geometry/wavefront.py:827",
          pair_rec.calls["occlusion_pairs"], flat_tl),
-    ], pair_counts, smi)
+    ], pair_counts, smi) + time_kernels([
+        (SAMPLER, "", final_calls, None),
+    ], {SAMPLER: flat_counts[SAMPLER]}, smi, label="at the final cell's shape") + time_kernels([
+        (SAMPLER, "", frame_calls, None),
+    ], {SAMPLER: SAMPLER_LAUNCHES["fast"]}, smi, label="at the preview cell's shape")
+    del final_calls, frame_calls
     # the tile kernels on the pair-grid path's depth-0 pair lists: the two
     # decompositions on the same work (printed only)
     same_work = time_kernels([(tiles, "", pair_rec.calls[pairs][:1], flat_tl)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 MASK32 = 0xFFFFFFFF
+_U64 = (1 << 64) - 1
 _R = 47
 
 
@@ -79,8 +80,14 @@ def hash_u32x2(a: torch.Tensor, b: torch.Tensor, seed: int = 0) -> torch.Tensor:
 
 
 def hash_u32x2_int(a: int, b: int, seed: int = 0) -> int:
-    """hash_u32x2 of two host integers, as an int64 value."""
-    return int(hash_u32x2(torch.tensor([a]), torch.tensor([b]), seed)[0])
+    """hash_u32x2 of two host integers, as an int64 value: murmur_hash_64a
+    of one 8-byte word on Python integers, with no tensor operation."""
+    m, mask = _M & _U64, _U64
+    k = ((((b & MASK32) << 32) | (a & MASK32)) * m) & mask
+    k = ((k ^ (k >> _R)) * m) & mask
+    h = ((((seed ^ (8 * m)) & mask) ^ k) * m) & mask
+    h = ((h ^ (h >> _R)) * m) & mask
+    return as_i64(h ^ (h >> _R))
 
 
 def reverse_bits32(v: torch.Tensor) -> torch.Tensor:

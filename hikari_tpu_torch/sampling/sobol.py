@@ -5,16 +5,28 @@ indices, randomized base-4 digit permutations and generator-matrix Sobol
 points with FastOwen scrambling. Every sample is a pure function of
 (pixel, sample index, dimension, seed) and equals the JAX package's bit
 for bit.
+
+The entry points (``compute_pixel_sample``, ``path_sample_1d``,
+``path_sample_2d``) draw every scrambled dimension of a call on CUDA
+tensors in one launch of ``csrc/zsobol.cu``, which computes the Morton
+index, the digit permutation, the generator-matrix product and FastOwen
+in registers and equals the plain version below bit for bit; on CPU
+tensors they run the plain version (``sample_1d`` / ``sample_2d``). The
+counter ``sobol_dims`` (sites ``kernel`` and ``plain``) counts the
+dimensions each path drew.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from .._build import build_shared_library
 from .._data import load_npy
 from ..utils import profiling
 from .hashes import MASK32, as_i64, fast_owen_scramble, hash_u32x2_int, mix_bits, shr
@@ -128,20 +140,146 @@ def _scrambled(cfg, mort, dim: int, sobol_dim: int, seed_hash: int):
     return _finalize(fast_owen_scramble(v, seed_hash))
 
 
+def draw_plain(cfg: ZSobolConfig, px, py, sample_idx, draws) -> list:
+    """The scrambled dimensions `draws` ((dim, sobol_dim, seed_hash) triples,
+    as ``_scrambled`` takes them) of every lane, one tensor each, on int64
+    tensor operations: the plain version of ``draw_kernel``."""
+    mort = morton_index(cfg, px, py, sample_idx)
+    return [_scrambled(cfg, mort, *d) for d in draws]
+
+
 def sample_1d(cfg: ZSobolConfig, px, py, sample_idx, dim: int) -> torch.Tensor:
     """1D sample at dimension dim (sobol.jl:268-282)."""
-    mort = morton_index(cfg, px, py, sample_idx)
-    h = hash_u32x2_int(dim + 1, cfg.seed)
-    return _scrambled(cfg, mort, dim, 0, h & MASK32)
+    return draw_plain(cfg, px, py, sample_idx, draws_1d(cfg, dim))[0]
 
 
 def sample_2d(cfg: ZSobolConfig, px, py, sample_idx, dim: int):
     """2D sample at dimension dim (sobol.jl:289-310)."""
-    mort = morton_index(cfg, px, py, sample_idx)
+    return tuple(draw_plain(cfg, px, py, sample_idx, draws_2d(cfg, dim)))
+
+
+def draws_1d(cfg: ZSobolConfig, dim: int) -> list:
+    """The (dim, sobol_dim, seed_hash) triple of a 1D sample, on host
+    integers."""
+    return [(dim, 0, hash_u32x2_int(dim + 1, cfg.seed) & MASK32)]
+
+
+def draws_2d(cfg: ZSobolConfig, dim: int) -> list:
+    """The two triples (u1, u2) of a 2D sample."""
     h = hash_u32x2_int(dim + 2, cfg.seed)
-    u1 = _scrambled(cfg, mort, dim, 0, h & MASK32)
-    u2 = _scrambled(cfg, mort, dim, 1, (h >> 32) & MASK32)
-    return u1, u2
+    return [(dim, 0, h & MASK32), (dim, 1, (h >> 32) & MASK32)]
+
+
+def camera_draws(cfg: ZSobolConfig) -> list:
+    """The camera stage's six triples: wavelength (dim 1), jitter x and y
+    (3), time (4), lens u and v (6)."""
+    return [*draws_1d(cfg, 1), *draws_2d(cfg, 3), *draws_1d(cfg, 4), *draws_2d(cfg, 6)]
+
+
+# --- CUDA kernel -------------------------------------------------------------------
+
+_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "zsobol.cu"
+MAX_DRAWS = 8  # dimensions a launch draws (zsobol.cu kMaxDraws)
+MAX_BASE4_DIGITS = 32  # digits the kernel's 64-bit Morton index holds
+# kernel launches, counted by draw_kernel where it launches, since reset_counts
+launches = {"zsobol": 0}
+
+
+def reset_counts() -> None:
+    launches["zsobol"] = 0
+
+
+@functools.cache
+def zsobol_library() -> ctypes.CDLL:
+    """Build (at first use) and load csrc/zsobol.cu."""
+    import subprocess
+
+    from ..geometry.sweep import NVCC_FLAGS, _nvcc
+
+    try:
+        path = build_shared_library("zsobol", _SOURCE, [_nvcc(), *NVCC_FLAGS])
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"nvcc failed to build {_SOURCE}:\n{e.stderr}") from e
+    lib = ctypes.CDLL(str(path))
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.hikari_zsobol.argtypes = [p, i64, p, i64, p, i64, i64, i, i, i, i] + [p] * 6
+    lib.hikari_zsobol.restype = i
+    lib.hikari_zsobol_attributes.argtypes = [p]
+    lib.hikari_zsobol_attributes.restype = i
+    return lib
+
+
+def kernel_attributes() -> tuple:
+    """(registers a thread, spill bytes a thread, resident blocks per SM) of
+    the sampler kernel, as the CUDA runtime reports them."""
+    out = (ctypes.c_int * 3)()
+    err = zsobol_library().hikari_zsobol_attributes(ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"hikari_zsobol_attributes failed: cudaError {err}")
+    return tuple(out)
+
+
+def flat_lanes(px, py, sample_idx):
+    """px, py and the sample index broadcast together -> their shape and
+    three 1-D int64 views of its elements; an index given as one value
+    (a number, a 0-dim tensor, or one expanded over the lanes) stays one,
+    with stride 0."""
+    px = torch.as_tensor(px)
+    if not isinstance(sample_idx, torch.Tensor):
+        sample_idx = torch.full((), int(sample_idx), dtype=torch.int64, device=px.device)
+    px, py, si = torch.broadcast_tensors(
+        *(torch.as_tensor(t, device=px.device).long() for t in (px, py, sample_idx)))
+    return px.shape, [t.reshape(-1) for t in (px, py, si)]
+
+
+def draw_kernel(cfg: ZSobolConfig, lanes, draws, outs) -> None:
+    """Draw the scrambled dimensions `draws` ((dim, sobol_dim, seed_hash)
+    triples, as ``_scrambled`` takes them) of every lane on the card, in one
+    launch: draw j into outs[j], a 1-D float32 CUDA tensor (any stride) with
+    an element a lane. lanes: ``flat_lanes``' three views. Raises on what
+    the kernel does not take; there is no CPU version."""
+    dev = lanes[0].device
+    n = lanes[0].numel()
+    if dev.type != "cuda":
+        raise ValueError(f"draw_kernel runs the sampler kernel on the card, got {dev}")
+    for t in lanes:
+        if t.device != dev or t.dtype != torch.int64 or t.shape != (n,):
+            raise ValueError(f"lanes must be three int64 ({n},) tensors on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if not 1 <= len(draws) == len(outs) <= MAX_DRAWS:
+        raise ValueError(f"draw_kernel takes 1 to {MAX_DRAWS} draws, each with an output; "
+                         f"got {len(draws)} and {len(outs)}")
+    if not 0 <= cfg.n_base4_digits <= MAX_BASE4_DIGITS or not 0 <= cfg.log2_spp < 64:
+        raise ValueError(f"the sampler kernel takes at most {MAX_BASE4_DIGITS} base-4 digits "
+                         f"and fewer than 2^64 samples a pixel, got {cfg}")
+    for o in outs:
+        if o.device != dev or o.dtype != torch.float32 or o.shape != (n,):
+            raise ValueError(f"an output must be a float32 ({n},) tensor on {dev}, "
+                             f"got {o.dtype} {tuple(o.shape)} on {o.device}")
+    k = len(draws)
+    dims = (ctypes.c_uint64 * k)(*(int(d) for d, _, _ in draws))
+    sobol_dims = (ctypes.c_int * k)(*(int(s) for _, s, _ in draws))
+    seeds = (ctypes.c_uint32 * k)(*(int(h) & MASK32 for _, _, h in draws))
+    out_ptrs = (ctypes.c_void_p * k)(*(o.data_ptr() for o in outs))
+    strides = (ctypes.c_int64 * k)(*(o.stride(0) for o in outs))
+    px, py, si = lanes
+    err = zsobol_library().hikari_zsobol(
+        px.data_ptr(), px.stride(0), py.data_ptr(), py.stride(0), si.data_ptr(), si.stride(0),
+        n, cfg.log2_spp, cfg.n_base4_digits, min(2 * cfg.n_base4_digits, SOBOL_MATRIX_SIZE), k,
+        dims, sobol_dims, seeds, out_ptrs, strides,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"hikari_zsobol launch failed: cudaError {err}")
+    launches["zsobol"] += 1
+
+
+def _path_dim(depth: int, local_dim: int) -> int:
+    """Path dims: base 6 + 11 per depth (see the JAX docstring for the
+    per-depth dimension budget)."""
+    return 6 + depth * 11 + local_dim
+
+
+# --- entry points --------------------------------------------------------------------
 
 
 @dataclass
@@ -154,25 +292,53 @@ class PixelSample:
     time: torch.Tensor          # (...,)
 
 
+def _on_card(px) -> bool:
+    return isinstance(px, torch.Tensor) and px.is_cuda
+
+
 @profiling.spanned("hikari.sampler")
 def compute_pixel_sample(cfg: ZSobolConfig, px, py, sample_idx) -> PixelSample:
     """Camera dims {lambda:1, jitter:3, time:4, lens:6} (sobol.jl:437-446)."""
-    wavelength_u = sample_1d(cfg, px, py, sample_idx, 1)
-    jx, jy = sample_2d(cfg, px, py, sample_idx, 3)
-    time = sample_1d(cfg, px, py, sample_idx, 4)
-    lu, lv = sample_2d(cfg, px, py, sample_idx, 6)
-    return PixelSample(jitter=torch.stack([jx, jy], -1),
-                       wavelength_u=wavelength_u,
-                       lens=torch.stack([lu, lv], -1), time=time)
+    draws = camera_draws(cfg)
+    if not _on_card(px):
+        profiling.count("sobol_dims", len(draws), "plain")
+        wavelength_u, jx, jy, time, lu, lv = draw_plain(cfg, px, py, sample_idx, draws)
+        return PixelSample(jitter=torch.stack([jx, jy], -1),
+                           wavelength_u=wavelength_u,
+                           lens=torch.stack([lu, lv], -1), time=time)
+    profiling.count("sobol_dims", len(draws), "kernel")
+    shape, lanes = flat_lanes(px, py, sample_idx)
+    n = shape.numel()
+    jitter, lens = (torch.empty((n, 2), dtype=torch.float32, device=px.device)
+                    for _ in range(2))
+    wavelength_u, time = (torch.empty(n, dtype=torch.float32, device=px.device)
+                          for _ in range(2))
+    draw_kernel(cfg, lanes, draws,
+                [wavelength_u, jitter[:, 0], jitter[:, 1], time, lens[:, 0], lens[:, 1]])
+    return PixelSample(jitter=jitter.view(*shape, 2), wavelength_u=wavelength_u.view(shape),
+                       lens=lens.view(*shape, 2), time=time.view(shape))
 
 
 @profiling.spanned("hikari.sampler")
 def path_sample_1d(cfg, px, py, sample_idx, depth: int, local_dim: int):
-    """Path dims: base 6 + 11 per depth (see the JAX docstring for the
-    per-depth dimension budget)."""
-    return sample_1d(cfg, px, py, sample_idx, 6 + depth * 11 + local_dim)
+    """1D sample at path dimension (depth, local_dim)."""
+    return _path_draws(cfg, px, py, sample_idx, draws_1d(cfg, _path_dim(depth, local_dim)))[0]
 
 
 @profiling.spanned("hikari.sampler")
 def path_sample_2d(cfg, px, py, sample_idx, depth: int, local_dim: int):
-    return sample_2d(cfg, px, py, sample_idx, 6 + depth * 11 + local_dim)
+    """2D sample (u1, u2) at path dimension (depth, local_dim)."""
+    return _path_draws(cfg, px, py, sample_idx, draws_2d(cfg, _path_dim(depth, local_dim)))
+
+
+def _path_draws(cfg, px, py, sample_idx, draws) -> tuple:
+    """The path dims `draws` as tensors of the lanes' shape: on the card
+    rows of one (k, n) output of one launch, elsewhere the plain version."""
+    if not _on_card(px):
+        profiling.count("sobol_dims", len(draws), "plain")
+        return tuple(draw_plain(cfg, px, py, sample_idx, draws))
+    profiling.count("sobol_dims", len(draws), "kernel")
+    shape, lanes = flat_lanes(px, py, sample_idx)
+    out = torch.empty((len(draws), shape.numel()), dtype=torch.float32, device=px.device)
+    draw_kernel(cfg, lanes, draws, list(out))
+    return out.view(len(draws), *shape).unbind(0)

@@ -50,7 +50,8 @@ place where the host waits for the card. The spans of the render path:
 Counters: ``host_syncs`` (by site), ``pairs_listed`` and ``lanes_swept``
 (per sweep: the pair list's length; the live prefix swept and the input
 lanes), ``rays_traced`` (the device sums of ``render_lanes`` and the
-preview's lanes).
+preview's lanes), ``sobol_dims`` (scrambled dimensions the sampler drew,
+sites ``kernel`` and ``plain``).
 """
 
 from __future__ import annotations

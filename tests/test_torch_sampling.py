@@ -54,8 +54,13 @@ def test_fast_owen_scramble_bit_exact():
     np.testing.assert_array_equal(t.numpy(), j.astype(np.int64))
 
 
-# (width, height, spp, seed): spp 2 and 8 take the odd-log2 (pow2) branch
-CONFIGS = [(64, 64, 1, 0), (800, 800, 4, 0), (100, 60, 2, 7), (256, 256, 8, 3)]
+# (width, height, spp, seed): spp 2, 8 and 32,768 take the odd-log2 (pow2)
+# branch; 1280x720 is the benchmark's film (256 spp: 15 base-4 digits, 30
+# generator-matrix rows), and at 32,768 and 65,536 spp the product reads 38
+# rows, past 32
+CONFIGS = [(64, 64, 1, 0), (800, 800, 4, 0), (100, 60, 2, 7), (256, 256, 8, 3),
+           (1280, 720, 256, 0), (1280, 720, 2, 7), (1280, 720, 32768, 7),
+           (1280, 720, 65536, 2**32 - 1)]
 
 
 def _lanes(w, h, n=700, seed=0):
@@ -96,3 +101,23 @@ def test_path_samples_bit_exact(depth):
         for a, b in zip(tsb.path_sample_2d(tcfg, *targs, depth, dim),
                         jsb.path_sample_2d(jcfg, *jargs, depth, dim)):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("depth", [0, 31])
+@pytest.mark.parametrize("spp", [256, 32768, 65536])
+def test_path_samples_bit_exact_on_the_benchmark_film(spp, depth):
+    """1280x720 with the sample index drawn over the whole pixel's range."""
+    w, h, seed = 1280, 720, 2**32 - 1
+    px, py = _lanes(w, h, seed=spp + depth)
+    si = np.random.RandomState(depth).randint(0, spp, px.size).astype(np.uint32)
+    jcfg, tcfg = jsb.make_zsobol(w, h, spp, seed=seed), tsb.make_zsobol(w, h, spp, seed=seed)
+    jargs = (jnp.asarray(px), jnp.asarray(py), jnp.asarray(si))
+    targs = tuple(torch.from_numpy(a.astype(np.int64)) for a in (px, py, si))
+    for dim in (0, 5, 6, 9, 10):
+        np.testing.assert_array_equal(
+            tsb.path_sample_1d(tcfg, *targs, depth, dim).numpy(),
+            np.asarray(jsb.path_sample_1d(jcfg, *jargs, depth, dim)), err_msg=f"1d {dim}")
+    for dim in (0, 1, 3, 7):
+        for a, b in zip(tsb.path_sample_2d(tcfg, *targs, depth, dim),
+                        jsb.path_sample_2d(jcfg, *jargs, depth, dim)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=f"2d {dim}")
