@@ -11,8 +11,9 @@ exits nonzero without its result line:
 2. build: csrc/sweep_tiles.cu (flat tile sweeps K1/K2) and
    csrc/sweep_pairs.cu (pair-grid sweeps K5/K6), both instantiations of the
    shared body csrc/sweep_grid.cuh, csrc/sweep_inst.cu (instanced
-   sweeps K3/K4) and csrc/zsobol.cu (the ZSobol sampler Z1), one nvcc
-   each, started together; K1-K6's and Z1's registers a thread, spilled
+   sweeps K3/K4), csrc/zsobol.cu (the ZSobol sampler Z1) and
+   csrc/ray_prep.cu (the traversal driver's lane stage L1), one nvcc each,
+   started together; K1-K6's, Z1's and L1's registers a thread, spilled
    bytes and resident blocks per SM as the CUDA runtime reports them;
 3. kernels vs plain: the camera, first-bounce and first-bounce NEE
    wavefronts of a 256x256 render of each scene go through each kernel and
@@ -80,8 +81,9 @@ exits nonzero without its result line:
    kernels), each with the launch counts reset just before and read just
    after; the image must be finite and not black, the path's two kernels
    must have launched, and no other sweep, kernel or plain, may have run;
-   the sampler kernel Z1 must have launched (its launches are printed on
-   every path that resets the counts, and kept for the kernels record).
+   the sampler kernel Z1 and the lane-stage kernel L1 must have launched
+   (their launches are printed on every path that resets the counts, and
+   kept for the kernels record).
    Then each switch of the all-modes path alone on the pair grid, timed
    only. The lights' paths with the same checks: the sphere scene under
    the sun and sky (K1/K2), the forest under its sun and sky (K3/K4, in
@@ -164,7 +166,11 @@ exits nonzero without its result line:
    lanes, and a FastWavefront frame, 922 k lanes, of the default scene),
    each against its plain version bit for bit, with its time and its
    bound (SAMPLER_BOUND) per call and per number of dimensions drawn
-   (time_sampler). Each sweep kernel's bound is
+   (time_sampler). The lane-stage kernel L1 on every call of one
+   wavefront of the mesh scene (the cells' scene) at each cell's shape
+   (lane_stage_calls: 3.69 M and 922 k lanes a sweep), each against its
+   plain version bit for bit, with its time and its bound
+   (LANE_STAGE_BOUND) per call (time_lane_stage). Each sweep kernel's bound is
    reckoned from the ray-triangle tests its plain version needs on those
    inputs (see BOUND below); where a call's plain walk would take longer
    than PLAIN_CALL_S, only the kernel is timed, the record's sum of plain
@@ -174,8 +180,8 @@ exits nonzero without its result line:
    record names in "bound_tests".
 
 The line before the last is the per-kernel JSON record (with each
-kernel's launches on path H's examples; Z1's twice, one record a cell's
-shape, with its launches on each path); the last line is
+kernel's launches on path H's examples; Z1's and L1's twice, one record a
+cell's shape, with their launches on each path); the last line is
 {"ok": true, "device": {...}}. It needs no network and one card; the
 kernels are built into hikari_tpu_torch/build/ on first use.
 """
@@ -361,28 +367,36 @@ def cuda_ms(fn, reps: int) -> float:
 
 SOURCES = {"tiles": "sweep_tiles.cu", "inst": "sweep_inst.cu", "pairs": "sweep_pairs.cu"}
 SAMPLER = "zsobol"  # the sampler kernel Z1's name in the counts and the kernels record
-SAMPLER_LAUNCHES = {}  # path label -> the sampler kernel's launches on that path
+LANE_STAGE = "ray_prep"  # the lane-stage kernel L1's
+# kernel -> path label -> its launches on that path
+PATH_LAUNCHES = {SAMPLER: {}, LANE_STAGE: {}}
 
 
 def reset_counts() -> None:
-    """Zero the sweeps' and the sampler kernel's launch counts."""
-    from hikari_tpu_torch.geometry import sweep
+    """Zero the sweeps', the sampler kernel's and the lane-stage kernel's
+    launch counts."""
+    from hikari_tpu_torch.geometry import sweep, wavefront
     from hikari_tpu_torch.sampling import sobol
 
     sweep.reset_counts()
     sobol.reset_counts()
+    wavefront.reset_counts()
 
 
-def sampler_launches(label: str) -> int:
-    """The sampler kernel's launches since reset_counts, kept under the
-    path's label for the kernels record; a path that samples on the card
-    must have launched it."""
+def own_launches(label: str) -> dict:
+    """{SAMPLER: n, LANE_STAGE: m}: the sampler kernel's and the lane-stage
+    kernel's launches since reset_counts, kept under the path's label for
+    the kernels record; a path that samples and traces packets on the card
+    must have launched both."""
+    from hikari_tpu_torch.geometry import wavefront
     from hikari_tpu_torch.sampling import sobol
 
-    n = SAMPLER_LAUNCHES[label] = sobol.launches[SAMPLER]
-    if n <= 0:
-        raise SystemExit(f"{label}: the sampler kernel did not launch")
-    return n
+    got = {SAMPLER: sobol.launches[SAMPLER], LANE_STAGE: wavefront.launches[LANE_STAGE]}
+    for name, n in got.items():
+        PATH_LAUNCHES[name][label] = n
+        if n <= 0:
+            raise SystemExit(f"{label}: the {name} kernel did not launch")
+    return got
 
 
 def sampler_bound(cfg, lanes, draws) -> tuple:
@@ -472,7 +486,182 @@ def time_sampler(calls, launches, smi, label):
             "calls_compared": len(results), "calls_subset_compared": 0, "ms_render": ms,
             "plain_ms_render": plain, "bound_ms_render": bound, "bound_tests": None,
             "lanes": first["lanes"], "by_dims": per, "registers": regs, "spill_bytes": spill,
-            "blocks_per_sm": blocks, "launches_paths": dict(SAMPLER_LAUNCHES)}
+            "blocks_per_sm": blocks, "launches_paths": dict(PATH_LAUNCHES[SAMPLER])}
+
+
+# LANE_STAGE_BOUND: the least time of a call of the lane-stage kernel L1
+# (csrc/ray_prep.cu), the largest of its bytes (o, d and the reach read,
+# the active mask and the light group where given; o, d, the reach and the
+# int64 key written, over the padded lanes) over the memory rate and its
+# operations on each of the two pipes that run them: the FP32 pipe (adds,
+# subtracts, multiplies; 128 a clock an SM) and the ALU (min, max,
+# compares, selects, integer logic; 64 a clock an SM). Counted by step:
+# - a super box that a lane tests ("box"): 6 subtracts and 6 multiplies for
+#   the slab distances, 1 multiply and 1 add for the padded far distance
+#   (FP32); 6 min/max for the slabs, 4 reductions and 3 compares (ALU). A
+#   lane tests the boxes up to the first that admits it (the pre-pass is an
+#   OR), every box where none does, and none where its reach is +0: the
+#   count is taken from these inputs (lane_stage_tests);
+# - a lane ("lane"): the world-exit clamp or the reversed segment, the
+#   pre-pass's three reciprocals and padded reach, the key's direction and
+#   origin scales (about 40 FP32 operations, a divide as one); the finite
+#   test, clamps, the octant, six 10-bit Morton spreads and the key's
+#   assembly (about 80 ALU operations).
+# Loop control, addresses and the kernel's bounds checks are not counted.
+LANE_STAGE_OPS = {"box": (14, 13), "lane": (40, 80)}  # step: (FP32, ALU) a lane
+FP32_PER_CLOCK = 128  # FP32 operations a clock an SM
+
+
+def lane_stage_calls(smi):
+    """The lane-stage kernel's calls (ray_prep_kernel's arguments by name) of
+    one wavefront of the mesh scene (the benchmark cells' scene) at each cell's
+    shape, 1280x720: a VolPath render_lanes of depth 5 at 256 spp over one
+    4-sample batch (3.69 M lanes a sweep) and one FastWavefront frame (922 k)."""
+    import inspect
+
+    import torch
+    import hikari_tpu_torch as hk
+    from hikari_tpu_torch.geometry import wavefront
+    from hikari_tpu_torch.integrators import preview
+    from hikari_tpu_torch.integrators.volpath import render_lanes
+    from hikari_tpu_torch.scenes import mesh_scene, scene_camera
+
+    sc = mesh_scene().build(device="cuda")
+    w, h, k = 1280, 720, 4
+    cam = scene_camera("mesh", w, h)
+    lanes = torch.arange(w * h, device=sc.device)
+    sig = inspect.signature(wavefront.ray_prep_plain)
+    orig = wavefront.ray_prep_kernel
+    calls = ([], [])
+
+    def run(out, fn):
+        def recording(*args, **kw):
+            bound = sig.bind(*args, **kw)
+            bound.apply_defaults()
+            out.append(dict(bound.arguments))
+            return orig(*args, **kw)
+
+        wavefront.ray_prep_kernel = recording
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            wavefront.ray_prep_kernel = orig
+
+    run(calls[0], lambda: render_lanes(
+        hk.VolPath(max_depth=5, samples_per_pixel=256), sc, cam, hk.make_filter(),
+        torch.arange(k, device=sc.device).repeat_interleave(w * h), (lanes % w).repeat(k),
+        (lanes // w).repeat(k)))
+    run(calls[1], lambda: preview.preview_lanes(hk.FastWavefront(), sc, cam, 0))
+    log(f"[timing] {LANE_STAGE}: captured {len(calls[0])} calls of a final wavefront and "
+        f"{len(calls[1])} of a preview frame of the mesh scene at {w}x{h} "
+        f"({sc.treelets.sup_lo.shape[0]} super boxes) [{smi}]")
+    return calls
+
+
+def lane_stage_tests(call) -> int:
+    """The super-box tests the pre-pass needs on a captured call's lanes: a
+    lane whose reach is not +0 tests the boxes up to the first that admits
+    it, or every box (the plain version's arithmetic, box by box)."""
+    import torch
+    from hikari_tpu_torch.geometry import wavefront
+
+    supers = wavefront._super_boxes(call["tl"])
+    if supers is None:
+        return 0
+    # the lanes and reach before the pre-pass: the plain stage without boxes
+    o, d, t, _ = wavefront.ray_prep_plain(**{**call, "tl": None, "keys": False})
+    tested = t.view(torch.int32) != 0
+    s = supers[0].shape[0]
+    inv = 1.0 / torch.where(torch.abs(d) < 1e-20, torch.where(d < 0, -1e-20, 1e-20), d)
+    first = torch.full_like(t, float(s))
+    for b in range(s):
+        t0 = (supers[0][b] - o) * inv
+        t1 = (supers[1][b] - o) * inv
+        tn = torch.minimum(t0, t1).amax(-1)
+        tf = torch.maximum(t0, t1).amin(-1)
+        ok = (tn <= tf * 1.0001 + 1e-6) & (tf > 1e-4) & (tn <= t * 1.0001 + 1e-4)
+        first = torch.where(ok & (first == s), float(b), first)
+    return int(torch.where(tested, torch.clamp(first + 1, max=s), 0.0).sum())
+
+
+def lane_stage_bound(call, tests) -> tuple:
+    """(bound ms, what sets it) of one lane-stage kernel call: see
+    LANE_STAGE_BOUND."""
+    n = call["o"].shape[0]
+    n_pad = -(-n // 1024) * 1024
+    group = call["group"]
+    n_bytes = (n * (28 + (1 if call["active"] is not None else 0)
+                    + (0 if group is None else group.element_size()))
+               + n_pad * (28 + (8 if call["keys"] else 0)))
+    fp32, alu = (n_pad * LANE_STAGE_OPS["lane"][p] + tests * LANE_STAGE_OPS["box"][p]
+                 for p in (0, 1))
+    times = {"FP32": fp32 / (SMS * FP32_PER_CLOCK * SM_CLOCK_HZ),
+             "ALU": alu / (SMS * INT_PER_CLOCK * SM_CLOCK_HZ), "bytes": n_bytes / PEAK_BYTES}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def compare_lane_stage(call, reps):
+    """The lane-stage kernel against its plain version on one captured call,
+    every output's bits; the kernel's ms (CUDA events, after a warm-up
+    call), the plain version's (one call) and the bound."""
+    import torch
+    from hikari_tpu_torch.geometry import wavefront
+
+    got = wavefront.ray_prep_kernel(**call)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = wavefront.ray_prep_plain(**call)
+    end.record()
+    torch.cuda.synchronize()
+    same = [torch.equal(*(x.view(torch.int32) if x.dtype == torch.float32 else x
+                          for x in (a, b)))
+            for a, b in zip(got, want) if b is not None]
+    ms = cuda_ms(lambda: wavefront.ray_prep_kernel(**call), reps)
+    tests = lane_stage_tests(call)
+    bound_ms, bound_by = lane_stage_bound(call, tests)
+    return dict(ok=all(same), lanes=call["o"].shape[0], occlusion=call["occlusion"],
+                live=int((want[2] > 0.0).sum()), tests=tests, ms=ms,
+                plain_ms=start.elapsed_time(end), bound_ms=bound_ms, bound_by=bound_by)
+
+
+def time_lane_stage(calls, launches, smi, label):
+    """The lane-stage kernel against its plain version on every captured
+    call, bit for bit; its JSON record: the first call's numbers, the sums
+    over the calls as *_render."""
+    from hikari_tpu_torch.geometry import wavefront
+
+    results = []
+    for i, call in enumerate(calls):
+        r = compare_lane_stage(call, reps=5 if i == 0 else 3)
+        results.append(r)
+        log(f"[timing] {LANE_STAGE} {label}, call {i + 1} of {len(calls)}: "
+            f"{'occlusion' if r['occlusion'] else 'closest'}, {r['lanes']} lanes, {r['live']} "
+            f"live after it, {r['tests']} super-box tests, kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}%), bit-equal {'yes' if r['ok'] else 'NO'} "
+            f"[{smi}] -> {'ok' if r['ok'] else 'FAIL'}")
+        if not r["ok"]:
+            raise SystemExit(f"{LANE_STAGE} {label}, call {i + 1}: the kernel differs from its "
+                             f"plain version")
+    regs, spill, blocks = wavefront.ray_prep_attributes()
+    first = results[0]
+    ms, plain, bound = (sum(r[f] for r in results) for f in ("ms", "plain_ms", "bound_ms"))
+    log(f"[timing] {LANE_STAGE} {label}, {len(calls)} calls of {first['lanes']} lanes: kernel "
+        f"{ms:.3f} ms, plain {plain:.3f} ms ({plain / ms:.0f}x), bound {bound:.3f} ms "
+        f"({100 * bound / ms:.1f}%); {regs} registers, {spill} B spilled, {blocks} blocks/SM "
+        f"[{smi}]")
+    return {"name": LANE_STAGE, "route": "cuda", "source": "hikari_tpu_torch/csrc/ray_prep.cu",
+            "replaces": "", "shape": label, "launches": launches, "max_abs_err": 0.0,
+            "agree": 1.0, "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"], "library_ms": None,
+            "pairs_listed": None, "pairs_swept": None, "bit_equal": True, "min_agree": 1.0,
+            "calls_timed": len(calls), "calls_compared": len(results),
+            "calls_subset_compared": 0, "ms_render": ms, "plain_ms_render": plain,
+            "bound_ms_render": bound, "bound_tests": "super-box tests up to the first admitting box",
+            "lanes": first["lanes"], "registers": regs, "spill_bytes": spill,
+            "blocks_per_sm": blocks, "launches_paths": dict(PATH_LAUNCHES[LANE_STAGE])}
 
 
 def kernel_and_plain(name):
@@ -802,9 +991,11 @@ def timed_render(label, sc, cam, vp, names, smi, rays, nonfinite, filt=None, fil
     its sample batch, counted by an earlier render_lanes of the same
     samples (None: not counted). The image must be finite and not black,
     the kernels `names` must have launched and no other sweep (kernel or
-    plain) may have run, and the sampler kernel must have launched.
-    Returns (launch counts, the sampler kernel's under SAMPLER; dict of the
-    film, its seconds, ms per sample and mean RGB)."""
+    plain) may have run, and the sampler and lane-stage kernels must have
+    launched.
+    Returns (launch counts, the sampler kernel's under SAMPLER and the
+    lane-stage kernel's under LANE_STAGE; dict of the film, its seconds, ms
+    per sample and mean RGB)."""
     import torch
     import hikari_tpu_torch as hk
     from hikari_tpu_torch.geometry import sweep
@@ -819,7 +1010,7 @@ def timed_render(label, sc, cam, vp, names, smi, rays, nonfinite, filt=None, fil
     wall = time.perf_counter() - t0
     counts = dict(sweep.launches)
     plain_runs = dict(sweep.plain_cuda_runs)
-    sampler = sampler_launches(label)
+    own = own_launches(label)
     peak = torch.cuda.max_memory_allocated()
     finite = bool(torch.isfinite(img).all())
     mean_rgb = float(img.mean())
@@ -833,12 +1024,12 @@ def timed_render(label, sc, cam, vp, names, smi, rays, nonfinite, filt=None, fil
         f"{peak / 2**30:.2f} GiB [{smi}]")
     log(f"[{label}] mean RGB {mean_rgb:.6f} (weighted sum {mean_sum:.6f}), finite {finite}, "
         f"nonfinite lanes {nonfinite:.0f}, launches {counts}, plain sweeps on CUDA "
-        f"{plain_runs}, sampler kernel launches {sampler}")
+        f"{plain_runs}, sampler and lane-stage kernel launches {own}")
     if not finite or nonfinite != 0.0 or mean_sum <= 0.0:
         raise SystemExit(f"{label}: output is not a finite, non-black image")
     launched_exactly(label, names, counts, plain_runs)
-    return {**counts, SAMPLER: sampler}, dict(film=film, secs=wall, ms_sample=wall / MAIN_SPP * 1e3,
-                        mean_rgb=mean_rgb, peak=peak)
+    return {**counts, **own}, dict(film=film, secs=wall, ms_sample=wall / MAIN_SPP * 1e3,
+                                   mean_rgb=mean_rgb, peak=peak)
 
 
 class MediumInstruments:
@@ -1827,14 +2018,14 @@ def preview_path(label, integ, sc, cam, smi):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, plain_runs = dict(sweep.launches), dict(sweep.plain_cuda_runs)
-    sampler = sampler_launches(label)
+    own = own_launches(label)
     spp = integ.samples_per_pixel
     finite, mean_rgb = bool(torch.isfinite(img).all()), float(img.mean())
     log(f"[{label}] render_preview {w}x{h}, {spp} spp: {wall:.3f} s, "
         f"{wall / spp * 1e3:.1f} ms/sample, {rays * spp / wall / 1e6:.3f} Mray/s (sample 0's "
         f"rays x {spp}), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean RGB "
-        f"{mean_rgb:.6f}, finite {finite}; launches {counts}, sampler kernel launches "
-        f"{sampler} [{smi}]")
+        f"{mean_rgb:.6f}, finite {finite}; launches {counts}, sampler and lane-stage kernel "
+        f"launches {own} [{smi}]")
     if not finite or mean_rgb <= 0.0:
         raise SystemExit(f"{label}: output is not a finite, non-black image")
     launched_exactly(label, names, counts, plain_runs)
@@ -1898,7 +2089,7 @@ def sppm_path(sc, cam, smi):
     finally:
         sppm._sort_photons, sppm._sppm_update = sort, update
     counts, plain_runs = dict(sweep.launches), dict(sweep.plain_cuda_runs)
-    sampler = sampler_launches("sppm")
+    own = own_launches("sppm")
     n_it = integ.iterations
     radius = float(torch.sqrt(last["state"]["r2"]).mean())
     finite, mean_rgb = bool(torch.isfinite(img).all()), float(img.mean())
@@ -1908,7 +2099,7 @@ def sppm_path(sc, cam, smi):
         f"{deposits} of {integ.photons_per_iteration * (integ.max_depth - 1)} slots; mean "
         f"radius after the last iteration {radius:.6f} (initial {integ.initial_radius}); peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean RGB {mean_rgb:.6f}, finite "
-        f"{finite}; launches {counts}, sampler kernel launches {sampler} [{smi}]")
+        f"{finite}; launches {counts}, sampler and lane-stage kernel launches {own} [{smi}]")
     if not finite or mean_rgb <= 0.0 or not deposits or min(deposits) <= 0:
         raise SystemExit("sppm: the image is not finite and lit, or a photon pass deposited "
                          "nothing")
@@ -1996,7 +2187,7 @@ def sharded_check(sc, cam, ref_film, smi):
         film, secs = cuda_secs(lambda: hk.render_sharded(
             hk.VolPath(max_depth=5, samples_per_pixel=MAIN_SPP), sc, cam, mesh))
         counts, plain_runs = dict(sweep.launches), dict(sweep.plain_cuda_runs)
-        sampler = sampler_launches("sharded")
+        own = own_launches("sharded")
     finally:
         dist.destroy_process_group()
     err = max(float(((getattr(film, k) - getattr(ref_film, k)).abs()
@@ -2007,7 +2198,7 @@ def sharded_check(sc, cam, ref_film, smi):
         f"{cam.resolution[0]}x{cam.resolution[1]}, {MAIN_SPP} spp: {secs:.3f} s, "
         f"{secs / MAIN_SPP * 1e3:.1f} ms/sample; its film against render's: largest relative "
         f"difference {err:.2e} (tolerance {SHARDED_RTOL:g}); launches {counts}, sampler "
-        f"kernel launches {sampler} [{smi}] -> "
+        f"and lane-stage kernel launches {own} [{smi}] -> "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("render_sharded does not equal render")
@@ -2178,11 +2369,11 @@ def example_path(name, smi):
     just before and read just after: the PNG must decode (read_png) to a
     finite, lit image of the render's size, the path's closest kernel must
     have launched, no other family's kernel and no plain sweep on the card,
-    and the sampler kernel;
+    and the sampler and lane-stage kernels;
     then each kernel it launched against its plain version, bit for bit, on
     its first captured call, or on every one for EVERY_CALL_EXAMPLES
     (hold_path). Returns the launch counts, the sampler kernel's under
-    SAMPLER."""
+    SAMPLER and the lane-stage kernel's under LANE_STAGE."""
     import importlib.util
 
     import numpy as np
@@ -2208,7 +2399,7 @@ def example_path(name, smi):
         result, secs = cuda_secs(lambda: script.main([*out, *EXAMPLE_ARGS[name]]))
     counts = dict(sweep.launches)
     plain_runs = dict(sweep.plain_cuda_runs)
-    sampler = sampler_launches(f"torch_{name}")
+    own = own_launches(f"torch_{name}")
     peak = torch.cuda.max_memory_allocated()
     spp, (w, h) = probe.vp.samples_per_pixel, probe.cam.resolution
     img = hk.read_png(png)
@@ -2218,7 +2409,8 @@ def example_path(name, smi):
         f"in main, render {w}x{h}, {spp} spp, depth {probe.vp.max_depth}: {probe.secs:.3f} s, "
         f"{probe.secs / spp * 1e3:.1f} ms/sample, {probe.rays:.0f} rays "
         f"({probe.rays / probe.secs / 1e6:.3f} Mray/s), peak {peak / 2**30:.2f} GiB; launches "
-        f"{ {k: v for k, v in counts.items() if v} }, sampler kernel launches {sampler}; "
+        f"{ {k: v for k, v in counts.items() if v} }, sampler and lane-stage kernel launches "
+        f"{own}; "
         f"{png.relative_to(ROOT)} decodes to "
         f"{img.shape}, mean {img.mean():.4f} [{smi}] -> {'ok' if lit else 'FAIL'}")
     if not lit:
@@ -2230,7 +2422,7 @@ def example_path(name, smi):
     tl = None if name in INST_EXAMPLES else result["scene"].treelets
     if name in EVERY_CALL_EXAMPLES:
         hold_path(f"torch_{name}", rec, [(k, tl) for k in names if counts[k]], smi)
-        return {**counts, SAMPLER: sampler}
+        return {**counts, **own}
     for kname in names:
         if not counts[kname]:
             continue
@@ -2242,7 +2434,7 @@ def example_path(name, smi):
         if not (r["ok"] and r["exact"]):
             raise SystemExit(f"torch_{name}: {kname} does not equal its plain version bit for "
                              f"bit on its first call")
-    return {**counts, SAMPLER: sampler}
+    return {**counts, **own}
 
 
 def generator_check(smi):
@@ -2325,7 +2517,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # phase 2: build the four sources at once, one nvcc each
+    # phase 2: build the five sources at once, one nvcc each
     from concurrent.futures import ThreadPoolExecutor
 
     from hikari_tpu_torch.geometry import (instanced, sweep, sweep_inst, sweep_pairs,
@@ -2333,16 +2525,18 @@ def main() -> int:
     from hikari_tpu_torch.sampling import sobol
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = [pool.submit(sweep.sweep_library), pool.submit(sweep_inst.inst_library),
-                  pool.submit(sweep_pairs.pairs_library), pool.submit(sobol.zsobol_library)]
+                  pool.submit(sweep_pairs.pairs_library), pool.submit(sobol.zsobol_library),
+                  pool.submit(wavefront.ray_prep_library)]
         for b in builds:
             b.result()
-    log(f"[build] nvcc built csrc/sweep_tiles.cu, csrc/sweep_inst.cu, csrc/sweep_pairs.cu "
-        f"and csrc/zsobol.cu in {time.perf_counter() - t0:.1f} s "
+    log(f"[build] nvcc built csrc/sweep_tiles.cu, csrc/sweep_inst.cu, csrc/sweep_pairs.cu, "
+        f"csrc/zsobol.cu and csrc/ray_prep.cu in {time.perf_counter() - t0:.1f} s "
         f"(flags: {' '.join(sweep.NVCC_FLAGS)})")
     for name, (regs, spill, blocks) in {**kernel_attributes(),
-                                        SAMPLER: sobol.kernel_attributes()}.items():
+                                        SAMPLER: sobol.kernel_attributes(),
+                                        LANE_STAGE: wavefront.ray_prep_attributes()}.items():
         log(f"[build] {name}: {regs} registers a thread, {spill} B spilled, "
             f"{blocks} resident blocks per SM")
 
@@ -2609,6 +2803,7 @@ def main() -> int:
     # phase 6: kernel times at the main paths' shapes (after the counts were read)
     flat_tl = scenes["default"].treelets
     final_calls, frame_calls = sampler_calls(scenes["default"], smi)
+    stage_final, stage_frame = lane_stage_calls(smi)
     records = time_kernels([
         ("closest_tiles", "hikari_tpu/geometry/wavefront.py:999",
          flat_rec.calls["closest_tiles"], flat_tl),
@@ -2628,8 +2823,11 @@ def main() -> int:
         (SAMPLER, "", final_calls, None),
     ], {SAMPLER: flat_counts[SAMPLER]}, smi, label="at the final cell's shape") + time_kernels([
         (SAMPLER, "", frame_calls, None),
-    ], {SAMPLER: SAMPLER_LAUNCHES["fast"]}, smi, label="at the preview cell's shape")
-    del final_calls, frame_calls
+    ], {SAMPLER: PATH_LAUNCHES[SAMPLER]["fast"]}, smi, label="at the preview cell's shape") + [
+        time_lane_stage(stage_final, flat_counts[LANE_STAGE], smi, "at the final cell's shape"),
+        time_lane_stage(stage_frame, PATH_LAUNCHES[LANE_STAGE]["fast"], smi,
+                        "at the preview cell's shape")]
+    del final_calls, frame_calls, stage_final, stage_frame
     # the tile kernels on the pair-grid path's depth-0 pair lists: the two
     # decompositions on the same work (printed only)
     same_work = time_kernels([(tiles, "", pair_rec.calls[pairs][:1], flat_tl)

@@ -16,8 +16,11 @@ import and from the module attributes at call time:
 
 The steps:
 
-1. lanes are pre-culled against coarse BVH boxes and clamped to the world
-   box, then sorted by (direction octant, origin Morton, direction Morton);
+1. lanes are clamped to the world box and pre-culled against coarse BVH
+   boxes, then sorted by (direction octant, origin Morton, direction
+   Morton); on the card everything before the sort is one launch of
+   ``csrc/ray_prep.cu`` a sweep (``ray_prep``), on the CPU its plain
+   version (``ray_prep_plain``);
 2. every 1024-ray tile is tested against every 256-triangle treelet with a
    conservative interval slab test over 8 sub-frusta;
 3. the surviving (tile, treelet) pairs form one tile-major pair list,
@@ -44,13 +47,17 @@ int32.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 from dataclasses import dataclass, fields
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from .sweep import COL_MASK, RAY_TILE, TREELET, closest_tiles, occlusion_tiles
+from .._build import build_shared_library
+from .sweep import COL_MASK, RAY_TILE, TREELET, _check, closest_tiles, occlusion_tiles
 from .sweep_pairs import closest_pairs, occlusion_pairs
 from .traverse import HitRecord
 from ..core.vecmath import cross
@@ -382,6 +389,175 @@ def _world_exit_clamp(o, d, t_max, world_lo, world_hi):
     return torch.minimum(t_max, torch.clamp(t_exit, min=0.0) * 1.0001 + 1e-3)
 
 
+# --- the lane stage: one kernel a sweep on the card -------------------------------------
+
+_RAY_PREP_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "ray_prep.cu"
+# kernel launches, counted by ray_prep_kernel where it launches, since reset_counts
+launches = {"ray_prep": 0}
+
+
+def reset_counts() -> None:
+    launches["ray_prep"] = 0
+
+
+def _super_boxes(tl):
+    """The pre-pass's coarse boxes (sup_lo, sup_hi), or None: the pre-pass
+    runs for flat Treelets of more than one treelet; the instanced tables
+    have no super boxes, as in the reference's instanced path."""
+    if isinstance(tl, Treelets) and tl.lo.shape[0] > 1:
+        return tl.sup_lo, tl.sup_hi
+    return None
+
+
+def ray_prep(tl, o, d, t_max, world_lo, world_hi, active=None, occlusion=False, group=None,
+             reverse=False, keys=True):
+    """The lane stage of a sweep: the reach made finite, then for a closest
+    hit the world-exit clamp and the active mask, for a shadow ray
+    (occlusion) the active mask, the reversed segment (reverse) and the
+    0.9999 margin; the per-ray super-box pre-pass (_super_boxes); the lanes
+    padded to RAY_TILE (_pad_rays); and, where keys, the sort key of
+    ray_sort_keys behind the light group's 6 bits (group), clamped to
+    0xFFFFFFFE, 0xFFFFFFFF where the reach is not positive. Returns the
+    padded o, d (n_pad, 3), reach (n_pad,) and int64 keys (n_pad,) or None.
+
+    On a CUDA tensor one launch of csrc/ray_prep.cu (ray_prep_kernel), on a
+    CPU tensor the plain version (ray_prep_plain); the two are equal bit for
+    bit. The counter ``ray_prep_lanes`` (sites ``kernel`` / ``plain``) counts
+    the padded lanes each took."""
+    n_pad = -(-o.shape[0] // RAY_TILE) * RAY_TILE
+    if o.device.type == "cpu":
+        profiling.count("ray_prep_lanes", n_pad, "plain")
+        return ray_prep_plain(tl, o, d, t_max, world_lo, world_hi, active, occlusion, group,
+                              reverse, keys)
+    profiling.count("ray_prep_lanes", n_pad, "kernel")
+    return ray_prep_kernel(tl, o, d, t_max, world_lo, world_hi, active, occlusion, group,
+                           reverse, keys)
+
+
+def ray_prep_plain(tl, o, d, t_max, world_lo, world_hi, active=None, occlusion=False,
+                   group=None, reverse=False, keys=True):
+    """The plain version of ray_prep_kernel, on tensor operations: see
+    ray_prep. The counter ``lanes_culled`` (site ``super``) counts the lanes
+    of positive reach that the pre-pass zeroes."""
+    t_max = torch.where(torch.isfinite(t_max), t_max, 3.0e37)
+    if not occlusion:
+        t_max = _world_exit_clamp(o, d, t_max, world_lo, world_hi)
+    if active is not None:
+        t_max = torch.where(active, t_max, 0.0)
+    if occlusion:
+        if reverse:
+            o = o + d * t_max[:, None]
+            d = -d
+        t_max = t_max * 0.9999
+    if _super_boxes(tl) is not None:
+        may = _ray_super_cull(tl, o, d, t_max)
+        if profiling.recording():
+            profiling.count("lanes_culled", ((t_max > 0.0) & ~may).sum(), "super")
+        t_max = torch.where(may, t_max, 0.0)
+    o, d, t_max, n, n_pad = _pad_rays(o, d, t_max)
+    if not keys:
+        return o, d, t_max, None
+    key = ray_sort_keys(o, d, world_lo, world_hi)
+    if group is not None:
+        group = torch.cat([group.long(), group.new_zeros(n_pad - n, dtype=torch.int64)])
+        key = ((group & 63) << 26) | (key >> 6)
+    key = torch.clamp(key, max=0xFFFFFFFE)
+    return o, d, t_max, torch.where(t_max > 0.0, key, 0xFFFFFFFF)
+
+
+@functools.cache
+def ray_prep_library() -> ctypes.CDLL:
+    """Build (at first use) and load csrc/ray_prep.cu."""
+    import subprocess
+
+    from .sweep import NVCC_FLAGS, _nvcc
+
+    try:
+        path = build_shared_library("ray_prep", _RAY_PREP_SOURCE, [_nvcc(), *NVCC_FLAGS])
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"nvcc failed to build {_RAY_PREP_SOURCE}:\n{e.stderr}") from e
+    lib = ctypes.CDLL(str(path))
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.hikari_ray_prep.argtypes = [p] * 10 + [i, i64, i64, i, i] + [p] * 6
+    lib.hikari_ray_prep.restype = i
+    lib.hikari_ray_prep_attributes.argtypes = [p]
+    lib.hikari_ray_prep_attributes.restype = i
+    return lib
+
+
+def ray_prep_attributes() -> tuple:
+    """(registers a thread, spill bytes a thread, resident blocks per SM) of
+    the lane-stage kernel, as the CUDA runtime reports them."""
+    out = (ctypes.c_int * 3)()
+    err = ray_prep_library().hikari_ray_prep_attributes(ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"hikari_ray_prep_attributes failed: cudaError {err}")
+    return tuple(out)
+
+
+def _lane_tensor(name, x, dtype, shape, device):
+    x = x.contiguous()
+    _check(name, x, dtype, shape, device)
+    return x
+
+
+def ray_prep_kernel(tl, o, d, t_max, world_lo, world_hi, active=None, occlusion=False,
+                    group=None, reverse=False, keys=True):
+    """ray_prep on the card, in one launch of csrc/ray_prep.cu. Raises on
+    what the kernel does not take; there is no CPU version."""
+    dev = o.device
+    if dev.type != "cuda":
+        raise ValueError(f"ray_prep_kernel runs the lane-stage kernel on the card, got {dev}")
+    if reverse and not occlusion:
+        raise ValueError("reverse traces shadow rays (occlusion) only")
+    n = o.shape[0]
+    n_pad = -(-n // RAY_TILE) * RAY_TILE
+    f32 = torch.float32
+    o = _lane_tensor("o", o, f32, (n, 3), dev)
+    d = _lane_tensor("d", d, f32, (n, 3), dev)
+    t_max = _lane_tensor("t_max", t_max, f32, (n,), dev)
+    world_lo = _lane_tensor("world_lo", world_lo, f32, (3,), dev)
+    world_hi = _lane_tensor("world_hi", world_hi, f32, (3,), dev)
+    if active is not None:
+        active = _lane_tensor("active", active, torch.bool, (n,), dev)
+    group32 = group64 = None
+    if group is not None:
+        if group.dtype == torch.int32:
+            group32 = _lane_tensor("group", group, torch.int32, (n,), dev)
+        else:
+            group64 = _lane_tensor("group", group.long(), torch.int64, (n,), dev)
+    supers = _super_boxes(tl)
+    n_super = 0
+    if supers is not None:
+        n_super = supers[0].shape[0]
+        supers = [_lane_tensor(name, x, f32, (n_super, 3), dev)
+                  for name, x in zip(("sup_lo", "sup_hi"), supers)]
+    o_out = torch.empty((n_pad, 3), dtype=f32, device=dev)
+    d_out = torch.empty((n_pad, 3), dtype=f32, device=dev)
+    t_out = torch.empty(n_pad, dtype=f32, device=dev)
+    key = torch.empty(n_pad, dtype=torch.int64, device=dev) if keys else None
+    culled = None
+    if supers is not None and profiling.recording():
+        culled = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    if n_pad:
+        err = ray_prep_library().hikari_ray_prep(
+            o.data_ptr(), d.data_ptr(), t_max.data_ptr(), ptr(active), ptr(group32),
+            ptr(group64), world_lo.data_ptr(), world_hi.data_ptr(),
+            *(ptr(x) for x in (supers or (None, None))), n_super, n, n_pad, int(occlusion),
+            int(reverse), o_out.data_ptr(), d_out.data_ptr(), t_out.data_ptr(), ptr(key),
+            ptr(culled), torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"hikari_ray_prep launch failed: cudaError {err}")
+        launches["ray_prep"] += 1
+    if culled is not None:
+        profiling.count("lanes_culled", culled, "super")
+    return o_out, d_out, t_out, key
+
+
 # --- the two sweeps -------------------------------------------------------------------
 
 
@@ -407,25 +583,24 @@ def pair_list(tl, os_, ds, ts):
     return _build_pairs(mask, tnear)
 
 
-def _prepare(tl, o, d, t_max, keys_fn, presorted=False, band=None) -> PairSweep:
-    """Sort, live-prefix slice, cull and pair a wavefront against flat
-    Treelets or the instanced tables (instanced.InstancedTreelets). Only
-    flat treelets run the per-ray super-box pre-pass: the instanced tables
-    have no super boxes, as in the reference's instanced path.
+def _prepare(tl, o, d, t_max, world_lo, world_hi, active=None, presorted=False, band=None,
+             occlusion=False, group=None, reverse=False) -> PairSweep:
+    """Run the lane stage (ray_prep), then sort, live-prefix slice, cull and
+    pair a wavefront against flat Treelets or the instanced tables
+    (instanced.InstancedTreelets).
 
     presorted: the caller's lanes are already in a tile-coherent order; no
-    sort, and the sweep covers every lane, because the pre-pass and the
-    world-exit clamp can zero the reach of lanes inside the caller's live
-    prefix. band: pair the tiles for reach min(ts, band) (the first pass
-    of the banded closest hit); ts stays the full reach."""
-    if isinstance(tl, Treelets) and tl.lo.shape[0] > 1:
-        t_max = torch.where(_ray_super_cull(tl, o, d, t_max), t_max, 0.0)
-    o, d, t_max, n, n_pad = _pad_rays(o, d, t_max)
+    key and no sort, and the sweep covers every lane, because the pre-pass
+    and the world-exit clamp can zero the reach of lanes inside the caller's
+    live prefix. band: pair the tiles for reach min(ts, band) (the first
+    pass of the banded closest hit); ts stays the full reach."""
+    n = o.shape[0]
+    o, d, t_max, keys = ray_prep(tl, o, d, t_max, world_lo, world_hi, active, occlusion,
+                                 group, reverse, keys=not presorted)
+    n_pad = o.shape[0]
     if presorted:
         order, os_, ds, ts = None, o, d, t_max
     else:
-        keys = torch.clamp(keys_fn(o, d), max=0xFFFFFFFE)
-        keys = torch.where(t_max > 0.0, keys, 0xFFFFFFFF)
         order, os_, ds, ts = _sort_wavefront(o, d, t_max, keys)
         # dead lanes sort last: the live lanes are a prefix of the sorted order
         live = int((ts > 0.0).sum())
@@ -440,13 +615,7 @@ def _prepare(tl, o, d, t_max, keys_fn, presorted=False, band=None) -> PairSweep:
 def prepare_closest(tl, o, d, t_max, world_lo, world_hi, active=None, presorted=False,
                     band=None) -> PairSweep:
     """Cull, sort and pair a closest-hit wavefront."""
-    t_max = torch.where(torch.isfinite(t_max), t_max, 3.0e37)
-    t_max = _world_exit_clamp(o, d, t_max, world_lo, world_hi)
-    if active is not None:
-        t_max = torch.where(active, t_max, 0.0)
-    return _prepare(tl, o, d, t_max,
-                    lambda o_, d_: ray_sort_keys(o_, d_, world_lo, world_hi),
-                    presorted, band)
+    return _prepare(tl, o, d, t_max, world_lo, world_hi, active, presorted, band)
 
 
 def _keyify(t):
@@ -530,24 +699,8 @@ def prepare_occlusion(tl, o, d, t_max, world_lo, world_hi, active=None,
     """Cull, sort and pair a shadow-ray wavefront. group: optional (R,) ids
     (NEE light ids) clustered ahead of the spatial key. reverse: trace each
     segment from its far end back to its origin."""
-    t_max = torch.where(torch.isfinite(t_max), t_max, 3.0e37)
-    if active is not None:
-        t_max = torch.where(active, t_max, 0.0)
-    if reverse:
-        o = o + d * t_max[:, None]
-        d = -d
-    t_max = t_max * 0.9999
-    if group is not None:
-        pad = (-group.shape[0]) % RAY_TILE
-        group = torch.cat([group.long(), group.new_zeros(pad, dtype=torch.int64)])
-
-    def keys_fn(o_, d_):
-        keys = ray_sort_keys(o_, d_, world_lo, world_hi)
-        if group is not None:
-            keys = ((group & 63) << 26) | (keys >> 6)
-        return keys
-
-    return _prepare(tl, o, d, t_max, keys_fn)
+    return _prepare(tl, o, d, t_max, world_lo, world_hi, active, occlusion=True, group=group,
+                    reverse=reverse)
 
 
 def any_hit_packets(tl: Treelets, o, d, t_max, world_lo, world_hi,

@@ -51,7 +51,10 @@ Counters: ``host_syncs`` (by site), ``pairs_listed`` and ``lanes_swept``
 (per sweep: the pair list's length; the live prefix swept and the input
 lanes), ``rays_traced`` (the device sums of ``render_lanes`` and the
 preview's lanes), ``sobol_dims`` (scrambled dimensions the sampler drew,
-sites ``kernel`` and ``plain``).
+sites ``kernel`` and ``plain``), ``ray_prep_lanes`` (the padded lanes of
+each sweep's lane stage, sites ``kernel`` and ``plain``) and
+``lanes_culled`` (the device sum of the lanes of positive reach that the
+super-box pre-pass zeroed, site ``super``).
 """
 
 from __future__ import annotations
