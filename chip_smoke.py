@@ -372,15 +372,25 @@ LANE_STAGE = "ray_prep"  # the lane-stage kernel L1's
 PATH_LAUNCHES = {SAMPLER: {}, LANE_STAGE: {}}
 
 
-def reset_counts() -> None:
-    """Zero the sweeps', the sampler kernel's and the lane-stage kernel's
-    launch counts."""
-    from hikari_tpu_torch.geometry import sweep, wavefront
-    from hikari_tpu_torch.sampling import sobol
+SWEEPS = ("closest_tiles", "occlusion_tiles", "closest_inst", "occlusion_inst",
+          "closest_pairs", "occlusion_pairs")
 
-    sweep.reset_counts()
-    sobol.reset_counts()
-    wavefront.reset_counts()
+
+def reset_counts() -> None:
+    """Zero the package's launch record: every kernel's launches and the
+    plain sweeps' runs on CUDA tensors."""
+    from hikari_tpu_torch import _build
+
+    _build.reset_counts()
+
+
+def sweep_counts() -> tuple:
+    """({sweep: launches}, {sweep: plain runs on CUDA tensors}) of the six
+    sweeps since reset_counts, from the package's launch record."""
+    from hikari_tpu_torch import _build
+
+    return ({k: _build.launches[k] for k in SWEEPS},
+            {k: _build.plain_cuda_runs[k] for k in SWEEPS})
 
 
 def own_launches(label: str) -> dict:
@@ -388,10 +398,9 @@ def own_launches(label: str) -> dict:
     kernel's launches since reset_counts, kept under the path's label for
     the kernels record; a path that samples and traces packets on the card
     must have launched both."""
-    from hikari_tpu_torch.geometry import wavefront
-    from hikari_tpu_torch.sampling import sobol
+    from hikari_tpu_torch import _build
 
-    got = {SAMPLER: sobol.launches[SAMPLER], LANE_STAGE: wavefront.launches[LANE_STAGE]}
+    got = {SAMPLER: _build.launches[SAMPLER], LANE_STAGE: _build.launches[LANE_STAGE]}
     for name, n in got.items():
         PATH_LAUNCHES[name][label] = n
         if n <= 0:
@@ -998,7 +1007,6 @@ def timed_render(label, sc, cam, vp, names, smi, rays, nonfinite, filt=None, fil
     per sample and mean RGB)."""
     import torch
     import hikari_tpu_torch as hk
-    from hikari_tpu_torch.geometry import sweep
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1008,8 +1016,7 @@ def timed_render(label, sc, cam, vp, names, smi, rays, nonfinite, filt=None, fil
     img = hk.framebuffer(film)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(sweep.launches)
-    plain_runs = dict(sweep.plain_cuda_runs)
+    counts, plain_runs = sweep_counts()
     own = own_launches(label)
     peak = torch.cuda.max_memory_allocated()
     finite = bool(torch.isfinite(img).all())
@@ -1761,7 +1768,6 @@ def foliage_path(sc, smi):
     closest sweeps it took (K1 only), the stage split, time and peak
     memory."""
     import torch
-    from hikari_tpu_torch.geometry import sweep
     from hikari_tpu_torch.integrators import volpath
     from hikari_tpu_torch.scenes import FOLIAGE_ALPHA, FOLIAGE_LAYERS
 
@@ -1775,7 +1781,7 @@ def foliage_path(sc, smi):
     active = torch.ones(n, dtype=torch.bool, device=sc.device)
     volpath._closest_hit_surface(sc, o[:1024], d[:1024], t_max[:1024], active[:1024])  # warm
     torch.cuda.reset_peak_memory_stats()
-    sweep.reset_counts()
+    reset_counts()
     with ShadingInstruments(TEXTURE_STAGES) as ins:
         ins.bounces.append(dict(surface=0, shadow=0))
         torch.cuda.synchronize()
@@ -1783,7 +1789,7 @@ def foliage_path(sc, smi):
         rec = volpath._closest_hit_surface(sc, o, d, t_max, active)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-    counts = dict(sweep.launches)
+    counts = sweep_counts()[0]
     escape = 1.0 - float(rec.hit.float().mean())
     expect = (1.0 - FOLIAGE_ALPHA) ** FOLIAGE_LAYERS
     rays = ins.bounces[0]["surface"]
@@ -1986,7 +1992,7 @@ def preview_path(label, integ, sc, cam, smi):
     sweep, and the sampler kernel launched."""
     import torch
     import hikari_tpu_torch as hk
-    from hikari_tpu_torch.geometry import sweep, wavefront
+    from hikari_tpu_torch.geometry import wavefront
     from hikari_tpu_torch.integrators import preview
 
     names = ("closest_tiles", "occlusion_tiles")
@@ -2017,7 +2023,7 @@ def preview_path(label, integ, sc, cam, smi):
     img = hk.framebuffer(hk.render_preview(integ, sc, cam))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts, plain_runs = dict(sweep.launches), dict(sweep.plain_cuda_runs)
+    counts, plain_runs = sweep_counts()
     own = own_launches(label)
     spp = integ.samples_per_pixel
     finite, mean_rgb = bool(torch.isfinite(img).all()), float(img.mean())
@@ -2044,7 +2050,7 @@ def sppm_path(sc, cam, smi):
     launched and no other sweep, and the sampler kernel launched."""
     import torch
     import hikari_tpu_torch as hk
-    from hikari_tpu_torch.geometry import sweep, wavefront
+    from hikari_tpu_torch.geometry import wavefront
     from hikari_tpu_torch.integrators import sppm
 
     names = ("closest_tiles", "occlusion_tiles")
@@ -2088,7 +2094,7 @@ def sppm_path(sc, cam, smi):
             wall = time.perf_counter() - t0
     finally:
         sppm._sort_photons, sppm._sppm_update = sort, update
-    counts, plain_runs = dict(sweep.launches), dict(sweep.plain_cuda_runs)
+    counts, plain_runs = sweep_counts()
     own = own_launches("sppm")
     n_it = integ.iterations
     radius = float(torch.sqrt(last["state"]["r2"]).mean())
@@ -2123,9 +2129,9 @@ def skiplink_checks(packets_scene, cam, smi):
     t0 = time.perf_counter()
     sk = default_scene().build(traversal="skiplink", device=dev)
     build_s = time.perf_counter() - t0
-    sweep.reset_counts()
+    reset_counts()
     (rays_s, rgb_s), probe_s = cuda_secs(lambda: transport_probe(sk, "default"))
-    counts = dict(sweep.launches)
+    counts = sweep_counts()[0]
     rays_p, rgb_p = transport_probe(packets_scene, "default")
     err = abs(rgb_s / rgb_p - 1)
     ok = rays_s == rays_p and err <= PREVIEW_RGB_RTOL and not any(counts.values())
@@ -2174,7 +2180,6 @@ def sharded_check(sc, cam, ref_film, smi):
     import torch
     import torch.distributed as dist
     import hikari_tpu_torch as hk
-    from hikari_tpu_torch.geometry import sweep
 
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -2186,7 +2191,7 @@ def sharded_check(sc, cam, ref_film, smi):
         reset_counts()
         film, secs = cuda_secs(lambda: hk.render_sharded(
             hk.VolPath(max_depth=5, samples_per_pixel=MAIN_SPP), sc, cam, mesh))
-        counts, plain_runs = dict(sweep.launches), dict(sweep.plain_cuda_runs)
+        counts, plain_runs = sweep_counts()
         own = own_launches("sharded")
     finally:
         dist.destroy_process_group()
@@ -2379,7 +2384,7 @@ def example_path(name, smi):
     import numpy as np
     import torch
     import hikari_tpu_torch as hk
-    from hikari_tpu_torch.geometry import instanced, sweep, wavefront
+    from hikari_tpu_torch.geometry import instanced, wavefront
 
     spec = importlib.util.spec_from_file_location(
         f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
@@ -2397,8 +2402,7 @@ def example_path(name, smi):
     with recorder(module, names) as rec, \
             RenderProbe(one_wavefront=name not in INST_EXAMPLES) as probe:
         result, secs = cuda_secs(lambda: script.main([*out, *EXAMPLE_ARGS[name]]))
-    counts = dict(sweep.launches)
-    plain_runs = dict(sweep.plain_cuda_runs)
+    counts, plain_runs = sweep_counts()
     own = own_launches(f"torch_{name}")
     peak = torch.cuda.max_memory_allocated()
     spp, (w, h) = probe.vp.samples_per_pixel, probe.cam.resolution
@@ -2520,23 +2524,22 @@ def main() -> int:
     # phase 2: build the five sources at once, one nvcc each
     from concurrent.futures import ThreadPoolExecutor
 
+    from hikari_tpu_torch import _build
     from hikari_tpu_torch.geometry import (instanced, sweep, sweep_inst, sweep_pairs,
                                            wavefront)
     from hikari_tpu_torch.sampling import sobol
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
-        builds = [pool.submit(sweep.sweep_library), pool.submit(sweep_inst.inst_library),
-                  pool.submit(sweep_pairs.pairs_library), pool.submit(sobol.zsobol_library),
-                  pool.submit(wavefront.ray_prep_library)]
-        for b in builds:
-            b.result()
+    with ThreadPoolExecutor(5) as pool:  # each reader builds and loads its library
+        builds = [pool.submit(f) for f in (sweep.kernel_attributes, sweep_inst.kernel_attributes,
+                                           sweep_pairs.kernel_attributes, sobol.kernel_attributes,
+                                           wavefront.ray_prep_attributes)]
+        tiles, inst, pairs, sampler, lane_stage = (b.result() for b in builds)
     log(f"[build] nvcc built csrc/sweep_tiles.cu, csrc/sweep_inst.cu, csrc/sweep_pairs.cu, "
         f"csrc/zsobol.cu and csrc/ray_prep.cu in {time.perf_counter() - t0:.1f} s "
-        f"(flags: {' '.join(sweep.NVCC_FLAGS)})")
-    for name, (regs, spill, blocks) in {**kernel_attributes(),
-                                        SAMPLER: sobol.kernel_attributes(),
-                                        LANE_STAGE: wavefront.ray_prep_attributes()}.items():
+        f"(flags: {' '.join(_build.NVCC_FLAGS)})")
+    for name, (regs, spill, blocks) in {**tiles, **inst, **pairs, SAMPLER: sampler,
+                                        LANE_STAGE: lane_stage}.items():
         log(f"[build] {name}: {regs} registers a thread, {spill} B spilled, "
             f"{blocks} resident blocks per SM")
 

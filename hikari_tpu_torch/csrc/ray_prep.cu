@@ -106,8 +106,7 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ sup_lo, const float* __restrict__ sup_hi,
                     int n_super, long long n, int occlusion, int reverse,
                     float* __restrict__ o_out, float* __restrict__ d_out,
-                    float* __restrict__ t_out, long long* __restrict__ key_out,
-                    unsigned long long* __restrict__ culled) {
+                    float* __restrict__ t_out, long long* __restrict__ key_out) {
     __shared__ float box_lo[3][kBoxTile];
     __shared__ float box_hi[3][kBoxTile];
     // n_pad is a multiple of kThreads: every thread owns a lane, padding
@@ -190,12 +189,7 @@ __global__ void __launch_bounds__(kThreads)
         }
     }
     // no box admits the segment: the pre-pass zeroes its reach
-    const bool cut = tested && pending;
-    if (culled != nullptr) {  // block-uniform: every thread reaches the count
-        const int c = __syncthreads_count(cut && t > 0.0f);
-        if (threadIdx.x == 0 && c > 0) atomicAdd(culled, (unsigned long long)c);
-    }
-    if (cut) t = 0.0f;
+    if (tested && pending) t = 0.0f;
 
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -238,7 +232,7 @@ extern "C" {
 // The lane stage of one sweep over n_pad lanes (a multiple of 1024; n of
 // them real): the arguments of ray_prep_kernel. active (n bools), group32 /
 // group64 (n light ids, at most one of them), sup_lo / sup_hi (n_super
-// boxes), key_out and culled (one int64 counter, added to) may be null.
+// boxes) and key_out may be null.
 // Returns cudaGetLastError() after the launch (0 = cudaSuccess), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 int hikari_ray_prep(const float* o, const float* d, const float* t_max,
@@ -246,7 +240,7 @@ int hikari_ray_prep(const float* o, const float* d, const float* t_max,
                     const float* world_lo, const float* world_hi, const float* sup_lo,
                     const float* sup_hi, int n_super, long long n, long long n_pad,
                     int occlusion, int reverse, float* o_out, float* d_out, float* t_out,
-                    long long* key_out, unsigned long long* culled, cudaStream_t stream) {
+                    long long* key_out, cudaStream_t stream) {
     if (n < 0 || n_pad < n || n_pad % 1024 != 0 || n_super < 0 ||
         (n_super > 0 && (sup_lo == nullptr || sup_hi == nullptr)) ||
         (group32 != nullptr && group64 != nullptr) || (reverse && !occlusion))
@@ -256,7 +250,7 @@ int hikari_ray_prep(const float* o, const float* d, const float* t_max,
     if (n_pad == 0) return cudaSuccess;
     ray_prep_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
         o, d, t_max, active, group32, group64, world_lo, world_hi, sup_lo, sup_hi, n_super, n,
-        occlusion, reverse, o_out, d_out, t_out, key_out, culled);
+        occlusion, reverse, o_out, d_out, t_out, key_out);
     return cudaGetLastError();
 }
 

@@ -16,16 +16,15 @@ import functools
 import subprocess
 import sys
 from dataclasses import dataclass
-from pathlib import Path
 
 import numpy as np
 
-from .._build import build_shared_library
+from .. import _build
 
 N_BINS = 16
 DEFAULT_LEAF_SIZE = 4
 
-_NATIVE_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "bvh_builder.cpp"
+_NATIVE_SOURCE = _build.CSRC / "bvh_builder.cpp"
 # the JAX package's own compiler command (hikari_tpu/native/__init__.py)
 _GXX = ["g++", "-O3", "-march=native", "-shared", "-fPIC"]
 
@@ -45,15 +44,14 @@ class FlatBVH:
 @functools.cache
 def _native_builder():
     """The compiled hikari_build_bvh, or None without a compiler."""
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
     try:
-        path = build_shared_library("bvh", _NATIVE_SOURCE, _GXX, timeout=120)
-        fn = ctypes.CDLL(str(path)).hikari_build_bvh
-    except (OSError, subprocess.SubprocessError):
+        lib = _build.library("bvh", _NATIVE_SOURCE,
+                             {"hikari_build_bvh": [p, p, i64, ctypes.c_int32] + [p] * 6 + [i64]},
+                             command=_GXX, restype=i64, timeout=120)
+    except (OSError, RuntimeError, subprocess.SubprocessError):
         return None
-    fn.restype = ctypes.c_int64
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int32] + [ctypes.c_void_p] * 6 + [ctypes.c_int64]
-    return fn
+    return lib.hikari_build_bvh
 
 
 def _build_bvh_native(prim_lo, prim_hi, leaf_size) -> FlatBVH | None:

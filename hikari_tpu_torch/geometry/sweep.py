@@ -43,22 +43,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import shutil
-from pathlib import Path
 
 import torch
 
-from .._build import build_shared_library
+from .. import _build
+# the package's launch record under the names that portbench/harness.py reads
+from .._build import launches, reset_counts  # noqa: F401
 from ..utils import profiling
 
 RAY_TILE = 1024
 TREELET = 256
 COL_BITS = 8
 COL_MASK = (1 << COL_BITS) - 1
-_EPS = 1e-6
-_T_MIN = 1e-4
+EPS = 1e-6
+T_MIN = 1e-4
 _MISS_T = 3.0e38
-_PRE_MARGIN = 1.0 / 64.0   # the kernels' pre-test: slack in u and v
+PRE_MARGIN = 1.0 / 64.0   # the kernels' pre-test: slack in u and v
 _PRE_T = 1.0 + 1.0 / 64.0  # and at the far limit of t
 # tiles per step of the plain versions: (16, 1024, 256) blocks on the CPU;
 # on the card, where the walks run only to be compared with the kernels,
@@ -66,24 +66,7 @@ _PRE_T = 1.0 + 1.0 / 64.0  # and at the far limit of t
 _PLAIN_TILES = 16
 _PLAIN_TILES_CUDA = 128
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "sweep_tiles.cu"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
-
-# kernel launches, counted by the wrappers where they launch and nowhere
-# else (the instanced sweeps of sweep_inst.py and the pair-grid sweeps of
-# sweep_pairs.py count here too)
-_KERNELS = ("closest_tiles", "occlusion_tiles", "closest_inst", "occlusion_inst",
-            "closest_pairs", "occlusion_pairs")
-launches = dict.fromkeys(_KERNELS, 0)
-# plain-version runs on CUDA tensors (comparisons with the kernels only)
-plain_cuda_runs = dict.fromkeys(_KERNELS, 0)
-
-
-def reset_counts() -> None:
-    for counts in (launches, plain_cuda_runs):
-        for k in counts:
-            counts[k] = 0
+_SOURCE = _build.CSRC / "sweep_tiles.cu"
 
 
 # --- plain PyTorch versions ------------------------------------------------------
@@ -105,15 +88,15 @@ def _block_hit(o, d, coef):
     t = -affine(n, o, dw) / affine(n, d, None)
     u = affine(au, o, bu) + t * affine(au, d, None)
     v = affine(av, o, bv) + t * affine(av, d, None)
-    w = (1.0 + _EPS) - (u + v)
-    return t, (u >= -_EPS) & (v >= -_EPS) & (w >= -_EPS) & (t > _T_MIN)
+    w = (1.0 + EPS) - (u + v)
+    return t, (u >= -EPS) & (v >= -EPS) & (w >= -EPS) & (t > T_MIN)
 
 
-def _plain_tiles(x) -> int:
+def plain_tiles(x) -> int:
     return _PLAIN_TILES_CUDA if x.is_cuda else _PLAIN_TILES
 
 
-def _walk(seg, tn_bits, thr, step, stats=None):
+def walk(seg, tn_bits, thr, step, stats=None):
     """Walk every tile's segment by pair rank k with the early-out; step(idx,
     p) sweeps tiles idx at pairs p and returns their new thresholds. stats:
     optional dict that receives the number of (tile, pair) sweeps made
@@ -132,7 +115,7 @@ def _walk(seg, tn_bits, thr, step, stats=None):
         if idx.numel() == 0:
             break
         swept += idx.numel()
-        for chunk in idx.split(_plain_tiles(idx)):
+        for chunk in idx.split(plain_tiles(idx)):
             thr[chunk] = step(chunk, p[chunk])
         k += 1
     if stats is not None:
@@ -190,19 +173,19 @@ def closest_walk(o, d, key_in, tr_in, tre, tn_bits, seg, coef, block_hit, stats=
         tr[idx] = torch.where(better, tre_c[:, None].to(torch.int32), tr[idx])
         return (key[idx] | COL_MASK).amax(1)
 
-    _walk(seg, tn_bits, thr, step, stats)
+    walk(seg, tn_bits, thr, step, stats)
     if stats is not None:
         stats["tests"] = tests
     return key.view(-1), tr.view(-1)
 
 
-def _live_reach_bits(occ, tmax):
+def live_reach_bits(occ, tmax):
     """Per lane: the bits of its reach while unoccluded, else 0."""
     return torch.where(occ == 0, tmax, 0.0).view(torch.int32)
 
 
-def _reach_bits(occ, tmax):
-    return _live_reach_bits(occ, tmax).amax(1)
+def reach_bits(occ, tmax):
+    return live_reach_bits(occ, tmax).amax(1)
 
 
 def occlusion_walk(o, d, tmax, occ_in, tre, tn_bits, seg, coef, block_hit, stats=None):
@@ -213,19 +196,19 @@ def occlusion_walk(o, d, tmax, occ_in, tre, tn_bits, seg, coef, block_hit, stats
     occ = occ_in.clone().view(n_tiles, RAY_TILE)
     tm = tmax.view(n_tiles, RAY_TILE)
     o_t, d_t = o.view(n_tiles, RAY_TILE, 3), d.view(n_tiles, RAY_TILE, 3)
-    thr = _reach_bits(occ, tm)
+    thr = reach_bits(occ, tm)
     tests = 0
 
     def step(idx, p):
         nonlocal tests
         if stats is not None:
-            tests += tests_needed(_live_reach_bits(occ[idx], tm[idx]), tn_bits[p])
+            tests += tests_needed(live_reach_bits(occ[idx], tm[idx]), tn_bits[p])
         t, hit = block_hit(o_t[idx], d_t[idx], coef[tre[p].long()])
         hit = hit & (t < tm[idx][..., None])
         occ[idx] = occ[idx] | hit.any(-1).to(torch.int32)
-        return _reach_bits(occ[idx], tm[idx])
+        return reach_bits(occ[idx], tm[idx])
 
-    _walk(seg, tn_bits, thr, step, stats)
+    walk(seg, tn_bits, thr, step, stats)
     if stats is not None:
         stats["tests"] = tests
     return occ.view(-1)
@@ -236,7 +219,7 @@ def closest_tiles_plain(o, d, key_in, tr_in, tre, tn_bits, seg, coef, stats=None
     optional dict that receives the (tile, pair) sweeps made ("pairs") and
     the ray-triangle tests they need ("tests")."""
     if o.is_cuda:
-        plain_cuda_runs["closest_tiles"] += 1
+        _build.plain_cuda_runs["closest_tiles"] += 1
     return closest_walk(o, d, key_in, tr_in, tre, tn_bits, seg, coef, _block_hit, stats)
 
 
@@ -244,7 +227,7 @@ def occlusion_tiles_plain(o, d, tmax, occ_in, tre, tn_bits, seg, coef, stats=Non
     """Plain PyTorch occlusion sweep with the kernel's signature (stats as in
     closest_tiles_plain)."""
     if o.is_cuda:
-        plain_cuda_runs["occlusion_tiles"] += 1
+        _build.plain_cuda_runs["occlusion_tiles"] += 1
     return occlusion_walk(o, d, tmax, occ_in, tre, tn_bits, seg, coef, _block_hit, stats)
 
 
@@ -267,7 +250,7 @@ def _fma(a, b, c):
     return torch.where(inexact & even, toward, s).float()
 
 
-def _scaled_test(o, d, coef, t_far):
+def scaled_test(o, d, coef, t_far):
     """The pre-test's arithmetic on (C, L, 3) rays, (C, TT, 12) coefficient
     rows and far limits (C, L): (nt = t |den|, |den|, u |den|, v |den|, the
     far limit times |den|), each (C, L, TT). den and num are rounded as the
@@ -298,14 +281,14 @@ def may_hit_plain(o, d, coef, t_far):
     tests and the smoke test; the sweeps never call it. (C, L, 3) rays x
     (C, TT, 12) coefficients and the largest t that still counts, (C, L) ->
     (C, L, TT) bool: the hit predicate multiplied through by |den|
-    (``_scaled_test``), loosened by 1/64 in u, v and the far limit and by
+    (``scaled_test``), loosened by 1/64 in u, v and the far limit and by
     half at 1e-4."""
-    nt, aden, su, sv, far = _scaled_test(o, d, coef, t_far)
-    slack = (_EPS + _PRE_MARGIN) * aden
+    nt, aden, su, sv, far = scaled_test(o, d, coef, t_far)
+    slack = (EPS + PRE_MARGIN) * aden
     half = torch.tensor(-0.5, dtype=o.dtype, device=o.device)
-    return ((torch.abs(_fma(half, aden, su)) <= (0.5 + _EPS + _PRE_MARGIN) * aden)
+    return ((torch.abs(_fma(half, aden, su)) <= (0.5 + EPS + PRE_MARGIN) * aden)
             & (sv >= -slack) & (su + sv <= aden + slack)
-            & (nt > (0.5 * _T_MIN) * aden) & (nt < far))
+            & (nt > (0.5 * T_MIN) * aden) & (nt < far))
 
 
 def pretest_drops(o, d, t_far, tre, seg, coef, block_hit=_block_hit):
@@ -321,7 +304,7 @@ def pretest_drops(o, d, t_far, tre, seg, coef, block_hit=_block_hit):
     o_t, d_t = o.view(n_tiles, RAY_TILE, 3), d.view(n_tiles, RAY_TILE, 3)
     far_t = t_far.view(n_tiles, RAY_TILE)
     hits = drops = 0
-    for idx in torch.arange(tre.numel(), device=o.device).split(_plain_tiles(o)):
+    for idx in torch.arange(tre.numel(), device=o.device).split(plain_tiles(o)):
         ti, c = tile[idx], coef[tre[idx].long()]
         t, hit = block_hit(o_t[ti], d_t[ti], c)
         hit = hit & (t <= far_t[ti][..., None])
@@ -384,58 +367,21 @@ def grazing_rays(tri, rng):
 
 # --- CUDA kernels -------------------------------------------------------------------
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C argument types of a grid closest-hit / occlusion sweep (K1/K2, K5/K6)
+CLOSEST_ARGS = [_P] * 13 + [_I, _I, _P]
+OCCLUSION_ARGS = [_P] * 9 + [_I, _P]
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the sweep kernels are built with the "
-                       "CUDA toolkit at first use on a CUDA tensor")
-
-
-@functools.cache
-def sweep_library() -> ctypes.CDLL:
-    """Build (at first use) and load csrc/sweep_tiles.cu (which includes
-    csrc/sweep_grid.cuh)."""
-    import subprocess
-
-    try:
-        path = build_shared_library("sweep_tiles", _SOURCE, [_nvcc(), *NVCC_FLAGS])
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed to build {_SOURCE}:\n{e.stderr}") from e
-    lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hikari_closest_tiles.argtypes = [p] * 13 + [i, i, p]
-    lib.hikari_closest_tiles.restype = i
-    lib.hikari_occlusion_tiles.argtypes = [p] * 9 + [i, p]
-    lib.hikari_occlusion_tiles.restype = i
-    lib.hikari_tiles_attributes.argtypes = [p]
-    lib.hikari_tiles_attributes.restype = i
-    lib.hikari_pretest_grid.argtypes = [p] * 5 + [ctypes.c_int64, p]
-    lib.hikari_pretest_grid.restype = i
-    return lib
+_library = functools.partial(_build.library, "sweep_tiles", _SOURCE, {
+    "hikari_closest_tiles": CLOSEST_ARGS, "hikari_occlusion_tiles": OCCLUSION_ARGS,
+    "hikari_tiles_attributes": [_P], "hikari_pretest_grid": [_P] * 5 + [ctypes.c_int64, _P]})
 
 
 def kernel_attributes() -> dict:
     """{kernel: (registers a thread, spill bytes a thread, resident blocks
     per SM)} of the two sweep kernels, as the CUDA runtime reports them."""
-    out = (ctypes.c_int * 6)()
-    err = sweep_library().hikari_tiles_attributes(ctypes.addressof(out))
-    if err:
-        raise RuntimeError(f"hikari_tiles_attributes failed: cudaError {err}")
-    return {"closest_tiles": tuple(out[0:3]), "occlusion_tiles": tuple(out[3:6])}
-
-
-def _check(name, x, dtype, shape, device):
-    if x.device != device or x.dtype != dtype or not x.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous {dtype} tensor on {device}, "
-                         f"got {x.dtype} on {x.device} (contiguous="
-                         f"{x.is_contiguous()})")
-    if shape is not None and tuple(x.shape) != shape:
-        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
+    return _build.kernel_attributes(_library().hikari_tiles_attributes,
+                                    ("closest_tiles", "occlusion_tiles"))
 
 
 def pretest_grid(o, d, t_far, coef):
@@ -449,37 +395,31 @@ def pretest_grid(o, d, t_far, coef):
     n = o.shape[0]
     for name, x, shape in (("o", o, (n, 3)), ("d", d, (n, 3)), ("t_far", t_far, (n,)),
                            ("coef", coef, (TREELET, 12))):
-        _check(name, x, torch.float32, shape, o.device)
+        _build.check(name, x, torch.float32, shape, o.device)
     out = torch.empty((n, TREELET), dtype=torch.uint8, device=o.device)
-    err = sweep_library().hikari_pretest_grid(o.data_ptr(), d.data_ptr(), t_far.data_ptr(),
-                                              coef.data_ptr(), out.data_ptr(), n,
-                                              _stream(o.device))
-    if err:
-        raise RuntimeError(f"hikari_pretest_grid launch failed: cudaError {err}")
+    _build.launch(_library().hikari_pretest_grid, o.data_ptr(), d.data_ptr(),
+                  t_far.data_ptr(), coef.data_ptr(), out.data_ptr(), n,
+                  _build.stream(o.device))
     return out
 
 
-def _check_sweep(o, d, lane_args, tre, tn_bits, seg, coef):
+def check_sweep(o, d, lane_args, tre, tn_bits, seg, coef):
     if o.device.type != "cuda":
         raise ValueError(f"the sweep kernels take CUDA or CPU tensors, got {o.device}")
     n_tiles = seg.numel() - 1
     n = n_tiles * RAY_TILE
     dev = o.device
-    _check("o", o, torch.float32, (n, 3), dev)
-    _check("d", d, torch.float32, (n, 3), dev)
+    _build.check("o", o, torch.float32, (n, 3), dev)
+    _build.check("d", d, torch.float32, (n, 3), dev)
     for name, x, dtype in lane_args:
-        _check(name, x, dtype, (n,), dev)
-    _check("tre", tre, torch.int32, None, dev)
-    _check("tn_bits", tn_bits, torch.int32, tuple(tre.shape), dev)
-    _check("seg", seg, torch.int32, (n_tiles + 1,), dev)
-    _check("coef", coef, torch.float32, None, dev)
+        _build.check(name, x, dtype, (n,), dev)
+    _build.check("tre", tre, torch.int32, None, dev)
+    _build.check("tn_bits", tn_bits, torch.int32, tuple(tre.shape), dev)
+    _build.check("seg", seg, torch.int32, (n_tiles + 1,), dev)
+    _build.check("coef", coef, torch.float32, None, dev)
     if coef.dim() != 3 or coef.shape[1:] != (TREELET, 12):
         raise ValueError(f"coef: shape {tuple(coef.shape)}, expected (T, {TREELET}, 12)")
     return n_tiles
-
-
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def pair_schedule(seg: torch.Tensor, n_pairs: int):
@@ -495,29 +435,52 @@ def pair_schedule(seg: torch.Tensor, n_pairs: int):
     return tile.to(torch.int32), order.to(torch.int32)
 
 
-@profiling.spanned("hikari.sweep")
-def closest_tiles(o, d, key_in, tr_in, tre, tn_bits, seg, coef):
-    """Closest-hit treelet sweep -> (key, tr), each (n,) int32."""
-    if o.device.type == "cpu":
-        return closest_tiles_plain(o, d, key_in, tr_in, tre, tn_bits, seg, coef)
-    n_tiles = _check_sweep(o, d, [("key_in", key_in, torch.int32),
-                                  ("tr_in", tr_in, torch.int32)],
-                           tre, tn_bits, seg, coef)
+def closest_grid(library, symbol, o, d, key_in, tr_in, tre, tn_bits, seg, coef):
+    """A grid closest-hit sweep on the card -> (key, tr): the kernel
+    `symbol` of `library` (a loader), K1 here or K5 (sweep_pairs.py)."""
+    n_tiles = check_sweep(o, d, [("key_in", key_in, torch.int32),
+                                 ("tr_in", tr_in, torch.int32)],
+                          tre, tn_bits, seg, coef)
     key, tr = torch.empty_like(key_in), torch.empty_like(tr_in)
     if n_tiles == 0:
         return key, tr
     n_pairs = tre.numel()
     tile, order = pair_schedule(seg, n_pairs)
     best = torch.empty(key_in.shape, dtype=torch.int64, device=o.device)
-    err = sweep_library().hikari_closest_tiles(
-        o.data_ptr(), d.data_ptr(), key_in.data_ptr(), tr_in.data_ptr(),
-        tre.data_ptr(), tn_bits.data_ptr(), seg.data_ptr(), tile.data_ptr(),
-        order.data_ptr(), coef.data_ptr(), best.data_ptr(), key.data_ptr(),
-        tr.data_ptr(), n_tiles, n_pairs, _stream(o.device))
-    if err:
-        raise RuntimeError(f"hikari_closest_tiles launch failed: cudaError {err}")
-    launches["closest_tiles"] += 1
+    _build.launch(getattr(library(), symbol),
+                  o.data_ptr(), d.data_ptr(), key_in.data_ptr(), tr_in.data_ptr(),
+                  tre.data_ptr(), tn_bits.data_ptr(), seg.data_ptr(), tile.data_ptr(),
+                  order.data_ptr(), coef.data_ptr(), best.data_ptr(), key.data_ptr(),
+                  tr.data_ptr(), n_tiles, n_pairs, _build.stream(o.device))
     return key, tr
+
+
+def occlusion_grid(library, symbol, o, d, tmax, occ_in, tre, tn_bits, seg, coef):
+    """A grid occlusion sweep on the card -> occ: the kernel `symbol` of
+    `library`, K2 here or K6 (sweep_pairs.py)."""
+    n_tiles = check_sweep(o, d, [("tmax", tmax, torch.float32),
+                                 ("occ_in", occ_in, torch.int32)],
+                          tre, tn_bits, seg, coef)
+    # the kernel updates the carry in place: tiles without a pair keep it
+    occ = occ_in.clone()
+    if n_tiles == 0:
+        return occ
+    n_pairs = tre.numel()
+    tile, order = pair_schedule(seg, n_pairs)
+    _build.launch(getattr(library(), symbol),
+                  o.data_ptr(), d.data_ptr(), tmax.data_ptr(), tre.data_ptr(),
+                  tn_bits.data_ptr(), tile.data_ptr(), order.data_ptr(), coef.data_ptr(),
+                  occ.data_ptr(), n_pairs, _build.stream(o.device))
+    return occ
+
+
+@profiling.spanned("hikari.sweep")
+def closest_tiles(o, d, key_in, tr_in, tre, tn_bits, seg, coef):
+    """Closest-hit treelet sweep -> (key, tr), each (n,) int32."""
+    if o.device.type == "cpu":
+        return closest_tiles_plain(o, d, key_in, tr_in, tre, tn_bits, seg, coef)
+    return closest_grid(_library, "hikari_closest_tiles", o, d, key_in, tr_in, tre, tn_bits,
+                        seg, coef)
 
 
 @profiling.spanned("hikari.sweep")
@@ -525,20 +488,5 @@ def occlusion_tiles(o, d, tmax, occ_in, tre, tn_bits, seg, coef):
     """Occlusion treelet sweep -> occ, (n,) int32 (1 = occluded)."""
     if o.device.type == "cpu":
         return occlusion_tiles_plain(o, d, tmax, occ_in, tre, tn_bits, seg, coef)
-    n_tiles = _check_sweep(o, d, [("tmax", tmax, torch.float32),
-                                  ("occ_in", occ_in, torch.int32)],
-                           tre, tn_bits, seg, coef)
-    # the kernel updates the carry in place: tiles without a pair keep it
-    occ = occ_in.clone()
-    if n_tiles == 0:
-        return occ
-    n_pairs = tre.numel()
-    tile, order = pair_schedule(seg, n_pairs)
-    err = sweep_library().hikari_occlusion_tiles(
-        o.data_ptr(), d.data_ptr(), tmax.data_ptr(), tre.data_ptr(), tn_bits.data_ptr(),
-        tile.data_ptr(), order.data_ptr(), coef.data_ptr(), occ.data_ptr(), n_pairs,
-        _stream(o.device))
-    if err:
-        raise RuntimeError(f"hikari_occlusion_tiles launch failed: cudaError {err}")
-    launches["occlusion_tiles"] += 1
-    return occ
+    return occlusion_grid(_library, "hikari_occlusion_tiles", o, d, tmax, occ_in, tre,
+                          tn_bits, seg, coef)

@@ -8,8 +8,8 @@ versions.
 hand-written kernel from ``csrc/sweep_inst.cu`` (built with nvcc at first
 use) or raises; the plain PyTorch version beside it runs only for tensors
 on the CPU, and on the card only when a caller compares it with the
-kernel. Launches and plain runs on CUDA are counted in ``sweep.launches``
-and ``sweep.plain_cuda_runs``.
+kernel. Launches and plain runs on CUDA are counted in the package's launch
+record (``_build.launches`` and ``_build.plain_cuda_runs``).
 
 The pair list is the flat sweeps' (``sweep.py``), over world treelets:
 tile i walks ``seg[i]:seg[i+1]`` while ``tn_bits[p] < thr``. World
@@ -49,21 +49,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from pathlib import Path
 
 import torch
 
-from .._build import build_shared_library
-from .sweep import (NVCC_FLAGS, RAY_TILE, TREELET, _PRE_MARGIN, _check, _check_sweep,
-                    _live_reach_bits, _nvcc, _plain_tiles, _reach_bits, _scaled_test,
-                    _stream, _walk, launches, pair_schedule, plain_cuda_runs, tests_needed)
+from .. import _build
+from .sweep import (PRE_MARGIN, RAY_TILE, TREELET, check_sweep, live_reach_bits, pair_schedule,
+                    plain_tiles, reach_bits, scaled_test, tests_needed, walk)
 
 _EPS = 1e-6
 _T_MIN = 1e-4
 _DEN_MIN = 1e-20
 _MISS_T = 3.0e38
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "sweep_inst.cu"
+_SOURCE = _build.CSRC / "sweep_inst.cu"
 
 
 # --- plain PyTorch versions ------------------------------------------------------
@@ -103,13 +101,13 @@ def may_hit_plain(o, d, a, coef, t_far):
     TT, 12) coefficients and the largest t that still counts, (C, L) ->
     (C, L, TT) bool. The object-space ray is the plain version's own
     (``_to_object``, which rounds as the kernel's transform does); then the
-    flat pre-test's arithmetic (``sweep._scaled_test``) on its first three
+    flat pre-test's arithmetic (``sweep.scaled_test``) on its first three
     components, o.w = 1 and d.w = 0 being exact for an affine instance, and
     this kernel's predicate, loosened by 1/64 in u, v and the far limit and
     by half at 1e-4."""
     o4, d4 = _to_object(o, d, a)
-    nt, aden, su, sv, far = _scaled_test(o4[..., :3], d4[..., :3], coef, t_far)
-    slack = (_EPS + _PRE_MARGIN) * aden
+    nt, aden, su, sv, far = scaled_test(o4[..., :3], d4[..., :3], coef, t_far)
+    slack = (_EPS + PRE_MARGIN) * aden
     return ((su >= -slack) & (sv >= -slack) & (su + sv <= aden + slack)
             & (nt > (0.5 * _T_MIN) * aden) & (nt < far))
 
@@ -125,7 +123,7 @@ def pretest_drops_inst(o, d, t_far, tre, seg, ti_obj, ti_inst, coef, inst_a):
     o_t, d_t = o.view(n_tiles, RAY_TILE, 3), d.view(n_tiles, RAY_TILE, 3)
     far_t = t_far.view(n_tiles, RAY_TILE)
     hits = drops = 0
-    for idx in torch.arange(tre.numel(), device=o.device).split(_plain_tiles(o)):
+    for idx in torch.arange(tre.numel(), device=o.device).split(plain_tiles(o)):
         ti, wt = tile[idx], tre[idx].long()
         a, c = inst_a[ti_inst[wt].long()], coef[ti_obj[wt].long()]
         t, _, _, hit = _block_tuv_inst(*_to_object(o_t[ti], d_t[ti], a), c)
@@ -148,7 +146,7 @@ def closest_inst_plain(o, d, t_in, tre, tn_bits, seg, ti_obj, ti_inst, coef, ins
     stats: optional dict that receives the (tile, pair) sweeps made
     ("pairs") and the ray-triangle tests they need ("tests")."""
     if o.is_cuda:
-        plain_cuda_runs["closest_inst"] += 1
+        _build.plain_cuda_runs["closest_inst"] += 1
     n_tiles = seg.numel() - 1
     t_c = t_in.clone().view(n_tiles, RAY_TILE)
     tri = torch.full_like(t_c, -1, dtype=torch.int32)
@@ -175,7 +173,7 @@ def closest_inst_plain(o, d, t_in, tre, tn_bits, seg, ti_obj, ti_inst, coef, ins
         b2[idx] = torch.where(better, torch.gather(v, -1, jl)[..., 0], b2[idx])
         return t_c[idx].view(torch.int32).amax(1)
 
-    _walk(seg, tn_bits, thr, step, stats)
+    walk(seg, tn_bits, thr, step, stats)
     if stats is not None:
         stats["tests"] = tests
     return t_c.view(-1), tri.view(-1), b1.view(-1), b2.view(-1)
@@ -186,25 +184,25 @@ def occlusion_inst_plain(o, d, tmax, occ_in, tre, tn_bits, seg, ti_obj, ti_inst,
     """Plain PyTorch instanced occlusion sweep with the kernel's signature
     (stats as in closest_inst_plain)."""
     if o.is_cuda:
-        plain_cuda_runs["occlusion_inst"] += 1
+        _build.plain_cuda_runs["occlusion_inst"] += 1
     n_tiles = seg.numel() - 1
     occ = occ_in.clone().view(n_tiles, RAY_TILE)
     tm = tmax.view(n_tiles, RAY_TILE)
     o_t, d_t = o.view(n_tiles, RAY_TILE, 3), d.view(n_tiles, RAY_TILE, 3)
-    thr = _reach_bits(occ, tm)
+    thr = reach_bits(occ, tm)
     tests = 0
 
     def step(idx, p):
         nonlocal tests
         if stats is not None:
-            tests += tests_needed(_live_reach_bits(occ[idx], tm[idx]), tn_bits[p])
+            tests += tests_needed(live_reach_bits(occ[idx], tm[idx]), tn_bits[p])
         _, (t, _, _, hit) = _pair_blocks(o_t, d_t, idx, p, tre, ti_obj, ti_inst,
                                          coef, inst_a)
         hit = hit & (t < tm[idx][..., None])
         occ[idx] = occ[idx] | hit.any(-1).to(torch.int32)
-        return _reach_bits(occ[idx], tm[idx])
+        return reach_bits(occ[idx], tm[idx])
 
-    _walk(seg, tn_bits, thr, step, stats)
+    walk(seg, tn_bits, thr, step, stats)
     if stats is not None:
         stats["tests"] = tests
     return occ.view(-1)
@@ -212,37 +210,18 @@ def occlusion_inst_plain(o, d, tmax, occ_in, tre, tn_bits, seg, ti_obj, ti_inst,
 
 # --- CUDA kernels -------------------------------------------------------------------
 
-
-@functools.cache
-def inst_library() -> ctypes.CDLL:
-    """Build (at first use) and load csrc/sweep_inst.cu."""
-    import subprocess
-
-    try:
-        path = build_shared_library("sweep_inst", _SOURCE, [_nvcc(), *NVCC_FLAGS])
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed to build {_SOURCE}:\n{e.stderr}") from e
-    lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hikari_closest_inst.argtypes = [p] * 17 + [i, i, p]
-    lib.hikari_closest_inst.restype = i
-    lib.hikari_occlusion_inst.argtypes = [p] * 12 + [i, p]
-    lib.hikari_occlusion_inst.restype = i
-    lib.hikari_inst_attributes.argtypes = [p]
-    lib.hikari_inst_attributes.restype = i
-    lib.hikari_pretest_inst.argtypes = [p] * 6 + [ctypes.c_int64, p]
-    lib.hikari_pretest_inst.restype = i
-    return lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_library = functools.partial(_build.library, "sweep_inst", _SOURCE, {
+    "hikari_closest_inst": [_P] * 17 + [_I, _I, _P],
+    "hikari_occlusion_inst": [_P] * 12 + [_I, _P], "hikari_inst_attributes": [_P],
+    "hikari_pretest_inst": [_P] * 6 + [ctypes.c_int64, _P]})
 
 
 def kernel_attributes() -> dict:
     """{kernel: (registers a thread, spill bytes a thread, resident blocks
     per SM)} of the two sweep kernels, as the CUDA runtime reports them."""
-    out = (ctypes.c_int * 6)()
-    err = inst_library().hikari_inst_attributes(ctypes.addressof(out))
-    if err:
-        raise RuntimeError(f"hikari_inst_attributes failed: cudaError {err}")
-    return {"closest_inst": tuple(out[0:3]), "occlusion_inst": tuple(out[3:6])}
+    return _build.kernel_attributes(_library().hikari_inst_attributes,
+                                    ("closest_inst", "occlusion_inst"))
 
 
 def pretest_inst(o, d, t_far, coef, a):
@@ -257,21 +236,19 @@ def pretest_inst(o, d, t_far, coef, a):
     n = o.shape[0]
     for name, x, shape in (("o", o, (n, 3)), ("d", d, (n, 3)), ("t_far", t_far, (n,)),
                            ("coef", coef, (TREELET, 12)), ("a", a, (4, 4))):
-        _check(name, x, torch.float32, shape, o.device)
+        _build.check(name, x, torch.float32, shape, o.device)
     out = torch.empty((n, TREELET), dtype=torch.uint8, device=o.device)
-    err = inst_library().hikari_pretest_inst(o.data_ptr(), d.data_ptr(), t_far.data_ptr(),
-                                             coef.data_ptr(), a.data_ptr(), out.data_ptr(), n,
-                                             _stream(o.device))
-    if err:
-        raise RuntimeError(f"hikari_pretest_inst launch failed: cudaError {err}")
+    _build.launch(_library().hikari_pretest_inst, o.data_ptr(), d.data_ptr(),
+                  t_far.data_ptr(), coef.data_ptr(), a.data_ptr(), out.data_ptr(), n,
+                  _build.stream(o.device))
     return out
 
 
 def _check_inst(o, d, lane_args, tre, tn_bits, seg, ti_obj, ti_inst, coef, inst_a):
-    n_tiles = _check_sweep(o, d, lane_args, tre, tn_bits, seg, coef)
-    _check("ti_obj", ti_obj, torch.int32, None, o.device)
-    _check("ti_inst", ti_inst, torch.int32, tuple(ti_obj.shape), o.device)
-    _check("inst_a", inst_a, torch.float32, None, o.device)
+    n_tiles = check_sweep(o, d, lane_args, tre, tn_bits, seg, coef)
+    _build.check("ti_obj", ti_obj, torch.int32, None, o.device)
+    _build.check("ti_inst", ti_inst, torch.int32, tuple(ti_obj.shape), o.device)
+    _build.check("inst_a", inst_a, torch.float32, None, o.device)
     if inst_a.dim() != 3 or inst_a.shape[1:] != (4, 4):
         raise ValueError(f"inst_a: shape {tuple(inst_a.shape)}, expected (I, 4, 4)")
     return n_tiles
@@ -296,15 +273,13 @@ def closest_inst(o, d, t_in, tre, tn_bits, seg, ti_obj, ti_inst, coef, inst_a):
         raise ValueError("a tile's segment overflows the 32-bit (rank, column) field")
     tile, order = pair_schedule(seg, n_pairs)
     best = torch.empty(t_in.shape, dtype=torch.int64, device=o.device)
-    err = inst_library().hikari_closest_inst(
+    _build.launch(
+        _library().hikari_closest_inst,
         o.data_ptr(), d.data_ptr(), t_in.data_ptr(), tre.data_ptr(), tn_bits.data_ptr(),
         seg.data_ptr(), tile.data_ptr(), order.data_ptr(), ti_obj.data_ptr(),
         ti_inst.data_ptr(), coef.data_ptr(), inst_a.data_ptr(), best.data_ptr(),
         t.data_ptr(), tri.data_ptr(), b1.data_ptr(), b2.data_ptr(), n_tiles, n_pairs,
-        _stream(o.device))
-    if err:
-        raise RuntimeError(f"hikari_closest_inst launch failed: cudaError {err}")
-    launches["closest_inst"] += 1
+        _build.stream(o.device))
     return t, tri, b1, b2
 
 
@@ -322,11 +297,9 @@ def occlusion_inst(o, d, tmax, occ_in, tre, tn_bits, seg, ti_obj, ti_inst, coef,
         return occ
     n_pairs = tre.numel()
     tile, order = pair_schedule(seg, n_pairs)
-    err = inst_library().hikari_occlusion_inst(
+    _build.launch(
+        _library().hikari_occlusion_inst,
         o.data_ptr(), d.data_ptr(), tmax.data_ptr(), tre.data_ptr(), tn_bits.data_ptr(),
         tile.data_ptr(), order.data_ptr(), ti_obj.data_ptr(), ti_inst.data_ptr(),
-        coef.data_ptr(), inst_a.data_ptr(), occ.data_ptr(), n_pairs, _stream(o.device))
-    if err:
-        raise RuntimeError(f"hikari_occlusion_inst launch failed: cudaError {err}")
-    launches["occlusion_inst"] += 1
+        coef.data_ptr(), inst_a.data_ptr(), occ.data_ptr(), n_pairs, _build.stream(o.device))
     return occ

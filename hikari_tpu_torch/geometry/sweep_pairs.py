@@ -9,7 +9,8 @@ tensor each wrapper launches its hand-written kernel from
 ``csrc/sweep_pairs.cu`` (built with nvcc at first use) or raises; the plain
 PyTorch version beside it runs only for tensors on the CPU, and on the card
 only when a caller compares it with the kernel. Launches and plain runs on
-CUDA are counted in ``sweep.launches`` and ``sweep.plain_cuda_runs``.
+CUDA are counted in the package's launch record (``_build.launches`` and
+``_build.plain_cuda_runs``).
 
 The pair list and the signatures are the tile sweeps' (``sweep.py``). The
 TPU runs one grid step per pair in list order; a pair is skipped (not a
@@ -40,19 +41,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from pathlib import Path
 
 import torch
 
-from .._build import build_shared_library
+from .. import _build
 from ..utils import profiling
-from .sweep import (NVCC_FLAGS, _EPS, _T_MIN, _check_sweep, _nvcc, _stream,
-                    affine, closest_walk, launches, occlusion_walk, pair_schedule,
-                    plain_cuda_runs)
+from .sweep import (CLOSEST_ARGS, EPS, OCCLUSION_ARGS, T_MIN, affine, closest_grid,
+                    closest_walk, occlusion_grid, occlusion_walk)
 
 _DEN_MIN = 1e-20
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "sweep_pairs.cu"
+_SOURCE = _build.CSRC / "sweep_pairs.cu"
 
 
 # --- plain PyTorch versions ------------------------------------------------------
@@ -68,8 +67,8 @@ def _block_hit_pairs(o, d, coef):
     t = -affine(n, o, dw) / torch.where(torch.abs(den) < _DEN_MIN, _DEN_MIN, den)
     u = affine(au, o, bu) + t * affine(au, d, None)
     v = affine(av, o, bv) + t * affine(av, d, None)
-    hit = ((torch.abs(den) > _DEN_MIN) & (u >= -_EPS) & (v >= -_EPS)
-           & (u + v <= 1.0 + _EPS) & (t > _T_MIN))
+    hit = ((torch.abs(den) > _DEN_MIN) & (u >= -EPS) & (v >= -EPS)
+           & (u + v <= 1.0 + EPS) & (t > T_MIN))
     return t, hit
 
 
@@ -77,7 +76,7 @@ def closest_pairs_plain(o, d, key_in, tr_in, tre, tn_bits, seg, coef, stats=None
     """Plain PyTorch pair-grid closest-hit sweep with the kernel's signature
     (stats as in sweep.closest_tiles_plain)."""
     if o.is_cuda:
-        plain_cuda_runs["closest_pairs"] += 1
+        _build.plain_cuda_runs["closest_pairs"] += 1
     return closest_walk(o, d, key_in, tr_in, tre, tn_bits, seg, coef, _block_hit_pairs,
                         stats)
 
@@ -85,43 +84,23 @@ def closest_pairs_plain(o, d, key_in, tr_in, tre, tn_bits, seg, coef, stats=None
 def occlusion_pairs_plain(o, d, tmax, occ_in, tre, tn_bits, seg, coef, stats=None):
     """Plain PyTorch pair-grid occlusion sweep with the kernel's signature."""
     if o.is_cuda:
-        plain_cuda_runs["occlusion_pairs"] += 1
+        _build.plain_cuda_runs["occlusion_pairs"] += 1
     return occlusion_walk(o, d, tmax, occ_in, tre, tn_bits, seg, coef, _block_hit_pairs,
                           stats)
 
 
 # --- CUDA kernels -------------------------------------------------------------------
 
-
-@functools.cache
-def pairs_library() -> ctypes.CDLL:
-    """Build (at first use) and load csrc/sweep_pairs.cu (which includes
-    csrc/sweep_grid.cuh)."""
-    import subprocess
-
-    try:
-        path = build_shared_library("sweep_pairs", _SOURCE, [_nvcc(), *NVCC_FLAGS])
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed to build {_SOURCE}:\n{e.stderr}") from e
-    lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hikari_closest_pairs.argtypes = [p] * 13 + [i, i, p]
-    lib.hikari_closest_pairs.restype = i
-    lib.hikari_occlusion_pairs.argtypes = [p] * 9 + [i, p]
-    lib.hikari_occlusion_pairs.restype = i
-    lib.hikari_pairs_attributes.argtypes = [p]
-    lib.hikari_pairs_attributes.restype = i
-    return lib
+_library = functools.partial(_build.library, "sweep_pairs", _SOURCE, {
+    "hikari_closest_pairs": CLOSEST_ARGS, "hikari_occlusion_pairs": OCCLUSION_ARGS,
+    "hikari_pairs_attributes": [ctypes.c_void_p]})
 
 
 def kernel_attributes() -> dict:
     """{kernel: (registers a thread, spill bytes a thread, resident blocks
     per SM)} of the two pair-grid kernels, as the CUDA runtime reports them."""
-    out = (ctypes.c_int * 6)()
-    err = pairs_library().hikari_pairs_attributes(ctypes.addressof(out))
-    if err:
-        raise RuntimeError(f"hikari_pairs_attributes failed: cudaError {err}")
-    return {"closest_pairs": tuple(out[0:3]), "occlusion_pairs": tuple(out[3:6])}
+    return _build.kernel_attributes(_library().hikari_pairs_attributes,
+                                    ("closest_pairs", "occlusion_pairs"))
 
 
 @profiling.spanned("hikari.sweep")
@@ -129,24 +108,8 @@ def closest_pairs(o, d, key_in, tr_in, tre, tn_bits, seg, coef):
     """Pair-grid closest-hit sweep -> (key, tr), each (n,) int32."""
     if o.device.type == "cpu":
         return closest_pairs_plain(o, d, key_in, tr_in, tre, tn_bits, seg, coef)
-    n_tiles = _check_sweep(o, d, [("key_in", key_in, torch.int32),
-                                  ("tr_in", tr_in, torch.int32)],
-                           tre, tn_bits, seg, coef)
-    key, tr = torch.empty_like(key_in), torch.empty_like(tr_in)
-    if n_tiles == 0:
-        return key, tr
-    n_pairs = tre.numel()
-    tile, order = pair_schedule(seg, n_pairs)
-    best = torch.empty(key_in.shape, dtype=torch.int64, device=o.device)
-    err = pairs_library().hikari_closest_pairs(
-        o.data_ptr(), d.data_ptr(), key_in.data_ptr(), tr_in.data_ptr(),
-        tre.data_ptr(), tn_bits.data_ptr(), seg.data_ptr(), tile.data_ptr(),
-        order.data_ptr(), coef.data_ptr(), best.data_ptr(), key.data_ptr(),
-        tr.data_ptr(), n_tiles, n_pairs, _stream(o.device))
-    if err:
-        raise RuntimeError(f"hikari_closest_pairs launch failed: cudaError {err}")
-    launches["closest_pairs"] += 1
-    return key, tr
+    return closest_grid(_library, "hikari_closest_pairs", o, d, key_in, tr_in, tre, tn_bits,
+                        seg, coef)
 
 
 @profiling.spanned("hikari.sweep")
@@ -154,20 +117,5 @@ def occlusion_pairs(o, d, tmax, occ_in, tre, tn_bits, seg, coef):
     """Pair-grid occlusion sweep -> occ, (n,) int32 (1 = occluded)."""
     if o.device.type == "cpu":
         return occlusion_pairs_plain(o, d, tmax, occ_in, tre, tn_bits, seg, coef)
-    n_tiles = _check_sweep(o, d, [("tmax", tmax, torch.float32),
-                                  ("occ_in", occ_in, torch.int32)],
-                           tre, tn_bits, seg, coef)
-    # the kernel updates the carry in place: tiles without a pair keep it
-    occ = occ_in.clone()
-    if n_tiles == 0:
-        return occ
-    n_pairs = tre.numel()
-    tile, order = pair_schedule(seg, n_pairs)
-    err = pairs_library().hikari_occlusion_pairs(
-        o.data_ptr(), d.data_ptr(), tmax.data_ptr(), tre.data_ptr(), tn_bits.data_ptr(),
-        tile.data_ptr(), order.data_ptr(), coef.data_ptr(), occ.data_ptr(), n_pairs,
-        _stream(o.device))
-    if err:
-        raise RuntimeError(f"hikari_occlusion_pairs launch failed: cudaError {err}")
-    launches["occlusion_pairs"] += 1
-    return occ
+    return occlusion_grid(_library, "hikari_occlusion_pairs", o, d, tmax, occ_in, tre,
+                          tn_bits, seg, coef)

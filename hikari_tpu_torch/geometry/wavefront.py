@@ -51,13 +51,12 @@ import ctypes
 import functools
 import os
 from dataclasses import dataclass, fields
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from .._build import build_shared_library
-from .sweep import COL_MASK, RAY_TILE, TREELET, _check, closest_tiles, occlusion_tiles
+from .. import _build
+from .sweep import COL_MASK, RAY_TILE, TREELET, closest_tiles, occlusion_tiles
 from .sweep_pairs import closest_pairs, occlusion_pairs
 from .traverse import HitRecord
 from ..core.vecmath import cross
@@ -391,13 +390,7 @@ def _world_exit_clamp(o, d, t_max, world_lo, world_hi):
 
 # --- the lane stage: one kernel a sweep on the card -------------------------------------
 
-_RAY_PREP_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "ray_prep.cu"
-# kernel launches, counted by ray_prep_kernel where it launches, since reset_counts
-launches = {"ray_prep": 0}
-
-
-def reset_counts() -> None:
-    launches["ray_prep"] = 0
+_RAY_PREP_SOURCE = _build.CSRC / "ray_prep.cu"
 
 
 def _super_boxes(tl):
@@ -422,14 +415,10 @@ def ray_prep(tl, o, d, t_max, world_lo, world_hi, active=None, occlusion=False, 
 
     On a CUDA tensor one launch of csrc/ray_prep.cu (ray_prep_kernel), on a
     CPU tensor the plain version (ray_prep_plain); the two are equal bit for
-    bit. The counter ``ray_prep_lanes`` (sites ``kernel`` / ``plain``) counts
-    the padded lanes each took."""
-    n_pad = -(-o.shape[0] // RAY_TILE) * RAY_TILE
+    bit."""
     if o.device.type == "cpu":
-        profiling.count("ray_prep_lanes", n_pad, "plain")
         return ray_prep_plain(tl, o, d, t_max, world_lo, world_hi, active, occlusion, group,
                               reverse, keys)
-    profiling.count("ray_prep_lanes", n_pad, "kernel")
     return ray_prep_kernel(tl, o, d, t_max, world_lo, world_hi, active, occlusion, group,
                            reverse, keys)
 
@@ -437,8 +426,7 @@ def ray_prep(tl, o, d, t_max, world_lo, world_hi, active=None, occlusion=False, 
 def ray_prep_plain(tl, o, d, t_max, world_lo, world_hi, active=None, occlusion=False,
                    group=None, reverse=False, keys=True):
     """The plain version of ray_prep_kernel, on tensor operations: see
-    ray_prep. The counter ``lanes_culled`` (site ``super``) counts the lanes
-    of positive reach that the pre-pass zeroes."""
+    ray_prep."""
     t_max = torch.where(torch.isfinite(t_max), t_max, 3.0e37)
     if not occlusion:
         t_max = _world_exit_clamp(o, d, t_max, world_lo, world_hi)
@@ -450,10 +438,7 @@ def ray_prep_plain(tl, o, d, t_max, world_lo, world_hi, active=None, occlusion=F
             d = -d
         t_max = t_max * 0.9999
     if _super_boxes(tl) is not None:
-        may = _ray_super_cull(tl, o, d, t_max)
-        if profiling.recording():
-            profiling.count("lanes_culled", ((t_max > 0.0) & ~may).sum(), "super")
-        t_max = torch.where(may, t_max, 0.0)
+        t_max = torch.where(_ray_super_cull(tl, o, d, t_max), t_max, 0.0)
     o, d, t_max, n, n_pad = _pad_rays(o, d, t_max)
     if not keys:
         return o, d, t_max, None
@@ -465,39 +450,23 @@ def ray_prep_plain(tl, o, d, t_max, world_lo, world_hi, active=None, occlusion=F
     return o, d, t_max, torch.where(t_max > 0.0, key, 0xFFFFFFFF)
 
 
-@functools.cache
-def ray_prep_library() -> ctypes.CDLL:
-    """Build (at first use) and load csrc/ray_prep.cu."""
-    import subprocess
-
-    from .sweep import NVCC_FLAGS, _nvcc
-
-    try:
-        path = build_shared_library("ray_prep", _RAY_PREP_SOURCE, [_nvcc(), *NVCC_FLAGS])
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed to build {_RAY_PREP_SOURCE}:\n{e.stderr}") from e
-    lib = ctypes.CDLL(str(path))
-    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.hikari_ray_prep.argtypes = [p] * 10 + [i, i64, i64, i, i] + [p] * 6
-    lib.hikari_ray_prep.restype = i
-    lib.hikari_ray_prep_attributes.argtypes = [p]
-    lib.hikari_ray_prep_attributes.restype = i
-    return lib
+_P = ctypes.c_void_p
+_library = functools.partial(_build.library, "ray_prep", _RAY_PREP_SOURCE, {
+    "hikari_ray_prep": [_P] * 10 + [ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                                    ctypes.c_int, ctypes.c_int] + [_P] * 5,
+    "hikari_ray_prep_attributes": [_P]})
 
 
 def ray_prep_attributes() -> tuple:
     """(registers a thread, spill bytes a thread, resident blocks per SM) of
     the lane-stage kernel, as the CUDA runtime reports them."""
-    out = (ctypes.c_int * 3)()
-    err = ray_prep_library().hikari_ray_prep_attributes(ctypes.addressof(out))
-    if err:
-        raise RuntimeError(f"hikari_ray_prep_attributes failed: cudaError {err}")
-    return tuple(out)
+    return _build.kernel_attributes(_library().hikari_ray_prep_attributes,
+                                    ("ray_prep",))["ray_prep"]
 
 
 def _lane_tensor(name, x, dtype, shape, device):
     x = x.contiguous()
-    _check(name, x, dtype, shape, device)
+    _build.check(name, x, dtype, shape, device)
     return x
 
 
@@ -536,25 +505,18 @@ def ray_prep_kernel(tl, o, d, t_max, world_lo, world_hi, active=None, occlusion=
     d_out = torch.empty((n_pad, 3), dtype=f32, device=dev)
     t_out = torch.empty(n_pad, dtype=f32, device=dev)
     key = torch.empty(n_pad, dtype=torch.int64, device=dev) if keys else None
-    culled = None
-    if supers is not None and profiling.recording():
-        culled = torch.zeros((), dtype=torch.int64, device=dev)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
     if n_pad:
-        err = ray_prep_library().hikari_ray_prep(
+        _build.launch(
+            _library().hikari_ray_prep,
             o.data_ptr(), d.data_ptr(), t_max.data_ptr(), ptr(active), ptr(group32),
             ptr(group64), world_lo.data_ptr(), world_hi.data_ptr(),
             *(ptr(x) for x in (supers or (None, None))), n_super, n, n_pad, int(occlusion),
             int(reverse), o_out.data_ptr(), d_out.data_ptr(), t_out.data_ptr(), ptr(key),
-            ptr(culled), torch.cuda.current_stream(dev).cuda_stream)
-        if err:
-            raise RuntimeError(f"hikari_ray_prep launch failed: cudaError {err}")
-        launches["ray_prep"] += 1
-    if culled is not None:
-        profiling.count("lanes_culled", culled, "super")
+            _build.stream(dev))
     return o_out, d_out, t_out, key
 
 

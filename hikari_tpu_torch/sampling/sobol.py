@@ -11,9 +11,7 @@ The entry points (``compute_pixel_sample``, ``path_sample_1d``,
 tensors in one launch of ``csrc/zsobol.cu``, which computes the Morton
 index, the digit permutation, the generator-matrix product and FastOwen
 in registers and equals the plain version below bit for bit; on CPU
-tensors they run the plain version (``sample_1d`` / ``sample_2d``). The
-counter ``sobol_dims`` (sites ``kernel`` and ``plain``) counts the
-dimensions each path drew.
+tensors they run the plain version (``sample_1d`` / ``sample_2d``).
 """
 
 from __future__ import annotations
@@ -21,12 +19,11 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from .._build import build_shared_library
+from .. import _build
 from .._data import load_npy
 from ..utils import profiling
 from .hashes import MASK32, as_i64, fast_owen_scramble, hash_u32x2_int, mix_bits, shr
@@ -178,45 +175,19 @@ def camera_draws(cfg: ZSobolConfig) -> list:
 
 # --- CUDA kernel -------------------------------------------------------------------
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "zsobol.cu"
+_SOURCE = _build.CSRC / "zsobol.cu"
 MAX_DRAWS = 8  # dimensions a launch draws (zsobol.cu kMaxDraws)
 MAX_BASE4_DIGITS = 32  # digits the kernel's 64-bit Morton index holds
-# kernel launches, counted by draw_kernel where it launches, since reset_counts
-launches = {"zsobol": 0}
-
-
-def reset_counts() -> None:
-    launches["zsobol"] = 0
-
-
-@functools.cache
-def zsobol_library() -> ctypes.CDLL:
-    """Build (at first use) and load csrc/zsobol.cu."""
-    import subprocess
-
-    from ..geometry.sweep import NVCC_FLAGS, _nvcc
-
-    try:
-        path = build_shared_library("zsobol", _SOURCE, [_nvcc(), *NVCC_FLAGS])
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed to build {_SOURCE}:\n{e.stderr}") from e
-    lib = ctypes.CDLL(str(path))
-    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.hikari_zsobol.argtypes = [p, i64, p, i64, p, i64, i64, i, i, i, i] + [p] * 6
-    lib.hikari_zsobol.restype = i
-    lib.hikari_zsobol_attributes.argtypes = [p]
-    lib.hikari_zsobol_attributes.restype = i
-    return lib
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_library = functools.partial(_build.library, "zsobol", _SOURCE, {
+    "hikari_zsobol": [_P, _I64, _P, _I64, _P, _I64, _I64, _I, _I, _I, _I] + [_P] * 6,
+    "hikari_zsobol_attributes": [_P]})
 
 
 def kernel_attributes() -> tuple:
     """(registers a thread, spill bytes a thread, resident blocks per SM) of
     the sampler kernel, as the CUDA runtime reports them."""
-    out = (ctypes.c_int * 3)()
-    err = zsobol_library().hikari_zsobol_attributes(ctypes.addressof(out))
-    if err:
-        raise RuntimeError(f"hikari_zsobol_attributes failed: cudaError {err}")
-    return tuple(out)
+    return _build.kernel_attributes(_library().hikari_zsobol_attributes, ("zsobol",))["zsobol"]
 
 
 def flat_lanes(px, py, sample_idx):
@@ -258,19 +229,16 @@ def draw_kernel(cfg: ZSobolConfig, lanes, draws, outs) -> None:
                              f"got {o.dtype} {tuple(o.shape)} on {o.device}")
     k = len(draws)
     dims = (ctypes.c_uint64 * k)(*(int(d) for d, _, _ in draws))
-    sobol_dims = (ctypes.c_int * k)(*(int(s) for _, s, _ in draws))
+    sdims = (ctypes.c_int * k)(*(int(s) for _, s, _ in draws))
     seeds = (ctypes.c_uint32 * k)(*(int(h) & MASK32 for _, _, h in draws))
     out_ptrs = (ctypes.c_void_p * k)(*(o.data_ptr() for o in outs))
     strides = (ctypes.c_int64 * k)(*(o.stride(0) for o in outs))
     px, py, si = lanes
-    err = zsobol_library().hikari_zsobol(
+    _build.launch(
+        _library().hikari_zsobol,
         px.data_ptr(), px.stride(0), py.data_ptr(), py.stride(0), si.data_ptr(), si.stride(0),
         n, cfg.log2_spp, cfg.n_base4_digits, min(2 * cfg.n_base4_digits, SOBOL_MATRIX_SIZE), k,
-        dims, sobol_dims, seeds, out_ptrs, strides,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"hikari_zsobol launch failed: cudaError {err}")
-    launches["zsobol"] += 1
+        dims, sdims, seeds, out_ptrs, strides, _build.stream(dev))
 
 
 def _path_dim(depth: int, local_dim: int) -> int:
@@ -301,12 +269,10 @@ def compute_pixel_sample(cfg: ZSobolConfig, px, py, sample_idx) -> PixelSample:
     """Camera dims {lambda:1, jitter:3, time:4, lens:6} (sobol.jl:437-446)."""
     draws = camera_draws(cfg)
     if not _on_card(px):
-        profiling.count("sobol_dims", len(draws), "plain")
         wavelength_u, jx, jy, time, lu, lv = draw_plain(cfg, px, py, sample_idx, draws)
         return PixelSample(jitter=torch.stack([jx, jy], -1),
                            wavelength_u=wavelength_u,
                            lens=torch.stack([lu, lv], -1), time=time)
-    profiling.count("sobol_dims", len(draws), "kernel")
     shape, lanes = flat_lanes(px, py, sample_idx)
     n = shape.numel()
     jitter, lens = (torch.empty((n, 2), dtype=torch.float32, device=px.device)
@@ -335,9 +301,7 @@ def _path_draws(cfg, px, py, sample_idx, draws) -> tuple:
     """The path dims `draws` as tensors of the lanes' shape: on the card
     rows of one (k, n) output of one launch, elsewhere the plain version."""
     if not _on_card(px):
-        profiling.count("sobol_dims", len(draws), "plain")
         return tuple(draw_plain(cfg, px, py, sample_idx, draws))
-    profiling.count("sobol_dims", len(draws), "kernel")
     shape, lanes = flat_lanes(px, py, sample_idx)
     out = torch.empty((len(draws), shape.numel()), dtype=torch.float32, device=px.device)
     draw_kernel(cfg, lanes, draws, list(out))

@@ -49,12 +49,10 @@ place where the host waits for the card. The spans of the render path:
 
 Counters: ``host_syncs`` (by site), ``pairs_listed`` and ``lanes_swept``
 (per sweep: the pair list's length; the live prefix swept and the input
-lanes), ``rays_traced`` (the device sums of ``render_lanes`` and the
-preview's lanes), ``sobol_dims`` (scrambled dimensions the sampler drew,
-sites ``kernel`` and ``plain``), ``ray_prep_lanes`` (the padded lanes of
-each sweep's lane stage, sites ``kernel`` and ``plain``) and
-``lanes_culled`` (the device sum of the lanes of positive reach that the
-super-box pre-pass zeroed, site ``super``).
+lanes) and ``rays_traced`` (the device sums of ``render_lanes`` and the
+preview's lanes). Which path ran, a hand-written kernel or its plain
+version, is not a counter here: the package's always-on launch record
+(``hikari_tpu_torch._build.launches`` and ``plain_cuda_runs``) keeps it.
 """
 
 from __future__ import annotations

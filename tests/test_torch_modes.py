@@ -152,17 +152,17 @@ def test_cuda_modes_match_cpu(port_scene, monkeypatch):
     render, which runs their plain versions; the resident tolerance."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the sweep kernels have no CPU mode")
-    from hikari_tpu_torch.geometry import sweep
+    from hikari_tpu_torch import _build
 
     for name, val in (("SWEEP_MODE", "pairs"), ("BAND_FRAC", BAND_FRAC),
                       ("SHADOW_REV", True)):
         monkeypatch.setattr(twf, name, val)
     kw = dict(material_coherence="sorted", resident="on")
     rgb_cpu, _, st_cpu = _render(port_scene, **kw)
-    sweep.reset_counts()
+    _build.reset_counts()
     rgb_gpu, _, st_gpu = _render(port_scene.to("cuda"), **kw)
-    assert sweep.launches["closest_pairs"] > 0 and sweep.launches["occlusion_pairs"] > 0
-    assert not any(sweep.plain_cuda_runs.values())
+    assert _build.launches["closest_pairs"] > 0 and _build.launches["occlusion_pairs"] > 0
+    assert not any(_build.plain_cuda_runs.values())
     np.testing.assert_allclose(rgb_gpu.cpu().numpy(), rgb_cpu.numpy(), atol=2e-3, rtol=1e-3)
     assert abs(float(st_gpu["rays_traced"]) - float(st_cpu["rays_traced"])) <= 1e-3 * float(
         st_cpu["rays_traced"])

@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from hikari_tpu.geometry import wavefront as jwf
-from hikari_tpu_torch.geometry import sweep_pairs
+from hikari_tpu_torch.geometry import sweep, sweep_pairs
 from hikari_tpu_torch.geometry import wavefront as twf
 from test_torch_wavefront import AGREE, _check_hits, _jax_pairs, _torch, setup  # noqa: F401
 
@@ -89,7 +89,7 @@ def test_plain_occlusion_pairs_matches_pallas_interpret(setup):
 
 def test_pair_schedule_is_rank_major():
     seg = torch.tensor([0, 3, 3, 5, 9], dtype=torch.int32)
-    tile, order = sweep_pairs.pair_schedule(seg, 9)
+    tile, order = sweep.pair_schedule(seg, 9)
     assert tile.tolist() == [0, 0, 0, 2, 2, 3, 3, 3, 3]
     # rank 0 of tiles 0, 2, 3, then rank 1 of each, ...
     assert order.tolist() == [0, 3, 5, 1, 4, 6, 2, 7, 8]

@@ -1,11 +1,11 @@
 """The traversal driver's lane stage (``hikari_tpu_torch.geometry.wavefront.ray_prep``):
-CPU tensors take the plain version and count their lanes under ``plain``;
-the plain version (``ray_prep_plain``) gives, bit for bit, the lanes and
+CPU tensors take the plain version and launch nothing (the package's
+launch record stays empty); the plain version (``ray_prep_plain``) gives, bit for bit, the lanes and
 keys of the composition it replaced in ``prepare_closest`` /
 ``prepare_occlusion`` (the finite reach, ``_world_exit_clamp`` or the
 reversed shadow segment, the active mask, ``_ray_super_cull``,
-``_pad_rays``, ``ray_sort_keys`` and the light group, the key clamp); the
-pre-pass's culled lanes are counted; the kernel's source carries its note
+``_pad_rays``, ``ray_sort_keys`` and the light group, the key clamp); no
+pre-pass runs without super boxes; the kernel's source carries its note
 and the plain version's constants.
 The kernel itself runs only on the card (``test_torch_ray_prep_cuda.py``).
 
@@ -19,13 +19,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from torch.profiler import ProfilerActivity
 
 import hikari_tpu_torch as hk
-from hikari_tpu_torch import scenes
+from hikari_tpu_torch import _build, scenes
 from hikari_tpu_torch.geometry import wavefront as twf
 from hikari_tpu_torch.integrators import volpath
-from hikari_tpu_torch.utils import profiling
 
 SOURCE = Path(twf.__file__).resolve().parent.parent / "csrc" / "ray_prep.cu"
 # lane counts: none, one, under a tile, a tile, just over, several
@@ -216,30 +214,22 @@ def test_cpu_tensors_take_the_plain_path_and_count_it(built, kind, monkeypatch):
     sc = built["flat"]
     tl, (o, d, t, active, group) = scene_lanes(sc, 3000, seed=9)
     o, d, t, active = (torch.from_numpy(x) for x in (o, d, t, active))
-    twf.reset_counts()
-    profiling.reset()
-    culled = {}
-    orig = twf._ray_super_cull
+    _build.reset_counts()
+    padded = []
+    orig = twf.ray_prep_plain
 
-    def counting(tl_, o_, d_, t_):
-        may = orig(tl_, o_, d_, t_)
-        culled["n"] = float(((t_ > 0.0) & ~may).sum())
-        return may
+    def plain(*args, **kw):
+        out = orig(*args, **kw)
+        padded.append(out[0].shape[0])
+        return out
 
-    monkeypatch.setattr(twf, "_ray_super_cull", counting)
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU]):
-        if kind == "closest":
-            volpath.scene_closest_hit(sc, o, d, t, active=active)
-        else:
-            volpath.scene_any_hit(sc, o, d, t, active=active,
-                                  group=torch.from_numpy(group))
-    counters = profiling.recorded()["counters"]
-    profiling.reset()
-    assert twf.launches == {"ray_prep": 0}
-    assert counters["ray_prep_lanes"]["sites"] == {"plain": 3072.0}
-    assert counters["ray_prep_lanes"]["spans"] == {"hikari.traversal": 3072.0}
-    assert counters["lanes_culled"]["sites"] == {"super": culled["n"]}
-    assert counters["lanes_culled"]["spans"] == {"hikari.traversal": culled["n"]}
+    monkeypatch.setattr(twf, "ray_prep_plain", plain)
+    if kind == "closest":
+        volpath.scene_closest_hit(sc, o, d, t, active=active)
+    else:
+        volpath.scene_any_hit(sc, o, d, t, active=active, group=torch.from_numpy(group))
+    assert not _build.launches and not _build.plain_cuda_runs
+    assert padded == [3072]
 
 
 def test_no_pre_pass_and_no_culled_count_without_super_boxes(built, monkeypatch):
@@ -250,14 +240,13 @@ def test_no_pre_pass_and_no_culled_count_without_super_boxes(built, monkeypatch)
     for which in ("one treelet", "instanced"):
         sc = built[which]
         tl, (o, d, t, active, _) = scene_lanes(sc, 1500, seed=2)
-        profiling.reset()
-        with torch.profiler.profile(activities=[ProfilerActivity.CPU]):
-            twf.ray_prep(tl, *(torch.from_numpy(x) for x in (o, d, t)), sc.world_lo,
-                         sc.world_hi, torch.from_numpy(active))
-        counters = profiling.recorded()["counters"]
-        profiling.reset()
-        assert "lanes_culled" not in counters
-        assert counters["ray_prep_lanes"]["sites"] == {"plain": 2048.0}
+        args = [torch.from_numpy(x) for x in (o, d, t)]
+        active = torch.from_numpy(active)
+        got = twf.ray_prep(tl, *args, sc.world_lo, sc.world_hi, active)
+        # the uncut stage: no super boxes, so the composition skips the pre-pass too
+        want = present(tl, *args, sc.world_lo, sc.world_hi, active, False, None, False, True)
+        assert_stage_equal(got, want, which)
+        assert got[0].shape[0] == 2048
 
 
 def test_the_kernel_takes_only_card_tensors(built):
