@@ -951,8 +951,8 @@ def _albedo_rgb_dispatch(scene: SceneData, mat_type, mat_idx, tex):
         li = torch.tensor([250, 190, 105], device=idx.device)  # offsets from 360 nm
         profiling.host_sync("albedo.conductor_lam", idx.device)
         ci = torch.clamp(idx, max=b.cond_eta.shape[0] - 1)  # other tags' rows clamp, as XLA's
-        eta = b.cond_eta[ci][..., li]
-        k = b.cond_k[ci][..., li]
+        eta = _bl(b.cond_eta[:, li], ci)  # the three columns first, then per lane
+        k = _bl(b.cond_k[:, li], ci)
         put(mt.CONDUCTOR, ((eta - 1.0) ** 2 + k * k) / ((eta + 1.0) ** 2 + k * k))
     if mt.COATED_DIFFUSE in present:
         put(mt.COATED_DIFFUSE, rgb(b.cd_refl, b.cd_refl_tex))

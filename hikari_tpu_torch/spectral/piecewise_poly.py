@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.lookup import gather_rows
+
 LAM0 = 360.0
 LAM1 = 830.0
 
@@ -37,7 +39,7 @@ def piecewise_eval(coeffs: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     x = torch.clamp((lam - LAM0) / (LAM1 - LAM0), 0.0, 1.0 - 1e-7) * S
     seg = x.to(torch.int64)
     t = x - seg.to(torch.float32)
-    c = coeffs.to(lam.device)[seg]  # (..., D)
+    c = gather_rows(coeffs.to(lam.device), seg)  # (..., D)
     acc = c[..., 0]
     for d in range(1, D):
         acc = acc * t + c[..., d]
@@ -54,7 +56,7 @@ def piecewise_eval_banked(coeffs: torch.Tensor, idx: torch.Tensor,
     x = torch.clamp((lam - LAM0) / (LAM1 - LAM0), 0.0, 1.0 - 1e-7) * S
     seg = x.to(torch.int64)
     t = x - seg.to(torch.float32)
-    c = coeffs[idx.expand_as(seg), seg]  # (..., D)
+    c = gather_rows(coeffs.reshape(M * S, D), torch.add(seg, idx, alpha=S))  # (..., D)
     acc = c[..., 0]
     for d in range(1, D):
         acc = acc * t + c[..., d]
