@@ -12,13 +12,18 @@ compare each sampled pixel's RGB end to end. Numbers compared:
   the tolerances below, and of the carries between bounces (a lane's
   input to bounce d + 1 against its output of bounce d, bit for bit; a
   wavefront must run each depth once, in order);
+- lane_mismatch (VolPath cells): the share of checked lanes with any such
+  check off. A fault on the lanes of one material is off at one of a
+  lane's checks (eleven at depth 5), so it moves state_mismatch by about
+  a tenth of what it moves lane_mismatch;
 - film_err: the largest relative gap between a sampled pixel of the film
   and the weighted sum of the lanes the program traced for it;
 - samples_missing: (pixel, sample) pairs of the window absent from, or
   repeated in, the traced lanes.
 
-`control=True` puts the reference, computed in bfloat16, in the
-program's place (ref/bf16.py)."""
+The reference shades under material_coherence 'none', whatever the
+cell's mode. `control=True` puts the reference, computed in bfloat16, in
+the program's place (ref/bf16.py)."""
 
 from __future__ import annotations
 
@@ -69,6 +74,9 @@ class Tally:
         self.n = 0
         self.bad = 0
         self.parts = {}
+        self.lanes = 0
+        self.lanes_bad = 0
+        self.lane_off = None
 
     def add(self, part: str, off: torch.Tensor):
         n, b = int(off.numel()), int(off.sum())
@@ -77,11 +85,32 @@ class Tally:
         p = self.parts.setdefault(part, [0, 0])
         p[0] += b
         p[1] += n
+        if self.lane_off is not None:
+            # a check over other lanes than the wave's (lanes differ) is off at every lane
+            self.lane_off |= off.to(self.lane_off.device) if off.shape == self.lane_off.shape \
+                else True
+
+    def start_lanes(self, n: int, device):
+        """Count the checks that follow per lane too, until the next call."""
+        self.close_lanes()
+        self.lane_off = torch.zeros(n, dtype=torch.bool, device=device)
+
+    def close_lanes(self):
+        if self.lane_off is not None:
+            self.lanes += self.lane_off.numel()
+            self.lanes_bad += int(self.lane_off.sum())
+            self.lane_off = None
 
     @property
     def share(self) -> float:
         """Mismatched checks over all; a run that checked nothing reads 1."""
         return self.bad / self.n if self.n else 1.0
+
+    @property
+    def lane_share(self) -> float:
+        """Lanes with a mismatched check over the lanes checked, or 1."""
+        self.close_lanes()
+        return self.lanes_bad / self.lanes if self.lanes else 1.0
 
 
 def volpath_checks(vp_fields: dict, cfg: dict, spec: dict, cap, films, device,
@@ -91,7 +120,9 @@ def volpath_checks(vp_fields: dict, cfg: dict, spec: dict, cap, films, device,
     cap.pix, one per film the window filled."""
     rscene = ref_scene(spec, cfg, device)
     rcam = make_camera(rapi, cfg)
-    vp = stages.VolPath(**vp_fields)
+    # every coherence mode gives the same result per lane, so the program
+    # under 'gated' or 'sorted' is held to the plain every-type dispatch
+    vp = stages.VolPath(**dict(vp_fields, material_coherence="none"))
     tally = Tally()
     fallbacks = {"indices clamped": 0, "no output": 0}
 
@@ -115,6 +146,7 @@ def volpath_checks(vp_fields: dict, cfg: dict, spec: dict, cap, films, device,
         rec = sorted(rec, key=lambda r: r[0])
         st0 = lanes_of(rec[0][1], rec[0][3])
         key0 = lane_key(st0["si"], st0["px"], st0["py"], w, h)
+        tally.start_lanes(key0.numel(), key0.device)
         ref0, _, pdf = stages.camera_state(vp, rscene, rcam, st0["si"], st0["px"], st0["py"])
         prog0 = st0
         if control:
@@ -155,8 +187,10 @@ def volpath_checks(vp_fields: dict, cfg: dict, spec: dict, cap, films, device,
             tally.add("film rgb", lanes_off(None if prog_rgb is None else {"rgb": prog_rgb},
                                             {"rgb": ref_rgb}, ("rgb",)))
     film_err, missing = film_checks(cap, films, control)
-    numbers = {"state_mismatch": tally.share, "film_err": film_err, "samples_missing": missing}
-    detail = {"checks": tally.n, "bounce_waves": sorted(cap.bounces), "fallbacks": fallbacks,
+    numbers = {"state_mismatch": tally.share, "lane_mismatch": tally.lane_share,
+               "film_err": film_err, "samples_missing": missing}
+    detail = {"checks": tally.n, "lanes": f"{tally.lanes_bad}/{tally.lanes}",
+              "bounce_waves": sorted(cap.bounces), "fallbacks": fallbacks,
               "parts": {k: f"{b}/{n}" for k, (b, n) in tally.parts.items()}}
     return numbers, detail
 

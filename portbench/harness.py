@@ -33,6 +33,7 @@ import subprocess
 import sys
 import time
 import traceback
+from contextlib import nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -258,14 +259,17 @@ class Run:
             return VolPathCapture(self.volpath, self.pixels, bounce_waves)
         return PreviewCapture(self.preview, self.pixels)
 
-    def window(self, seconds: float):
-        """Whole units until the next would be expected to end after `seconds`."""
+    def window(self, seconds: float, device_clock: bool = False):
+        """Whole units until the next would be expected to end after `seconds`;
+        with device_clock, under a CUDA-only profiler whose device busy time
+        is read once the window has closed (device_busy_s)."""
         chk = self.cell["check"]
         waves = self.rng.choice(chk["bounce_wave_range"], size=chk["bounce_waves"],
                                 replace=False) if self.kind == "wavefronts" else []
         self.samples, self.failed, self.attempted, self.unit_s = 0, 0, 0, []
         self.cap = self._capture(waves)
-        with self.cap:
+        clock = profile_read.DeviceClock() if device_clock and self.cuda else nullcontext()
+        with self.cap, clock:
             t0 = time.perf_counter()
             while not self.unit_s or (time.perf_counter() - t0
                                       + statistics.fmean(self.unit_s)) <= seconds:
@@ -279,9 +283,12 @@ class Run:
                     break
                 self.unit_s.append(time.perf_counter() - ts)
             self.window_s = time.perf_counter() - t0
+        self.device_busy_s = (clock.busy_s() if isinstance(clock, profile_read.DeviceClock)
+                              else None)
 
     def traced_window(self):
-        """Stage-timed units, then profiled units with no stage timer."""
+        """Stage-timed units, then plain units (neither timer nor profiler,
+        timed whole on the host's clock), then profiled units."""
         tr = self.cell["trace"]
         chk = self.cell["check"]
         waves = (self.rng.choice(tr["stage_units"], size=min(chk["bounce_waves"],
@@ -301,6 +308,12 @@ class Run:
                 self.sync()
             ctx.update(stage_s=dict(timers.secs), stage_calls=dict(timers.calls),
                        stage_wall_s=time.perf_counter() - t0, stage_samples=self.samples - n0)
+            n0, t0 = self.samples, time.perf_counter()
+            for _ in range(tr.get("plain_units", 0)):
+                self.attempted += 1
+                self.samples += self.unit()
+            self.sync()
+            ctx.update(plain_s=time.perf_counter() - t0, plain_samples=self.samples - n0)
             if self.cuda:
                 from hikari_tpu_torch.geometry import sweep, wavefront
 
@@ -350,15 +363,19 @@ class Run:
                                     self.device, control)
 
 
-def end_to_end(window_s: float, samples: int, unit_s: list, setup_s: float, names) -> dict:
+def end_to_end(window_s: float, samples: int, unit_s: list, setup_s: float, names,
+               busy_s: float | None = None) -> dict:
     """The cell's end-to-end metrics, each found by its base name (the part
     before a first '.', so a split such as sample_ms.preview reads the same
     quantity): sample_ms, the window's whole time over the full-frame
-    samples it completed; frame_ms_p95, the 95th percentile of every unit's
-    time (a frame, start to its image on the host); setup_s, process start
-    to the window's start."""
+    samples it completed; device_ms, the seconds in which some operation ran
+    on the card over the whole window (busy_s), over the same samples;
+    frame_ms_p95, the 95th percentile of every unit's time (a frame, start
+    to its image on the host); setup_s, process start to the window's
+    start."""
     ms = [t * 1e3 for t in unit_s]
     value = {"sample_ms": (window_s * 1e3 / max(samples, 1), "ms"),
+             "device_ms": (None if busy_s is None else busy_s * 1e3 / max(samples, 1), "ms"),
              "frame_ms_p95": ((statistics.quantiles(ms, n=100, method="inclusive")[94]
                                if len(ms) > 1 else ms[0]) if ms else None, "ms"),
              "setup_s": (setup_s, "s")}
@@ -415,7 +432,8 @@ def main(argv=None, device=None, root: Path | None = None, overrides: dict | Non
     if args.trace:
         ctx = run.traced_window()
     else:
-        run.window(args.seconds)
+        run.window(args.seconds, device_clock=any(m["name"].split(".")[0] == "device_ms"
+                                                   for m in info["end_to_end"]))
     failed = run.failed
     t_window_end = time.time()
     peak = torch.cuda.max_memory_allocated() if run.cuda else 0
@@ -431,7 +449,7 @@ def main(argv=None, device=None, root: Path | None = None, overrides: dict | Non
         metrics = read_metrics(info, ctx)
     else:
         metrics = end_to_end(run.window_s, run.samples, run.unit_s, setup_s,
-                             [m["name"] for m in info["end_to_end"]])
+                             [m["name"] for m in info["end_to_end"]], run.device_busy_s)
     name = torch.cuda.get_device_name(0) if run.cuda else "cpu"
     dev = {"platform": "gpu" if run.cuda else "cpu", "kind": name,
            "count": info["entry"]["chips"] if run.cuda else 0, "memory_peak_bytes": peak,

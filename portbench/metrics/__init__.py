@@ -2,7 +2,8 @@
 per_layer list, found by the metric's name. Each has read(ctx) -> float or
 None, None where the traced run gave it nothing to read. ctx (built by
 harness.Run.traced_window): stage_s / stage_calls / stage_wall_s /
-stage_samples from the stage-timed units; sweeps (one record a sweep
+stage_samples from the stage-timed units; plain_s / plain_samples from the
+plain units (the cell's trace.plain_units, neither timer nor profiler); sweeps (one record a sweep
 call: name, ms, bytes, tests, bound_ms), prof_samples and
 device (busy_s, window_s, launches, breakdown) from the profiled units;
 build_s from set-up."""

@@ -19,6 +19,16 @@ def _medium(api, medium):
     return getattr(api, name)(**kw)
 
 
+def _material(api, material):
+    """api's material from (name, kwargs); a kwarg that is itself a
+    (name, kwargs) pair, as a Mix child is, is built the same way."""
+    name, kw = material
+    nested = lambda v: (isinstance(v, tuple) and len(v) == 2 and isinstance(v[0], str)
+                        and isinstance(v[1], dict))
+    return getattr(api, name)(**{k: _material(api, v) if nested(v) else v
+                                 for k, v in kw.items()})
+
+
 def build_scene(api, spec: dict, cfg: dict):
     """api.Scene with the spec's meshes, media and lights (media shared by
     identity, as Scene dedupes them)."""
@@ -28,11 +38,10 @@ def build_scene(api, spec: dict, cfg: dict):
         arr = m["mesh"]
         mesh = api.TriangleMesh(arr["vertices"], arr["faces"], normals=arr["normals"],
                                 uvs=arr["uvs"])
-        name, kw = m["material"]
         med = m.get("inside_medium")
         if med is not None and id(med) not in media:
             media[id(med)] = _medium(api, med)
-        s.add(mesh, getattr(api, name)(**kw),
+        s.add(mesh, _material(api, m["material"]),
               inside_medium=media.get(id(med)) if med is not None else None)
     for name, kw in spec["lights"]:
         s.add_light(getattr(api, name)(**kw))

@@ -4,7 +4,10 @@ cell added as files alone is found, and the window and bound arithmetic
 hold."""
 
 import json
+import os
 import shutil
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -12,7 +15,7 @@ import torch
 
 from portbench import bound, harness
 from portbench.control import main as control_main
-from portbench.tests.tiny import CELLS, overrides
+from portbench.tests.tiny import CELLS, overrides, traffic
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -34,15 +37,17 @@ def few_threads():
     torch.set_num_threads(n)
 
 
-def listed(cell, kind):
+def listed(cell, kind, host_only=False):
     manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
-    return {m["name"] for m in manifest[kind] if cell in m.get("workloads", [cell])}
+    return {m["name"] for m in manifest[kind] if cell in m.get("workloads", [cell])
+            and not (host_only and m["source"] == "device_trace")}
 
 
-# per-layer metrics a CPU run can read: the stage timers and the build;
-# the device's come from the card's profiler trace alone
+# per-layer metrics a CPU run can read: the stage timers, the plain units'
+# wall time and the build; the device's come from the card's profiler trace
+# alone
 CPU_LAYER = ("traversal_ms", "sampler_ms", "shading_ms", "lights_ms", "integrator_ms",
-             "build_s")
+             "wall_ms", "build_s")
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -55,7 +60,7 @@ def test_sound_run_is_correct(cell, trace):
         want = {m for m in listed(cell, "per_layer") if m.split(".")[0] in CPU_LAYER}
         assert set(out["metrics"]) == want
     else:
-        assert set(out["metrics"]) == listed(cell, "end_to_end")
+        assert set(out["metrics"]) == listed(cell, "end_to_end", host_only=True)
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -155,20 +160,46 @@ def _camera_carry(hk_mod):
     return lambda: setattr(vp, "render_lanes", orig)
 
 
+def _coat_run_unchanged(hk_mod):
+    """The sorted dispatch leaves CoatedDiffuseTransmission's run as it
+    found it: its lanes keep the dispatch's initial outputs (an invalid
+    sample, a zero evaluation), as if the walk had returned its state
+    unchanged."""
+    import hikari_tpu_torch.materials.types as mt
+
+    vp = hk_mod.integrators.volpath
+    orig = vp._sorted_type_dispatch
+
+    def skip(mat_type, per_lane, out_init, present, run_type):
+        return orig(mat_type, per_lane, out_init,
+                    [t for t in present if t != mt.COATED_DIFFUSE_TRANSMISSION], run_type)
+    vp._sorted_type_dispatch = skip
+    return lambda: setattr(vp, "_sorted_type_dispatch", orig)
+
+
+# the faults a cell can have, by its traffic's kind; a wavefronts cell under
+# sorted dispatch can also drop a material's run
 FAULTS = {
-    "mesh_scene.final": [_unchanged_bounce, _half_batch, _altered_hits, _camera_carry],
-    "mesh_scene.preview": [_preview_unchanged, _preview_half, _altered_hits],
+    "wavefronts": [_unchanged_bounce, _half_batch, _altered_hits, _camera_carry],
+    "frames": [_preview_unchanged, _preview_half, _altered_hits],
 }
+SORTED_FAULTS = [_coat_run_unchanged]
 
 
-@pytest.mark.parametrize("cell,fault", [(c, f) for c in CELLS for f in range(len(FAULTS[c]))])
+def faults(cell):
+    mix = traffic(cell)
+    extra = SORTED_FAULTS if mix.get("volpath", {}).get("material_coherence") == "sorted" else []
+    return FAULTS[mix["kind"]] + extra
+
+
+@pytest.mark.parametrize("cell,fault", [(c, f.__name__) for c in CELLS for f in faults(c)])
 def test_planted_fault_is_caught(cell, fault):
     import hikari_tpu_torch as hk_mod
     import hikari_tpu_torch.geometry.wavefront  # noqa: F401
     import hikari_tpu_torch.integrators.preview  # noqa: F401
     import hikari_tpu_torch.integrators.volpath  # noqa: F401
 
-    undo = FAULTS[cell][fault](hk_mod)
+    undo = {f.__name__: f for f in faults(cell)}[fault](hk_mod)
     try:
         out = run_cell(cell, seed=424242)
     finally:
@@ -176,22 +207,88 @@ def test_planted_fault_is_caught(cell, fault):
     assert not out["correct"], out["checks"]
 
 
-def test_cell_added_as_files_is_found(tmp_path):
+# a throwaway configuration's scene maker, written as a new file: a floor
+# under Mix(CoatedConductor, Matte) and a CoatedConductor sphere. The Mix's
+# amount 1 takes its first child on every hit: mix_u hashes the hit's face
+# row, in the program's BVH leaf order, and the reference (no BVH) keeps the
+# input order, so a split amount picks other children on the two sides.
+THROWAWAY_SCENE = '''"""A test's scene: coats and a Mix, under a point light."""
+
+from .meshes import make_quad, make_sphere
+
+
+def make(cfg):
+    coat = ("CoatedConductor", {})
+    mix = ("Mix", {"m1": coat, "m2": ("Matte", {"kd": (0.8, 0.2, 0.2)}), "amount": 1.0})
+    meshes = [(make_quad((-2, 0, -2), (2, 0, -2), (2, 0, 2), (-2, 0, 2)), mix),
+              (make_sphere((0.0, 0.5, 0.0), 0.5, *cfg["sphere_res"]), coat)]
+    return {"meshes": [dict(mesh=m, material=mat) for m, mat in meshes],
+            "lights": [("PointLight", {"position": (0.0, 3.0, -1.0),
+                                       "intensity": (20.0, 20.0, 20.0)})],
+            "sunsky": None}
+'''
+THROWAWAY_CONFIG = {"name": "throwaway", "scene": "throwaway", "resolution": [16, 16],
+                    "max_depth": 3, "sphere_res": [8, 16], "light_sampler": "power",
+                    "camera": {"eye": [0.0, 2.0, -3.0], "look_at": [0.0, 0.3, 0.0],
+                               "fov_deg": 45.0}}
+# the run, in a fresh interpreter whose portbench is the copy's
+RUN_IN_COPY = """
+import json, sys
+import portbench
+from portbench.harness import main
+print("portbench from", portbench.__file__, file=sys.stderr)
+sys.exit(main(sys.argv[1:-1], device="cpu", overrides=json.loads(sys.argv[-1])))
+"""
+
+
+@pytest.mark.parametrize("new_config", [False, True])
+def test_cell_added_as_files_is_found(tmp_path, new_config):
+    """A cell of an existing configuration and traffic, or of a new
+    configuration with its own scene maker, found from its files and its
+    manifest entries alone."""
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
     shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__", ".cache"))
+    bench = tmp_path / "portbench"
     manifest = json.loads((tmp_path / "BENCHMARK.json").read_text())
-    manifest["workloads"].append({"name": "mesh_scene.throwaway", "config": "mesh_scene",
-                                  "traffic": "preview", "chips": 1, "why": "a test's cell"})
+    if new_config:
+        name, like = "throwaway.final", "mesh_scene.final"
+        (bench / "scenes/throwaway.py").write_text(THROWAWAY_SCENE)
+        (bench / "configs/throwaway.json").write_text(json.dumps(THROWAWAY_CONFIG))
+        manifest["configs"].append({"name": "throwaway", "source": "a test",
+                                    "file": "portbench/configs/throwaway.json", "reduced": [],
+                                    "why": "a test's configuration"})
+        cell = {"config": "throwaway", "traffic": "final",
+                "traffic_params": {"volpath": {"samples_per_pixel": 8, "sample_batch": 2,
+                                               "material_coherence": "sorted"}}}
+    else:
+        name, like = "mesh_scene.throwaway", "mesh_scene.preview"
+        cell = {"config": "mesh_scene", "traffic": "preview"}
+    manifest["workloads"].append(dict(name=name, chips=1, why="a test's cell",
+                                      **{k: cell[k] for k in ("config", "traffic")}))
     manifest["end_to_end"].append({"name": "sample_ms.throwaway", "unit": "ms", "better": "lower",
-                                   "bound": 0.25, "source": "host_clock",
-                                   "workloads": ["mesh_scene.throwaway"]})
+                                   "bound": 0.25, "source": "host_clock", "workloads": [name]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(manifest))
-    cell = json.loads((ROOT / "portbench/workloads/mesh_scene.preview.json").read_text())
-    (tmp_path / "portbench/workloads/mesh_scene.throwaway.json").write_text(json.dumps(cell))
-    out = run_cell("mesh_scene.throwaway", root=tmp_path,
-                   ov=overrides("mesh_scene.preview"))
-    assert out["correct"] and set(out["metrics"]) == {"sample_ms.throwaway", "setup_s"}
+    spec = json.loads((bench / f"workloads/{like}.json").read_text())
+    (bench / f"workloads/{name}.json").write_text(json.dumps(dict(spec, **cell)))
+    if not new_config:
+        out = run_cell(name, root=tmp_path, ov=overrides(like))
+    else:
+        ov = overrides(name, root=tmp_path)
+        assert ov["traffic"]["volpath"]["material_coherence"] == "sorted"
+        # a checkout: the copy's portbench beside the program
+        (tmp_path / "hikari_tpu_torch").symlink_to(ROOT / "hikari_tpu_torch")
+        env = dict(os.environ, USE_FLAX="0")
+        env.pop("PYTHONPATH", None)
+        proc = subprocess.run([sys.executable, "-c", RUN_IN_COPY, "--workload", name, "--seed",
+                               "2147483701", "--seconds", "0.5", "--trace", "0",
+                               json.dumps(ov)], cwd=tmp_path, env=env, capture_output=True,
+                              text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        assert f"portbench from {bench / '__init__.py'}" in proc.stderr
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["correct"], out["checks"]
+    assert set(out["metrics"]) == {"sample_ms.throwaway", "setup_s"}
 
 
 def test_window_arithmetic(monkeypatch):
@@ -223,6 +320,58 @@ def test_window_arithmetic(monkeypatch):
     times = [i / 1000 for i in range(1, 201)]
     m = harness.end_to_end(1.0, 200, times, 1.0, ["frame_ms_p95"])
     assert list(m) == ["frame_ms_p95"] and m["frame_ms_p95"]["value"] == pytest.approx(190.05)
+
+
+def test_device_ms_over_the_window():
+    m = harness.end_to_end(2.0, 8, [1.0, 1.0], 3.0, ["device_ms.split", "sample_ms", "setup_s"],
+                           busy_s=0.4)
+    assert m["device_ms.split"] == {"value": pytest.approx(50.0), "unit": "ms"}
+    assert m["sample_ms"]["value"] == pytest.approx(250.0)
+    # a run with no device clock (a CPU run) reports no device_ms
+    assert "device_ms" not in harness.end_to_end(2.0, 8, [1.0], 3.0, ["device_ms", "setup_s"])
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_union_of_device_intervals(seed):
+    import random
+
+    from portbench import profile_read
+
+    rng = random.Random(seed)
+    iv = [(a, a + rng.randint(0, 60)) for a in (rng.randint(0, 900) for _ in range(50))]
+    want = sum(e - s for s, e in profile_read._merge(iv)) * 1e-9
+    got = profile_read.union_s([s for s, _ in iv], [e for _, e in iv])
+    assert got == pytest.approx(want, rel=0, abs=1e-15)
+    assert profile_read.union_s([], []) == 0.0
+    assert profile_read.union_s([0, 10, 20], [10, 20, 25]) == pytest.approx(25e-9)
+
+
+def test_device_clock_counts_device_operations_alone():
+    from torch.autograd import DeviceType
+
+    from portbench import profile_read
+
+    class Event:
+        def __init__(self, dev, start, dur):
+            self.dev, self.start, self.dur = dev, start, dur
+
+        def device_type(self):
+            return self.dev
+
+        def start_ns(self):
+            return self.start
+
+        def duration_ns(self):
+            return self.dur
+
+    events = [Event(DeviceType.CUDA, 0, 10), Event(DeviceType.CPU, 5, 100),
+              Event(DeviceType.CUDA, 5, 10), Event(DeviceType.CUDA, 40, 5)]
+    clock = profile_read.DeviceClock()
+    clock.prof = type("P", (), {"profiler": type("R", (), {"kineto_results": type(
+        "K", (), {"events": staticmethod(lambda: events)})})})
+    clock.stop_s = 0.0
+    assert clock.busy_s() == pytest.approx(20e-9)
+    assert not hasattr(clock, "prof")
 
 
 def test_bound_on_a_hand_made_sweep_call():
@@ -271,6 +420,42 @@ def test_reference_traversal_agrees_with_the_program_on_a_tiny_scene():
     assert torch.allclose(a.t[a.hit], b.t[b.hit], rtol=1e-5)
     t_max = torch.rand(512, generator=g) * 3
     assert torch.equal(hk.scene_any_hit(prog, o, d, t_max), rvp.scene_any_hit(ref, o, d, t_max))
+
+
+# the program's modules whose exported names build a scene
+SCENE_MODULES = ("scene.", "core.transform", "materials.", "lights.", "media.", "camera.",
+                 "textures.")
+
+
+def test_reference_has_every_scene_building_name():
+    """Each scene-building name of the program resolves in the reference's
+    api to its frozen copy, or the api's docstring names it as having none."""
+    import hikari_tpu_torch as hk
+
+    from portbench.ref import api as rapi
+
+    names = [n for n in hk.__all__
+             if getattr(getattr(hk, n), "__module__", "").removeprefix(
+                 "hikari_tpu_torch.").startswith(SCENE_MODULES)]
+    assert {"CoatedConductor", "Mix", "Plastic", "Gold", "SpotLight", "HomogeneousMedium",
+            "make_sphere", "ImageTexture"} <= set(names)
+    missing = [n for n in names if not hasattr(rapi, n)]
+    assert all(f"``{n}``" in rapi.__doc__ for n in missing), missing
+    for n in set(names) - set(missing):
+        assert getattr(rapi, n).__module__.startswith("portbench.ref.hk."), n
+        assert getattr(rapi, n).__name__ == getattr(hk, n).__name__, n
+
+
+def test_sphere_is_the_programs():
+    """The scene maker's sphere is the program's make_sphere, array for array."""
+    import numpy as np
+
+    from hikari_tpu_torch.scene.mesh import make_sphere as prog_sphere
+    from portbench.scenes.meshes import make_sphere
+
+    a, b = make_sphere((0.6, 0.45, 0.2), 0.42, 32, 64), prog_sphere((0.6, 0.45, 0.2), 0.42, 32, 64)
+    for k in ("vertices", "faces", "normals", "uvs"):
+        assert np.array_equal(a[k], getattr(b, k)), k
 
 
 @pytest.mark.parametrize("subdiv", [0, 1, 3])
